@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""Drive openvm_tpu_torch's trace-commitment pipeline on one CUDA card.
+"""Drive openvm_tpu_torch's ported paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout; the first run builds the CUDA kernels from
-openvm_tpu_torch/csrc into build/ (nvcc, sm_90a).  Phases, each printing one
-JSON line:
+openvm_tpu_torch/csrc into build/ (nvcc, sm_90a, one process per source).
+Phases, each printing one JSON line:
 
   setup     build the kernels, name the card and its power limit
   pinned    the kernels reproduce the vectors of
-            tests/test_bitcompat_fixtures.py; the challenger's too
-  variants  every coset_lde argument, kernel against plain, mid-size
-  main      one RV32IM segment's common-main commit at full size: the
-            matrix widths of the VM's AIRs, heights at the fib_e2e segment
-            cap (1,048,476 rows) padded to 2^20; to_monty -> coset LDE
-            batched by height -> Merkle commit -> observe the root, sample
-            84 query indices -> open -> verify on the host
-  plain     the same pipeline through the plain PyTorch versions on the
-            card: every LDE, every digest layer and the root must be equal
-  timing    each kernel and its plain version at the main path's shapes
+            tests/test_bitcompat_fixtures.py and the challenger's; the
+            codec reproduces the pinned blob; a small proof's bytes have
+            the SHA-256 that openvm_tpu gives, and a wrong public value
+            fails
+  variants  every new kernel and every coset_lde argument, kernel against
+            plain, mid-size
+  main      path 1, one RV32IM segment's common-main commit at full size:
+            the matrix widths of the VM's AIRs, heights at the fib_e2e
+            segment cap (1,048,476 rows) padded to 2^20; to_monty -> coset
+            LDE batched by height -> Merkle commit -> observe the root,
+            sample 84 query indices -> gather the openings (K6) -> verify
+            on the host
+  plain     path 1 through the plain PyTorch versions on the card: every
+            LDE, every digest layer and the root must be equal
+  prove     path 2, the STARK prover at full size: keygen -> prove ->
+            verify over FibonacciAir at 2^22 and 2^20 (the kitchen_sink and
+            fib_e2e segment caps, 4,194,204 and 1,048,476 rows, padded) and
+            CubeAir at 2^18 (preprocessed column, cached main, degree 3),
+            84 queries and 16 PoW bits
+  timing    each kernel and its plain version at the paths' shapes
 
 then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -27,6 +37,7 @@ compute over integers, so every comparison is exact equality.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -35,12 +46,16 @@ import time
 import numpy as np
 import torch
 
-from openvm_tpu_torch import _build, merkle, ntt, poseidon2 as p2
+from openvm_tpu_torch import _build, fri, merkle, ntt, poseidon2 as p2, stark
 from openvm_tpu_torch.challenger import DuplexChallenger
 from openvm_tpu_torch.field import babybear as bb
+from openvm_tpu_torch.field import ext as ef
+from openvm_tpu_torch.stark import codec, prover as pv, quotient as qmod
 from openvm_tpu_torch.stark.config import FriParameters, StarkConfig
+from openvm_tpu_torch.stark.symbolic import SymbolicDag
 
 SEED = 0
+P = bb.P
 
 # (AIR, log2 height, width): VirtualMachine(Rv32Config()).airs widths of a
 # fibonacci segment's busiest chips, at the fib_e2e segment cap padded to
@@ -49,6 +64,11 @@ SEGMENT = [("BaseAluAir", 20, 45), ("LoadStoreAir", 20, 56),
            ("BranchEqAir", 19, 29), ("BranchLtAir", 19, 37),
            ("JalLuiAir", 18, 20), ("RangeCheckerAir", 17, 1),
            ("BitwiseLookupAir", 16, 2)]
+
+# Path 2: (AIR, log2 height).  FibonacciAir at the kitchen_sink and
+# fib_e2e segment caps padded to powers of two (SURVEY.md:568); CubeAir
+# gives FRI a third injected height and the quotient its lqd 1 case.
+PROVE_AIRS = [("fib", 22), ("fib", 20), ("cube", 18)]
 
 # tests/test_bitcompat_fixtures.py:21-78
 PERM_0_15 = [1952993082, 1617884793, 90683999, 1056283110,
@@ -59,6 +79,13 @@ HASH_ROWS_0 = [792144724, 998142365, 1110522868, 131779120,
                85566828, 51797263, 1511264494, 935419835]
 MERKLE_ROOT = [512692767, 1522905392, 880658602, 995090898,
                1116979930, 1561754655, 1474458837, 453321358]
+# tests/test_bitcompat_fixtures.py:134-135 (the 665-byte codec blob)
+CODEC_BLOB_SHA256 = \
+    "ca080bacdcea1da8b75aae72aee556cf11cc57b8382a445a8195d7ca9db0b176"
+# tests/test_torch_prover.py: openvm_tpu's proof of FibonacciAir at 2^4
+# under tests/test_stark_e2e.py's TEST_CONFIG
+FIB16_PROOF_SHA256 = \
+    "1b09cd57dc4a14d42f04991a1556d20ffbe22d93829c46944fe6ea150558f2e8"
 
 # Bounds.  Bytes: each input read once, each output written once, over the
 # H100's 3.35 TB/s.  Operations: 32-bit integer ALU operations, a
@@ -76,6 +103,17 @@ MUL_OPS, ADD_OPS = 8, 3
 PERM_MULS = 8 * 16 * 4 + 13 * (4 + 16)
 PERM_ADDS = 72 + 8 * (16 + 72) + 13 * (1 + 15 + 16)
 PERM_OPS = PERM_MULS * MUL_OPS + PERM_ADDS * ADD_OPS
+# Extension arithmetic: a product is 19 Montgomery products and 12 adds; a
+# base inverse by square and multiply is 31 squarings and a product per set
+# bit of p - 2; an extension inverse adds three Frobenius maps (9
+# products), two extension products, the norm (4 products, 3 adds) and a
+# scale.
+EXT_ADD = 4 * ADD_OPS
+EXT_SCALE = 4 * MUL_OPS
+EXT_MUL = 19 * MUL_OPS + 12 * ADD_OPS
+BB_INV = (31 + bin(P - 2).count("1")) * MUL_OPS
+EXT_INV = 9 * MUL_OPS + 2 * EXT_MUL + 4 * MUL_OPS + 3 * ADD_OPS + BB_INV + EXT_SCALE
+NO_LIBRARY = "no single PyTorch call computes this function"
 
 
 def emit(obj) -> None:
@@ -114,21 +152,137 @@ def bound(nbytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def batched_plain_ldes(mats: list, log_blowup: int) -> list:
-    """ntt.batched_coset_ldes through ntt.coset_lde_plain."""
-    by_h: dict = {}
-    for k, m in enumerate(mats):
-        by_h.setdefault(int(m.shape[0]), []).append(k)
-    ldes = [None] * len(mats)
-    for idxs in by_h.values():
-        y = ntt.coset_lde_plain(torch.cat([mats[k] for k in idxs], dim=1),
-                                log_blowup)
-        off = 0
-        for k in idxs:
-            ldes[k] = y[:, off:off + mats[k].shape[1]]
-            off += mats[k].shape[1]
-    return ldes
+def words(rng, dev, *shape) -> torch.Tensor:
+    """Random Montgomery words on ``dev``."""
+    return bb.from_numpy(bb.to_monty_np(rng.integers(0, P, size=shape,
+                                                     dtype=np.uint64)), device=dev)
 
+
+# ---------------------------------------------------------------------------
+# The AIRs of path 2 and their traces
+# ---------------------------------------------------------------------------
+
+class FibonacciAir(stark.Air):
+    """a' = b, b' = a + b; pvs [a0, b0, b_last] (tests/test_stark_e2e.py:19)."""
+
+    name = "fib"
+    width = 2
+    num_public_values = 3
+
+    def eval(self, b):
+        a, bcol = b.main(0), b.main(1)
+        a_n, b_n = b.main(0, offset=1), b.main(1, offset=1)
+        with b.when_first_row():
+            b.assert_eq(a, b.public_value(0))
+            b.assert_eq(bcol, b.public_value(1))
+        with b.when_transition():
+            b.assert_eq(a_n, bcol)
+            b.assert_eq(b_n, a + bcol)
+        with b.when_last_row():
+            b.assert_eq(bcol, b.public_value(2))
+
+
+class CubeAir(stark.Air):
+    """x' = x*y + c on transitions (degree 3 with the selector), y a cached
+    main partition, c = row index preprocessed; x at the first and last row
+    public (tests/test_torch_prover.py's CubeAir)."""
+
+    name = "cube"
+    width = 1
+    cached_main_widths = (1,)
+    num_public_values = 2
+
+    def __init__(self, log_n):
+        self.log_n = log_n
+
+    def preprocessed_trace(self):
+        return np.arange(1 << self.log_n, dtype=np.uint64)[:, None]
+
+    def eval(self, b):
+        x, x_next = b.main(0), b.main(0, offset=1)
+        y, c = b.main(0, part=0), b.preprocessed(0)
+        with b.when_first_row():
+            b.assert_eq(x, b.public_value(0))
+        with b.when_transition():
+            b.assert_eq(x_next, x * y + c)
+        with b.when_last_row():
+            b.assert_eq(x, b.public_value(1))
+
+
+def fib_trace(n: int) -> np.ndarray:
+    """Rows (F_i, F_i+1) mod p by doubling: row i+k = M^k row i with
+    M^k = [[F_k-1, F_k], [F_k, F_k+1]]."""
+    rows = np.zeros((n, 2), dtype=np.uint64)
+    rows[0] = (0, 1)
+    k = 1
+    while k < n:
+        f_km1, f_k = (int(v) for v in rows[k - 1])  # (F_k-1, F_k)
+        f_kp1 = (f_km1 + f_k) % P
+        m = min(k, n - k)
+        a, b = rows[:m, 0], rows[:m, 1]
+        rows[k:k + m, 0] = (np.uint64(f_km1) * a % P + np.uint64(f_k) * b % P) % P
+        rows[k:k + m, 1] = (np.uint64(f_k) * a % P + np.uint64(f_kp1) * b % P) % P
+        k += m
+    return rows
+
+
+def cube_trace(log_n: int, seed: int):
+    n = 1 << log_n
+    y = np.random.default_rng(seed).integers(0, P, size=n, dtype=np.uint64)
+    x = np.zeros(n, dtype=np.uint64)
+    xi = 5
+    for i, yi in enumerate(y.tolist()):
+        x[i] = xi
+        xi = (xi * yi + i) % P
+    return x[:, None], y[:, None], [5, int(x[-1])]
+
+
+def prove_inputs(airs_spec, seed: int):
+    airs, ctxs = [], []
+    for air_id, (kind, log_n) in enumerate(airs_spec):
+        if kind == "fib":
+            t = fib_trace(1 << log_n)
+            airs.append(FibonacciAir())
+            ctxs.append(stark.AirProvingContext(
+                air_id=air_id, common_main=t, public_values=[0, 1, int(t[-1, 1])]))
+        else:
+            x, y, pvs = cube_trace(log_n, seed + air_id)
+            airs.append(CubeAir(log_n))
+            ctxs.append(stark.AirProvingContext(
+                air_id=air_id, common_main=x, cached_mains=[y], public_values=pvs))
+    return airs, ctxs
+
+
+def random_dag(rng, n_ops: int) -> tuple:
+    """A random constraint DAG over two main parts (3 and 2 columns), a
+    preprocessed matrix (2), a permutation matrix (2 ext columns), 3
+    publics, 2 challenges, 1 exposed value and the selectors; operands come
+    from the last 16 nodes or from the leaves, so the program's live slots
+    stay bounded.  Returns (nodes, roots)."""
+    nodes = [("const", 0), ("const", 1), ("const", P - 1), ("const", 12345)]
+    nodes += [("var", "main", part, off, c) for part, w in enumerate((3, 2))
+              for c in range(w) for off in (0, 1)]
+    nodes += [("var", "preprocessed", 0, off, c) for c in range(2) for off in (0, 1)]
+    nodes += [("var", "permutation", 0, off, c) for c in range(2) for off in (0, 1)]
+    nodes += [("var", "public", 0, 0, k) for k in range(3)]
+    nodes += [("var", "challenge", 0, 0, k) for k in range(2)]
+    nodes += [("var", "exposed", 0, 0, 0)]
+    nodes += [("sel", s) for s in qmod.SELECTORS]
+    n_leaves = len(nodes)
+    for _ in range(n_ops):
+        k = len(nodes)
+        ab = [int(rng.integers(0, n_leaves)) if rng.random() < 0.3
+              else int(rng.integers(max(0, k - 16), k)) for _ in range(2)]
+        op = ("add", "sub", "mul", "mul", "neg")[int(rng.integers(0, 5))]
+        nodes.append(("neg", ab[0]) if op == "neg" else (op, ab[0], ab[1]))
+    roots = sorted(int(x) for x in rng.choice(
+        np.arange(n_leaves, len(nodes)), size=n_ops // 20, replace=False))
+    return nodes, roots + [n_leaves - 1]
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
 
 def phase_setup(dev) -> dict:
     t0 = time.perf_counter()
@@ -147,6 +301,38 @@ def phase_setup(dev) -> dict:
           "ptxas": ptxas})
     print(smi.splitlines()[0], flush=True)
     return {"nvidia_smi": smi}
+
+
+def codec_blob() -> bytes:
+    """tests/test_bitcompat_fixtures.py:91-126's proof, through the port."""
+
+    def d(s):
+        return np.arange(s, s + 8, dtype=np.uint64)
+
+    def ext(s):
+        return (s, s + 1, s + 2, s + 3)
+
+    adj = pv.AdjacentOpenedValues(local=[ext(10), ext(20)], next=[ext(30), ext(40)])
+    proof = pv.Proof(
+        commitments=pv.Commitments(main_trace=[d(100), d(200)],
+                                   after_challenge=[d(300)], quotient=d(400)),
+        opening=pv.Opening(
+            proof=fri.FriProof(
+                commit_phase_commits=[d(500)],
+                query_proofs=[fri.QueryProof(
+                    input_proof=[fri.BatchOpening(opened_values=[[1, 2, 3], [4, 5]],
+                                                  opening_proof=[d(600)])],
+                    commit_phase_openings=[fri.CommitPhaseStep(
+                        sibling_value=ext(50), opening_proof=[d(700)])])],
+                final_poly=[ext(60)], pow_witness=777),
+            values=pv.OpeningValues(preprocessed=[adj], main=[[adj]],
+                                    after_challenge=[[adj]],
+                                    quotient=[[[ext(70), ext(80)]]])),
+        per_air=[pv.AirProofData(air_id=0, log_degree=3,
+                                 exposed_values_after_challenge=[[ext(90)]],
+                                 public_values=[7, 8])],
+        air_perm_by_height=[0], log_up_pow_witness=999)
+    return codec.encode_proof(proof)
 
 
 def phase_pinned(dev) -> None:
@@ -168,11 +354,36 @@ def phase_pinned(dev) -> None:
     ch2.observe_ext((1, 2, 3, 4))
     require(ch2.sample_ext() == (1548460626, 39002199, 1146611958, 137492534),
             "challenger sample_ext")
-    emit({"phase": "pinned", "ok": True})
+    blob = codec_blob()
+    require(len(blob) == 665 and hashlib.sha256(blob).hexdigest()
+            == CODEC_BLOB_SHA256, "codec blob")
+    # the small proof of tests/test_stark_e2e.py:75-84 on the card
+    cfg = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=4,
+                                        proof_of_work_bits=2))
+    trace = fib_trace(16)
+    pk = stark.keygen([FibonacciAir()], cfg, device=dev)
+    for main in (trace, bb.monty(trace, device=dev)):  # numpy, or on the card
+        proof = stark.prove(pk, [stark.AirProvingContext(
+            air_id=0, common_main=main, public_values=[0, 1, int(trace[-1, 1])])],
+            device=dev)
+        proof_sha = hashlib.sha256(codec.encode_proof(proof)).hexdigest()
+        require(proof_sha == FIB16_PROOF_SHA256, f"small proof sha {proof_sha}")
+    stark.verify(pk.vk, proof)
+    try:
+        bad = stark.prove(pk, [stark.AirProvingContext(
+            air_id=0, common_main=trace,
+            public_values=[0, 1, (int(trace[-1, 1]) + 1) % P])], device=dev)
+        stark.verify(pk.vk, bad)
+        wrong_public_fails = False
+    except (stark.VerificationError, AssertionError) as e:
+        wrong_public_fails = "constant" in str(e) or "constraint" in str(e)
+    require(wrong_public_fails, "a wrong public value was accepted")
+    emit({"phase": "pinned", "ok": True, "codec_blob_sha256": CODEC_BLOB_SHA256,
+          "small_proof_sha256": proof_sha, "wrong_public_value_fails": True})
 
 
 def phase_variants(dev, rng) -> None:
-    """Every coset_lde argument and ntt/intt, kernel against plain."""
+    """Every kernel against its plain version at mid sizes."""
     errs = {}
     for log_n, w in ((0, 5), (1, 3), (12, 45)):
         x = bb.monty(rng.integers(0, bb.P, size=(1 << log_n, w)), device=dev)
@@ -198,13 +409,83 @@ def phase_variants(dev, rng) -> None:
     for w in (1, 7, 8, 9, 45):
         m = bb.monty(rng.integers(0, bb.P, size=(300, w)), device=dev)
         errs[f"hash_rows/{w}"] = max_abs_err(p2.hash_rows(m), p2.hash_rows_plain(m))
+
+    # K2, zeros included (inv(0) = 0), a one-element operand broadcast
+    ea, eb = words(rng, dev, 4096, 4), words(rng, dev, 4096, 4)
+    ea[:7] = 0
+    es = words(rng, dev, 4096)
+    for name in ("mul", "add", "sub"):
+        fn, plain = getattr(ef, name), getattr(ef, name + "_plain")
+        errs[f"ext_{name}"] = max_abs_err(fn(ea, eb), plain(ea, eb))
+        errs[f"ext_{name}/bcast"] = max_abs_err(fn(ea, eb[3]), plain(ea, eb[3]))
+    errs["ext_scale"] = max_abs_err(ef.scale(ea, es), ef.scale_plain(ea, es))
+    errs["ext_scale/bcast"] = max_abs_err(ef.scale(ea, es[5]), ef.scale_plain(ea, es[5]))
+    errs["ext_inv"] = max_abs_err(ef.inv(ea), ef.inv_plain(ea))
+    require(int(ef.inv(ea)[:7].abs().max()) == 0, "ext inv(0) != 0")
+    errs["ext_powers/4099"] = max_abs_err(ef.powers(eb[9], 4099),
+                                          ef.powers_plain(eb[9], 4099))
+
+    # K7+K11: a random DAG of ~2,000 nodes at 2^12 rows, next_step 2
+    nodes, roots = random_dag(rng, 1960)
+    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    log_n, lqd = 11, 1
+    prog = qmod.compile_dag(
+        dag, n_main=2, has_preprocessed=True, has_perm=True,
+        publics=bb.to_monty_np(rng.integers(0, P, size=3)),
+        challenges=bb.to_monty_np(rng.integers(0, P, size=(2, 4))),
+        exposed=bb.to_monty_np(rng.integers(0, P, size=(1, 4))))
+    srcs = [words(rng, dev, 1 << (log_n + 1), w) for w in (3, 2, 2, 8)]
+    srcs[1] = torch.cat([srcs[1], srcs[2]], dim=1)[:, :2]  # a column slice
+    alpha = words(rng, dev, 4)
+    errs["quotient/dag2k"] = max_abs_err(
+        qmod.evaluate(prog, srcs, log_n, lqd, alpha),
+        qmod.evaluate_plain(prog, srcs, log_n, lqd, alpha))
+    fib_dag = stark.keygen([FibonacciAir()], StarkConfig(), device=dev).vk.per_air[0].dag
+    fprog = qmod.compile_dag(fib_dag, n_main=1, has_preprocessed=False,
+                             has_perm=False, publics=[1, 2, 3])
+    fsrc = [words(rng, dev, 1 << 13, 2)]
+    errs["quotient/fib"] = max_abs_err(qmod.evaluate(fprog, fsrc, 12, 0, alpha),
+                                       qmod.evaluate_plain(fprog, fsrc, 12, 0, alpha))
+
+    # K12, K13, K14 at 2^12; K12 on a column slice
+    coeffs = words(rng, dev, 4096, 9)[:, 2:7]
+    zp, geos = words(rng, dev, 4096, 4), words(rng, dev, 2, 4096)
+    for npts in (1, 2):
+        errs[f"open_dot/{npts}"] = max_abs_err(pv._open_dot(coeffs, zp, geos[:npts]),
+                                               pv._open_dot_plain(coeffs, zp, geos[:npts]))
+    mat, apows = words(rng, dev, 4096, 7)[:, 1:6], words(rng, dev, 6, 4)
+    for npts in (1, 2):
+        pts = [tuple(words(rng, dev, 4) for _ in range(3)) for _ in range(npts)]
+        ro = words(rng, dev, 4096, 4)
+        want = pv.reduced_open_plain(ro, mat, apows, pts)
+        errs[f"reduced_open/{npts}"] = max_abs_err(
+            pv.reduced_open(ro.clone(), mat, apows, pts), want)
+    ev, beta, ro = words(rng, dev, 4096, 4), words(rng, dev, 4), words(rng, dev, 2048, 4)
+    errs["fri_fold"] = max_abs_err(fri.fold_evals(ev, beta), fri.fold_evals_plain(ev, beta))
+    errs["fri_fold/ro"] = max_abs_err(fri.fold_evals(ev, beta, ro),
+                                      fri.fold_evals_plain(ev, beta, ro))
+    errs["fri_fold/2"] = max_abs_err(fri.fold_evals(ev[:2], beta),
+                                     fri.fold_evals_plain(ev[:2], beta))
+
+    # K6 on a mixed-height tree: rows, paths and fold-style siblings
+    mats = [words(rng, dev, h, w) for h, w in ((4096, 5), (1024, 3), (4096, 2), (256, 9))]
+    tree = merkle.commit(mats)
+    plan = merkle.GatherPlan()
+    plan.add_tree(tree)
+    plan.add_tree(tree, 3, rows=False)
+    plan.add(ev, 1, 1)
+    idx = rng.integers(0, 4096, size=84).tolist()
+    errs["gather"] = max_abs_err(plan.run_device(idx), plan.run_plain(idx))
     bad = {k: v for k, v in errs.items() if v}
-    emit({"phase": "variants", "cases": len(errs), "mismatched": bad})
+    emit({"phase": "variants", "cases": len(errs), "mismatched": bad,
+          "quotient_dag": {"nodes": len(nodes), "roots": len(roots),
+                           "instructions": int(prog.code.shape[0]),
+                           "slots": prog.n_slots}})
     require(not bad, f"kernel and plain disagree: {bad}")
 
 
 def run_main(traces: list, cfg: StarkConfig) -> dict:
-    """The main path, through the port's public entry points."""
+    """Path 1, through the port's public entry points."""
     lb = cfg.fri.log_blowup
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -218,19 +499,32 @@ def run_main(traces: list, cfg: StarkConfig) -> dict:
     ch.observe_slice(tree.root)
     log_max = tree.max_height().bit_length() - 1
     indices = [ch.sample_bits(log_max) for _ in range(cfg.fri.num_queries)]
-    openings = [merkle.open_row(tree, i) for i in indices]
+    gathered = merkle.gather_rows_device(tree, indices)  # one K6 launch
     t3 = time.perf_counter()
     dims = [(int(m.shape[0]), int(m.shape[1])) for m in tree.matrices]
-    rows_by_mat = [np.stack([rows[k] for rows, _ in openings])
-                   for k in range(len(dims))]
-    sibs = [np.stack([proof[k] for _, proof in openings])
-            for k in range(len(openings[0][1]))]
-    ok = merkle.verify_batch_queries(tree.root, dims, indices, rows_by_mat, sibs)
+    ok = merkle.verify_batch_queries(tree.root, dims, indices,
+                                     gathered["mats"], gathered["sibs"])
     t4 = time.perf_counter()
     return {"monty": monty, "ldes": ldes, "tree": tree, "indices": indices,
-            "ok": ok, "log_max": log_max, "dims": dims,
+            "ok": ok, "log_max": log_max, "dims": dims, "gathered": gathered,
             "s": {"to_monty_lde": t1 - t0, "commit": t2 - t1, "open": t3 - t2,
                   "verify": t4 - t3}}
+
+
+def run_prove(dev, cfg: StarkConfig, airs, ctxs) -> dict:
+    """Path 2: keygen -> prove -> verify through the port's entry points."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pk = stark.keygen(airs, cfg, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stages: dict = {}
+    proof = stark.prove(pk, ctxs, device=dev, stages=stages)
+    t2 = time.perf_counter()
+    stark.verify(pk.vk, proof)
+    t3 = time.perf_counter()
+    return {"pk": pk, "proof": proof, "stages_s": stages,
+            "s": {"keygen": t1 - t0, "prove": t2 - t1, "verify": t3 - t2}}
 
 
 def main() -> int:
@@ -248,7 +542,7 @@ def run(dev: torch.device) -> int:
     phase_pinned(dev)
     phase_variants(dev, rng)
 
-    # ---- main path ------------------------------------------------------
+    # ---- path 1: the segment commit ---------------------------------------
     cfg = StarkConfig(fri=FriParameters.standard_with_100_bits_conjectured_security(1))
     canon = [rng.integers(0, bb.P, size=(1 << lh, w), dtype=np.uint32)
              for _, lh, w in SEGMENT]
@@ -260,7 +554,9 @@ def run(dev: torch.device) -> int:
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tree = main["tree"]
-    require(all(launches.values()), f"a kernel never ran: {launches}")
+    path1 = ("bb_elementwise", "ntt", "poseidon2_hash_rows",
+             "poseidon2_compress_layer", "gather")
+    require(all(launches[k] for k in path1), f"a path-1 kernel never ran: {launches}")
     log_max = max(lh for _, lh, _ in SEGMENT) + cfg.fri.log_blowup
     require(len(main["indices"]) == cfg.fri.num_queries
             and main["log_max"] == log_max, "queries")
@@ -276,7 +572,7 @@ def run(dev: torch.device) -> int:
           "stage_s": s, "cells_per_s": cells / (s["to_monty_lde"] + s["commit"]),
           "peak_gb": peak_gb, "launches": launches})
 
-    # ---- the same pipeline through the plain versions ---------------------
+    # ---- path 1 through the plain versions ----------------------------------
     t0 = time.perf_counter()
     p_monty = [bb.to_monty_plain(t) for t in traces]
     err = {"bb_elementwise": max(max_abs_err(a, b) for a, b in zip(main["monty"], p_monty))}
@@ -289,15 +585,87 @@ def run(dev: torch.device) -> int:
     err["poseidon2_compress_layer"] = max(
         max_abs_err(a, b) for a, b in zip(tree.digest_layers[1:], p_layers[1:]))
     p_root = bb.canonical_np(p_layers[-1][0])
+    plan = merkle.GatherPlan()
+    plan.add_tree(tree)
+    p_gather = plan.run_plain(main["indices"]).cpu().numpy().astype(np.uint64)
+    k_gather = np.concatenate([a.reshape(-1) for a in
+                               main["gathered"]["mats"] + main["gathered"]["sibs"]])
+    err["gather"] = int(np.abs(p_gather.astype(np.int64) - k_gather.astype(np.int64)).max())
     require(all(v == 0 for v in err.values()), f"kernel and plain differ: {err}")
     require(p_root.tolist() == tree.root.tolist(), "plain root differs")
     emit({"phase": "plain", "root_equal": True, "max_abs_err": err,
           "s": time.perf_counter() - t0})
     del p_monty, p_ldes, p_layers
 
-    # ---- timing at the main path's shapes ---------------------------------
-    # K1: to_monty of the widest trace; K3: the LDE of the tallest batch;
-    # K4: the leaf hash; K5: the top layer with its injected digests.
+    # ---- path 2: keygen -> prove -> verify at full size ---------------------
+    airs, ctxs = prove_inputs(PROVE_AIRS, SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    proved = run_prove(dev, cfg, airs, ctxs)
+    p_launches = dict(_build.LAUNCHES)
+    p_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    require(all(p_launches.values()), f"a kernel of path 2 never ran: {p_launches}")
+    blob = codec.encode_proof(proved["proof"])
+    require(codec.encode_proof(codec.decode_proof(blob)) == blob, "codec round trip")
+    fri_proof = proved["proof"].opening.proof
+    require(len(fri_proof.query_proofs) == cfg.fri.num_queries
+            and len(fri_proof.commit_phase_commits)
+            == max(lh for _, lh in PROVE_AIRS), "FRI proof shape")
+    emit({"phase": "prove", "airs": PROVE_AIRS,
+          "rows": sum(1 << lh for _, lh in PROVE_AIRS),
+          "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
+          "verified": True, "s": proved["s"], "stage_s": proved["stages_s"],
+          "proof_bytes": len(blob), "proof_sha256": hashlib.sha256(blob).hexdigest(),
+          "peak_gb": p_peak_gb, "launches": p_launches})
+
+    kernels = timing(dev, setup, rng, main, err, traces, launches, proved,
+                     ctxs, cfg, p_launches)
+    print(setup["nvidia_smi"].splitlines()[0], flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def batched_plain_ldes(mats: list, log_blowup: int) -> list:
+    """ntt.batched_coset_ldes through ntt.coset_lde_plain."""
+    by_h: dict = {}
+    for k, m in enumerate(mats):
+        by_h.setdefault(int(m.shape[0]), []).append(k)
+    ldes = [None] * len(mats)
+    for idxs in by_h.values():
+        y = ntt.coset_lde_plain(torch.cat([mats[k] for k in idxs], dim=1),
+                                log_blowup)
+        off = 0
+        for k in idxs:
+            ldes[k] = y[:, off:off + mats[k].shape[1]]
+            off += mats[k].shape[1]
+    return ldes
+
+
+def quotient_ops(prog) -> int:
+    """Operations per row of a quotient program (see the constants above)."""
+    cost = {qmod.ADD_BB: ADD_OPS, qmod.SUB_BB: ADD_OPS, qmod.NEG_B: ADD_OPS,
+            qmod.MUL_BB: MUL_OPS, qmod.ADD_EE: EXT_ADD, qmod.SUB_EE: EXT_ADD,
+            qmod.NEG_E: EXT_ADD, qmod.MUL_EE: EXT_MUL, qmod.ADD_EB: ADD_OPS,
+            qmod.SUB_EB: ADD_OPS, qmod.SUB_BE: EXT_ADD, qmod.MUL_EB: EXT_SCALE,
+            qmod.FOLD_B: EXT_MUL + ADD_OPS, qmod.FOLD_E: EXT_MUL + EXT_ADD}
+    ops = sum(cost.get(int(op), 0) for op in prog.code[:, 0]) + EXT_SCALE
+    if prog.sel_mask & 1:
+        ops += ADD_OPS + BB_INV + MUL_OPS
+    if prog.sel_mask & 2:
+        ops += BB_INV + MUL_OPS
+    return ops + (ADD_OPS if prog.sel_mask else 0)
+
+
+def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
+           p_launches) -> list:
+    """Each kernel and its plain version at the paths' shapes."""
+    tree = main["tree"]
+    # ---- path 1 kernels: K1 to_monty of the widest trace; K3 the LDE of the
+    # tallest batch; K4 the leaf hash; K5 the top layer with injection; K6
+    # the 84 openings
     widest = traces[1]
     joined = torch.cat([main["monty"][0], main["monty"][1]], dim=1)
     leaf_in = torch.cat([main["ldes"][0], main["ldes"][1]], dim=1)
@@ -308,6 +676,46 @@ def run(dev: torch.device) -> int:
     log_n1 = n1.bit_length() - 1
     rows_leaf, w_leaf = leaf_in.shape
     h5 = top.shape[0] // 2
+    gplan = merkle.GatherPlan()
+    gplan.add_tree(tree)
+    idx = main["indices"]
+    g_words = len(idx) * sum(int(m.shape[1]) for m, _, _ in gplan.jobs)
+
+    # ---- path 2 kernels at the prove's shapes: FibonacciAir at 2^22
+    fib_dev = bb.to_monty(bb.from_numpy(ctxs[0].common_main.astype(np.uint32), device=dev))
+    log_n = int(fib_dev.shape[0]).bit_length() - 1
+    fib_lde, fib_coeffs = ntt.coset_lde(fib_dev, 1, return_coeffs=True)
+    vk0 = proved["pk"].vk.per_air[0]
+    prog = qmod.compile_dag(vk0.dag, n_main=1, has_preprocessed=False,
+                            has_perm=False,
+                            publics=[bb.to_monty_int(v) for v in ctxs[0].public_values])
+    alpha, zeta = words(rng, dev, 4), words(rng, dev, 4)
+    nq = 1 << log_n
+    zpows = ef.powers(zeta, nq)
+    g_n = bb.two_adic_generator_int(log_n)
+    geos = torch.stack([bb.from_numpy(pv._geo_series(m, nq), device=dev)
+                        for m in (1, g_n)])
+    apows = words(rng, dev, 3, 4)
+    pts = [tuple(words(rng, dev, 4) for _ in range(3)) for _ in range(2)]
+    ro0 = words(rng, dev, 2 * nq, 4)
+    fold_in, beta = words(rng, dev, 2 * nq, 4), words(rng, dev, 4)
+    errs = {
+        "ext_elementwise": max_abs_err(zpows, ef.powers_plain(zeta, nq)),
+        "gather": err["gather"],
+        "quotient": max_abs_err(qmod.evaluate(prog, [fib_lde], log_n, 0, alpha),
+                                qmod.evaluate_plain(prog, [fib_lde], log_n, 0, alpha)),
+        "open_dot": max_abs_err(pv._open_dot(fib_coeffs, zpows, geos),
+                                pv._open_dot_plain(fib_coeffs, zpows, geos)),
+        "fri_reduced_open": max_abs_err(
+            pv.reduced_open(ro0.clone(), fib_lde, apows, pts),
+            pv.reduced_open_plain(ro0, fib_lde, apows, pts)),
+        "fri_fold": max_abs_err(fri.fold_evals(fold_in, beta),
+                                fri.fold_evals_plain(fold_in, beta)),
+    }
+    err = {**err, **errs}
+    require(all(v == 0 for v in errs.values()), f"kernel and plain differ: {errs}")
+    w_f = int(fib_lde.shape[1])
+    ro_k = ro0.clone()
     cases = [
         ("bb_elementwise", "babybear.cu", "openvm_tpu/field/babybear.py:174",
          lambda: bb.to_monty(widest), lambda: bb.to_monty_plain(widest), 20, 3,
@@ -325,7 +733,42 @@ def run(dev: torch.device) -> int:
          lambda: merkle.compress_layer(top, inj),
          lambda: merkle.compress_layer_plain(top, inj), 10, 1,
          h5 * 32 * 4, h5 * 2 * PERM_OPS, [2 * h5, 8]),
+        ("ext_elementwise", "ext.cu", "openvm_tpu/field/ext.py:72",
+         lambda: ef.powers(zeta, nq), lambda: ef.powers_plain(zeta, nq), 5, 1,
+         nq * 16, nq * EXT_MUL, [nq, 4]),
+        ("gather", "gather.cu", "openvm_tpu/merkle.py:118",
+         lambda: gplan.run_device(idx), lambda: gplan.run_plain(idx), 20, 3,
+         g_words * 8, 0, [len(idx), len(gplan.jobs)]),
+        ("quotient", "quotient.cu", "openvm_tpu/stark/evaluator.py:29",
+         lambda: qmod.evaluate(prog, [fib_lde], log_n, 0, alpha),
+         lambda: qmod.evaluate_plain(prog, [fib_lde], log_n, 0, alpha), 5, 1,
+         nq * (w_f * 4 + 16 + 4), nq * quotient_ops(prog),
+         [nq, int(prog.code.shape[0])]),
+        ("open_dot", "open.cu", "openvm_tpu/stark/prover.py:232",
+         lambda: pv._open_dot(fib_coeffs, zpows, geos),
+         lambda: pv._open_dot_plain(fib_coeffs, zpows, geos), 10, 1,
+         nq * (w_f * 4 + 16 + 2 * 4), nq * 2 * (EXT_SCALE + w_f * (EXT_SCALE + EXT_ADD)),
+         [nq, w_f, 2]),
+        ("fri_reduced_open", "fri.cu", "openvm_tpu/stark/prover.py:773",
+         lambda: pv.reduced_open(ro_k, fib_lde, apows, pts),
+         lambda: pv.reduced_open_plain(ro0, fib_lde, apows, pts), 5, 1,
+         2 * nq * (w_f * 4 + 32 + 4),
+         2 * nq * (w_f * (EXT_SCALE + EXT_ADD)
+                   + 2 * (2 * EXT_ADD + EXT_INV + 2 * EXT_MUL)),
+         [2 * nq, w_f, 2]),
+        ("fri_fold", "fri.cu", "openvm_tpu/fri.py:78",
+         lambda: fri.fold_evals(fold_in, beta),
+         lambda: fri.fold_evals_plain(fold_in, beta), 20, 2,
+         2 * nq * 16 + nq * (16 + 8), nq * (EXT_ADD * 2 + EXT_SCALE + EXT_MUL + ADD_OPS),
+         [2 * nq, 4]),
     ]
+    t_open_row = time.perf_counter()
+    for i in idx:
+        merkle.open_row(tree, i)
+    t_open_row = time.perf_counter() - t_open_row
+    t_gather = time.perf_counter()
+    merkle.gather_rows_device(tree, idx)
+    t_gather = time.perf_counter() - t_gather
     kernels = []
     for name, src, replaces, fn, plain, reps, plain_reps, nbytes, ops, shape in cases:
         ms = cuda_ms(fn, reps)
@@ -333,25 +776,23 @@ def run(dev: torch.device) -> int:
         b_ms, b_by = bound(nbytes, ops)
         kernels.append({
             "name": name, "route": "cuda", "source": f"openvm_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": p_launches[name],
+            "launches_path1": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "library": "no single PyTorch call computes this function",
+            "library": NO_LIBRARY + (" (a modular dot product has no torch call)"
+                                     if name == "open_dot" else ""),
             "shape": shape, "bytes": nbytes, "ops": ops})
-    # The main path's stages again, warm: the NTT tables are cached now.
+    # path 1's stages again, warm: the NTT tables are cached now
     warm_ms = {"to_monty_lde": cuda_ms(lambda: ntt.batched_coset_ldes(
                    [bb.to_monty(t) for t in traces], cfg.fri.log_blowup), 3),
                "commit_layers": cuda_ms(lambda: merkle.commit_layers(main["ldes"]), 3)}
     emit({"phase": "timing", "nvidia_smi": setup["nvidia_smi"],
           "stage_warm_ms": warm_ms,
+          "open_84_s": {"open_row_x84": t_open_row, "gather_rows_device": t_gather},
           "kernels": {k["name"]: {"kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
                                   "bound_ms": k["bound_ms"]} for k in kernels}})
-    print(setup["nvidia_smi"].splitlines()[0], flush=True)
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

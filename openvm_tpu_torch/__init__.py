@@ -11,13 +11,19 @@ raises when there is none.  The CPU is used only when the caller passes
 ``device="cpu"``, and then every kernel wrapper runs its plain PyTorch
 version.  A wrapper given a CUDA tensor launches its kernel or raises.
 
-Layer map (the slice ported so far, the trace-commitment pipeline):
+Layer map (the slices ported so far: the trace-commitment pipeline and the
+STARK prover for AIRs without interactions):
+  stark            keygen -> prove -> verify, codec (host orchestration)
+  stark/quotient   constraint DAG -> bytecode -> interpreter (K7+K11)
+  stark/prover     openings (K12) and reduced openings (K13)
+  fri              FRI fold (K14), query gathers, host verification
   field/babybear   BabyBear Montgomery arithmetic (kernel K1)
+  field/ext        quartic extension arithmetic (K2)
   ntt              coset LDE (K3)
   poseidon2        Poseidon2 permutation and row sponge (K4)
-  merkle           mixed-height Merkle commitment (K5), host verification
+  merkle           mixed-height Merkle commitment (K5), query gathers (K6),
+                   host verification
   challenger       Fiat-Shamir duplex challenger (host)
-  stark/config     FRI parameters
 """
 
 __version__ = "0.1.0"

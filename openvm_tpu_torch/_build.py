@@ -25,7 +25,8 @@ import torch
 from ._device import require_cuda
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("babybear.cu", "ntt.cu", "poseidon2.cu")
+SOURCES = ("babybear.cu", "ntt.cu", "poseidon2.cu", "ext.cu", "gather.cu",
+           "quotient.cu", "open.cu", "fri.cu")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "openvm_tpu_torch"
 LIB_NAME = "libopenvm_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -34,7 +35,9 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel and nowhere else.
 LAUNCHES = {"bb_elementwise": 0, "ntt": 0, "poseidon2_hash_rows": 0,
-            "poseidon2_compress_layer": 0}
+            "poseidon2_compress_layer": 0, "ext_elementwise": 0, "gather": 0,
+            "quotient": 0, "open_dot": 0, "fri_reduced_open": 0,
+            "fri_fold": 0}
 
 _V, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _SIGNATURES = {
@@ -44,6 +47,13 @@ _SIGNATURES = {
     "ovt_p2_set_constants": (_V, _V, _V, _V, _V),
     "ovt_poseidon2_hash_rows": (_V, _V, _U, _U, _V),
     "ovt_poseidon2_compress_layer": (_V, _V, _V, _U, _V),
+    "ovt_ext_elementwise": (_I, _V, _V, _V, _LL, _I, _V),
+    "ovt_gather": (_V, _I, _V, _I, _I, _V, _V),
+    "ovt_quotient": (_V, _I, _V, _V, _V, _V, _V, _U, _V, _I, _I, _I, _V, _V),
+    "ovt_open_partial": (_V, _LL, _I, _LL, _V, _V, _I, _I, _V, _V),
+    "ovt_open_reduce": (_V, _I, _I, _V, _V),
+    "ovt_fri_fold": (_V, _V, _V, _V, _V, _LL, _V, _V),
+    "ovt_reduced_open": (_V, _LL, _I, _LL, _V, _I, _V, _V, _V, _V),
 }
 
 _LIB = None

@@ -1,3 +1,3 @@
-"""Field arithmetic: the BabyBear base field."""
+"""Field arithmetic: the BabyBear base field and its quartic extension."""
 
-from . import babybear  # noqa: F401
+from . import babybear, ext  # noqa: F401

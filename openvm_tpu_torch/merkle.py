@@ -143,6 +143,113 @@ def open_row(tree: MerkleTree, index: int):
 
 
 # ---------------------------------------------------------------------------
+# Batched gathers at query indices (kernel K6)
+# ---------------------------------------------------------------------------
+
+class GatherPlan:
+    """The gathers of a batched opening, run as one launch of kernel K6
+    (csrc/gather.cu) and brought to the host in one copy.
+
+    A job reads row ``(index >> shift) ^ flip`` of one (H, W) matrix for
+    every query index, in canonical form.  ``run`` returns one (Q, W)
+    uint64 array per job, in the order the jobs were added."""
+
+    def __init__(self):
+        self.jobs: list = []  # (matrix, shift, flip)
+
+    def add(self, matrix: torch.Tensor, shift: int, flip: int = 0) -> int:
+        if matrix.dim() != 2:
+            raise ValueError(f"gather source must be (H, W), got {tuple(matrix.shape)}")
+        self.jobs.append((matrix, int(shift), int(flip)))
+        return len(self.jobs) - 1
+
+    def add_tree(self, tree: MerkleTree, shift: int = 0, rows: bool = True):
+        """The jobs of ``open_row`` at index >> shift for every index: each
+        matrix's row (when ``rows``) and the sibling digest of every layer
+        below the root.  Returns (row job ids, sibling job ids)."""
+        log_max = tree.max_height().bit_length() - 1
+        mats = [self.add(m, shift + log_max - (int(m.shape[0]).bit_length() - 1))
+                for m in tree.matrices] if rows else []
+        sibs = [self.add(layer, shift + k, 1)
+                for k, layer in enumerate(tree.digest_layers[:-1])]
+        return mats, sibs
+
+    def _layout(self, q: int):
+        offs, total = [], 0
+        for m, _, _ in self.jobs:
+            offs.append(total)
+            total += q * int(m.shape[1])
+        return offs, total
+
+    def run_plain(self, indices) -> torch.Tensor:
+        """Every job's (Q, W) block of canonical words, flattened in job
+        order, through plain PyTorch on the matrices' device."""
+        if not self.jobs:
+            return torch.zeros(0, dtype=torch.int32)
+        dev = self.jobs[0][0].device
+        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=dev)
+        return torch.cat([bb.from_monty_plain(m[(idx >> s) ^ f]).reshape(-1)
+                          for m, s, f in self.jobs])
+
+    def run_device(self, indices) -> torch.Tensor:
+        """``run_plain``'s result: kernel K6 on CUDA matrices, the plain
+        version on CPU ones.  Bound by bytes and by launch latency: one
+        launch for every job."""
+        if not self.jobs:
+            return torch.zeros(0, dtype=torch.int32)
+        dev = _build.kernel_device(*(m for m, _, _ in self.jobs))
+        if dev.type == "cpu":
+            return self.run_plain(indices)
+        q = len(indices)
+        offs, total = self._layout(q)
+        table = []
+        for (m, s, f), off in zip(self.jobs, offs):
+            if m.dtype != torch.int32 or m.stride(1) != 1:
+                raise ValueError("gather sources must be int32 with unit "
+                                 "column stride")
+            table.append([m.data_ptr(), m.stride(0), int(m.shape[1]), s, f, off])
+        jobs = torch.tensor(table, dtype=torch.int64, device=dev)
+        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=dev)
+        out = torch.empty(total, dtype=torch.int32, device=dev)
+        max_total = max(q * int(m.shape[1]) for m, _, _ in self.jobs)
+        _build.launch("gather", "ovt_gather", dev, jobs.data_ptr(),
+                      len(self.jobs), idx.data_ptr(), q, max_total,
+                      out.data_ptr())
+        return out
+
+    def run(self, indices) -> list:
+        """One launch, one copy to the host: per job a (Q, W) uint64 array."""
+        q = len(indices)
+        flat = self.run_device(indices).cpu().numpy().astype(np.uint64)
+        offs, _ = self._layout(q)
+        return [flat[o:o + q * int(m.shape[1])].reshape(q, int(m.shape[1]))
+                for (m, _, _), o in zip(self.jobs, offs)]
+
+
+def gather_rows_device(tree: MerkleTree, indices) -> dict:
+    """All matrix rows and path sibling digests at ``indices``, canonical,
+    as openvm_tpu/merkle.py:118 gathers them: one K6 launch and one copy to
+    the host.  Returns {"mats": [(Q, w)], "sibs": [(Q, 8)]} uint64 arrays."""
+    plan = GatherPlan()
+    mats, sibs = plan.add_tree(tree)
+    blocks = plan.run(indices)
+    return {"mats": [blocks[k] for k in mats], "sibs": [blocks[k] for k in sibs]}
+
+
+def format_gathered_rows(gathered, q: int):
+    """[(opened_rows, proof)] per query from ``gather_rows_device``'s result,
+    formats matching ``open_row`` (openvm_tpu/merkle.py:158)."""
+    out = []
+    for k in range(q):
+        opened = [np.asarray(rows[k], dtype=np.uint64)
+                  for rows in gathered["mats"]]
+        proof = [np.asarray(s[k], dtype=np.uint64)
+                 for s in gathered["sibs"]]
+        out.append((opened, proof))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Host verification (numpy canonical)
 # ---------------------------------------------------------------------------
 

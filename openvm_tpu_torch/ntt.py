@@ -67,11 +67,44 @@ def _device_row_factors(log_n: int, base: int, scale: int,
 
 @functools.lru_cache(maxsize=None)
 def bitrev_perm(log_n: int) -> np.ndarray:
-    idx = np.arange(1 << log_n, dtype=np.int64)
-    rev = np.zeros_like(idx)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    """rev(i) for i < 2^log_n, built by doubling: rev_{k+1} is 2 rev_k
+    followed by 2 rev_k + 1."""
+    rev = np.zeros(1, dtype=np.int64)
+    for _ in range(log_n):
+        rev = np.concatenate([2 * rev, 2 * rev + 1])
     return rev
+
+
+def lde_points_np(log_n: int, shift: int = bb.GENERATOR) -> np.ndarray:
+    """Montgomery words of x_r = shift * w^bitrev(r) over the coset
+    shift*<w_{2^log_n}>, bit-reversed order: the points of a committed LDE
+    (stark/prover.py:206-216), vectorised."""
+    pts = bb.powers_np(bb.two_adic_generator_int(log_n), 1 << log_n, shift)
+    return bb.to_monty_np(pts[bitrev_perm(log_n)])
+
+
+# Device tables whose every prefix of 2^k words is the table for k, so the
+# largest one built serves every smaller height: {(name, device): tensor}.
+_PREFIX_TABLES: dict = {}
+
+
+def prefix_table(name: str, log_n: int, build, device: torch.device) -> torch.Tensor:
+    """The first 2^log_n words of the device table ``name``; ``build(log)``
+    makes the numpy table of 2^log words when the cached one is too short."""
+    key = (name, torch.device(device))
+    have = _PREFIX_TABLES.get(key)
+    if have is None or have.shape[0] < 1 << log_n:
+        have = _table(np.ascontiguousarray(build(log_n), dtype=np.uint32),
+                      device)
+        _PREFIX_TABLES[key] = have
+    return have[:1 << log_n]
+
+
+def lde_points(log_n: int, device: torch.device) -> torch.Tensor:
+    """``lde_points_np(log_n)`` on ``device``.  For r < 2^k the bit-reversed
+    points of height 2^log_n are those of height 2^k (w_n^(2^(n-k)) = w_k),
+    so one table serves every LDE height and every quotient domain."""
+    return prefix_table("lde_points", log_n, lde_points_np, device)
 
 
 def bitrev_rows(x: torch.Tensor) -> torch.Tensor:
@@ -237,22 +270,28 @@ def coset_lde(x: torch.Tensor, log_blowup: int, shift: int = bb.GENERATOR,
     return (padded, raw_coeffs) if return_coeffs else padded
 
 
-def batched_coset_ldes(mats: list, log_blowup: int) -> list:
+def batched_coset_ldes(mats: list, log_blowup: int, return_coeffs: bool = False):
     """``coset_lde`` over a list of matrices, all matrices of one height
     extended by one call on their column-wise concatenation, as the JAX
     prover batches them (stark/prover.py:144).  Returns the LDEs in input
-    order; those of a batch are column slices of one matrix."""
+    order; those of a batch are column slices of one matrix.  With
+    ``return_coeffs`` returns (ldes, coeffs), the raw INTT coefficients
+    sliced the same way."""
     by_h: dict[int, list] = {}
     for k, m in enumerate(mats):
         by_h.setdefault(int(m.shape[0]), []).append(k)
     ldes: list = [None] * len(mats)
+    coeffs: list = [None] * len(mats)
     for idxs in by_h.values():
         joined = mats[idxs[0]] if len(idxs) == 1 else torch.cat(
             [mats[k] for k in idxs], dim=1)
-        y = coset_lde(joined, log_blowup)
+        y = coset_lde(joined, log_blowup, return_coeffs=return_coeffs)
+        y, c = y if return_coeffs else (y, None)
         off = 0
         for k in idxs:
             w = int(mats[k].shape[1])
             ldes[k] = y[:, off:off + w]
+            if return_coeffs:
+                coeffs[k] = c[:, off:off + w]
             off += w
-    return ldes
+    return (ldes, coeffs) if return_coeffs else ldes
