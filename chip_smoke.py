@@ -10,9 +10,9 @@ Phases, each printing one JSON line:
   setup     build the kernels, name the card and its power limit
   pinned    the kernels reproduce the vectors of
             tests/test_bitcompat_fixtures.py and the challenger's; the
-            codec reproduces the pinned blob; a small proof's bytes have
-            the SHA-256 that openvm_tpu gives, and a wrong public value
-            fails
+            codec reproduces the pinned blob; the proof of
+            tests/test_torch_prover.py's three-AIR instance has the SHA-256
+            that openvm_tpu gives, and a wrong public value fails
   variants  every new kernel and every coset_lde argument, kernel against
             plain, mid-size
   main      path 1, one RV32IM segment's common-main commit at full size:
@@ -27,7 +27,8 @@ Phases, each printing one JSON line:
             verify over FibonacciAir at 2^22 and 2^20 (the kitchen_sink and
             fib_e2e segment caps, 4,194,204 and 1,048,476 rows, padded) and
             CubeAir at 2^18 (preprocessed column, cached main, degree 3),
-            84 queries and 16 PoW bits
+            84 queries and 16 PoW bits; the prove's own quotient inputs
+            and query gather are run again through the plain versions
   timing    each kernel and its plain version at the paths' shapes
 
 then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
@@ -82,17 +83,19 @@ MERKLE_ROOT = [512692767, 1522905392, 880658602, 995090898,
 # tests/test_bitcompat_fixtures.py:134-135 (the 665-byte codec blob)
 CODEC_BLOB_SHA256 = \
     "ca080bacdcea1da8b75aae72aee556cf11cc57b8382a445a8195d7ca9db0b176"
-# tests/test_torch_prover.py: openvm_tpu's proof of FibonacciAir at 2^4
-# under tests/test_stark_e2e.py's TEST_CONFIG
-FIB16_PROOF_SHA256 = \
-    "1b09cd57dc4a14d42f04991a1556d20ffbe22d93829c46944fe6ea150558f2e8"
+# tests/test_torch_prover.py's FIXTURE_PROOF_SHA256: openvm_tpu's proof of
+# FibonacciAir at 2^5 and 2^3 and CubeAir at 2^4 under
+# tests/test_stark_e2e.py's TEST_CONFIG
+FIXTURE_PROOF_SHA256 = \
+    "a7febea84f25e9074f2e80382be71111e236adbb861a996c3e3c026133de7e8d"
 
 # Bounds.  Bytes: each input read once, each output written once, over the
-# H100's 3.35 TB/s.  Operations: 32-bit integer ALU operations, a
-# Montgomery product counted as 8 (two 32x32->64 products at 2 each, one
-# low product, a 64-bit add, a compare-select), a modular add or sub as 3,
-# over 67e12/s, the card's 32-bit non-tensor peak (the float32 rate; the
-# integer pipe is narrower, so this bound is optimistic).
+# H100's 3.35 TB/s.  Operations: the fewest 32-bit integer ALU operations
+# the function needs, a Montgomery product counted as 8 (two 32x32->64
+# products at 2 each, one low product, a 64-bit add, a compare-select), a
+# modular add or sub as 3, over 67e12/s, the card's 32-bit non-tensor peak
+# (the float32 rate; the integer pipe is narrower, so this bound is
+# optimistic).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 MUL_OPS, ADD_OPS = 8, 3
@@ -103,16 +106,13 @@ MUL_OPS, ADD_OPS = 8, 3
 PERM_MULS = 8 * 16 * 4 + 13 * (4 + 16)
 PERM_ADDS = 72 + 8 * (16 + 72) + 13 * (1 + 15 + 16)
 PERM_OPS = PERM_MULS * MUL_OPS + PERM_ADDS * ADD_OPS
-# Extension arithmetic: a product is 19 Montgomery products and 12 adds; a
-# base inverse by square and multiply is 31 squarings and a product per set
-# bit of p - 2; an extension inverse adds three Frobenius maps (9
-# products), two extension products, the norm (4 products, 3 adds) and a
-# scale.
+# Extension arithmetic: a product is 19 Montgomery products and 12 adds.
+# Batch inversion (Montgomery's trick) costs 3 products per element, base
+# or extension, plus one inverse per batch, which rounds to nothing.
 EXT_ADD = 4 * ADD_OPS
 EXT_SCALE = 4 * MUL_OPS
 EXT_MUL = 19 * MUL_OPS + 12 * ADD_OPS
-BB_INV = (31 + bin(P - 2).count("1")) * MUL_OPS
-EXT_INV = 9 * MUL_OPS + 2 * EXT_MUL + 4 * MUL_OPS + 3 * ADD_OPS + BB_INV + EXT_SCALE
+BATCH_INV, EXT_BATCH_INV = 3 * MUL_OPS, 3 * EXT_MUL
 NO_LIBRARY = "no single PyTorch call computes this function"
 
 
@@ -132,18 +132,24 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls after one warm-up call."""
+def cuda_ms(fn, reps: int, host: bool = False):
+    """Mean device time of fn() over reps calls after one warm-up call; with
+    ``host``, also the mean host time to enqueue one call.  Where the two
+    are close, the card waited on the host and the device time is the
+    host's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / reps
+    return (ms, host_ms) if host else ms
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -253,6 +259,25 @@ def prove_inputs(airs_spec, seed: int):
     return airs, ctxs
 
 
+def fixture_contexts(on=None, last_pv_delta=0) -> list:
+    """tests/test_torch_prover.py's ``contexts``: FibonacciAir at 2^5 and
+    2^3, CubeAir at 2^4; canonical numpy traces, or Montgomery words on
+    device ``on``."""
+    t5, t3 = fib_trace(32), fib_trace(8)
+    x, y, cube_pvs = cube_trace(4, 1)
+
+    def m(a):
+        return a if on is None else bb.monty(a, device=on)
+
+    return [stark.AirProvingContext(air_id=0, common_main=m(t5),
+                                    public_values=[0, 1, int(t5[-1, 1])]),
+            stark.AirProvingContext(
+                air_id=1, common_main=m(t3),
+                public_values=[0, 1, (int(t3[-1, 1]) + last_pv_delta) % P]),
+            stark.AirProvingContext(air_id=2, common_main=m(x), cached_mains=[m(y)],
+                                    public_values=cube_pvs)]
+
+
 def random_dag(rng, n_ops: int) -> tuple:
     """A random constraint DAG over two main parts (3 and 2 columns), a
     preprocessed matrix (2), a permutation matrix (2 ext columns), 3
@@ -357,29 +382,23 @@ def phase_pinned(dev) -> None:
     blob = codec_blob()
     require(len(blob) == 665 and hashlib.sha256(blob).hexdigest()
             == CODEC_BLOB_SHA256, "codec blob")
-    # the small proof of tests/test_stark_e2e.py:75-84 on the card
+    # tests/test_torch_prover.py's three-AIR instance on the card
     cfg = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=4,
                                         proof_of_work_bits=2))
-    trace = fib_trace(16)
-    pk = stark.keygen([FibonacciAir()], cfg, device=dev)
-    for main in (trace, bb.monty(trace, device=dev)):  # numpy, or on the card
-        proof = stark.prove(pk, [stark.AirProvingContext(
-            air_id=0, common_main=main, public_values=[0, 1, int(trace[-1, 1])])],
-            device=dev)
+    pk = stark.keygen([FibonacciAir(), FibonacciAir(), CubeAir(4)], cfg, device=dev)
+    for on in (None, dev):  # canonical numpy traces, or Montgomery words on the card
+        proof = stark.prove(pk, fixture_contexts(on), device=dev)
         proof_sha = hashlib.sha256(codec.encode_proof(proof)).hexdigest()
-        require(proof_sha == FIB16_PROOF_SHA256, f"small proof sha {proof_sha}")
+        require(proof_sha == FIXTURE_PROOF_SHA256, f"fixture proof sha {proof_sha}")
     stark.verify(pk.vk, proof)
     try:
-        bad = stark.prove(pk, [stark.AirProvingContext(
-            air_id=0, common_main=trace,
-            public_values=[0, 1, (int(trace[-1, 1]) + 1) % P])], device=dev)
-        stark.verify(pk.vk, bad)
+        stark.verify(pk.vk, stark.prove(pk, fixture_contexts(None, 1), device=dev))
         wrong_public_fails = False
     except (stark.VerificationError, AssertionError) as e:
         wrong_public_fails = "constant" in str(e) or "constraint" in str(e)
     require(wrong_public_fails, "a wrong public value was accepted")
     emit({"phase": "pinned", "ok": True, "codec_blob_sha256": CODEC_BLOB_SHA256,
-          "small_proof_sha256": proof_sha, "wrong_public_value_fails": True})
+          "fixture_proof_sha256": proof_sha, "wrong_public_value_fails": True})
 
 
 def phase_variants(dev, rng) -> None:
@@ -519,11 +538,12 @@ def run_prove(dev, cfg: StarkConfig, airs, ctxs) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     stages: dict = {}
-    proof = stark.prove(pk, ctxs, device=dev, stages=stages)
+    record: dict = {}
+    proof = stark.prove(pk, ctxs, device=dev, stages=stages, record=record)
     t2 = time.perf_counter()
     stark.verify(pk.vk, proof)
     t3 = time.perf_counter()
-    return {"pk": pk, "proof": proof, "stages_s": stages,
+    return {"pk": pk, "proof": proof, "stages_s": stages, "record": record,
             "s": {"keygen": t1 - t0, "prove": t2 - t1, "verify": t3 - t2}}
 
 
@@ -605,6 +625,15 @@ def run(dev: torch.device) -> int:
     p_launches = dict(_build.LAUNCHES)
     p_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     require(all(p_launches.values()), f"a kernel of path 2 never ran: {p_launches}")
+    # K7 and K6 again through their plain versions, on the prove's own
+    # inputs: every AIR's program and sources, the whole query gather
+    q_err = {f"{kind}/2^{lh}": max_abs_err(qmod.evaluate(*args), qmod.evaluate_plain(*args))
+             for (kind, lh), args in zip(PROVE_AIRS, proved["record"]["quotient"])}
+    plan, indices = proved["record"]["gather"]
+    p_err = {"quotient": max(q_err.values()),
+             "gather": max_abs_err(plan.run_device(indices), plan.run_plain(indices))}
+    require(all(v == 0 for v in p_err.values()),
+            f"kernel and plain differ on the prove's inputs: {q_err} {p_err}")
     blob = codec.encode_proof(proved["proof"])
     require(codec.encode_proof(codec.decode_proof(blob)) == blob, "codec round trip")
     fri_proof = proved["proof"].opening.proof
@@ -616,7 +645,10 @@ def run(dev: torch.device) -> int:
           "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
           "verified": True, "s": proved["s"], "stage_s": proved["stages_s"],
           "proof_bytes": len(blob), "proof_sha256": hashlib.sha256(blob).hexdigest(),
-          "peak_gb": p_peak_gb, "launches": p_launches})
+          "peak_gb": p_peak_gb, "launches": p_launches,
+          "plain_max_abs_err": {"quotient": q_err, "gather": p_err["gather"],
+                                "gather_jobs": len(plan.jobs)}})
+    err = {**err, **{k: max(v, err.get(k, 0)) for k, v in p_err.items()}}
 
     kernels = timing(dev, setup, rng, main, err, traces, launches, proved,
                      ctxs, cfg, p_launches)
@@ -645,18 +677,31 @@ def batched_plain_ldes(mats: list, log_blowup: int) -> list:
 
 
 def quotient_ops(prog) -> int:
-    """Operations per row of a quotient program (see the constants above)."""
+    """The fewest operations per row for a quotient program's function: its
+    node operations; the alpha fold with the powers of alpha precomputed
+    (a base root is one scale and one add, an extension root one product
+    and one add); per selector read, its difference with x, a batch
+    inverse and the product with Z_H (Z_H and 1/Z_H take 2^lqd values, a
+    table); and the 1/Z_H scale."""
     cost = {qmod.ADD_BB: ADD_OPS, qmod.SUB_BB: ADD_OPS, qmod.NEG_B: ADD_OPS,
             qmod.MUL_BB: MUL_OPS, qmod.ADD_EE: EXT_ADD, qmod.SUB_EE: EXT_ADD,
             qmod.NEG_E: EXT_ADD, qmod.MUL_EE: EXT_MUL, qmod.ADD_EB: ADD_OPS,
             qmod.SUB_EB: ADD_OPS, qmod.SUB_BE: EXT_ADD, qmod.MUL_EB: EXT_SCALE,
-            qmod.FOLD_B: EXT_MUL + ADD_OPS, qmod.FOLD_E: EXT_MUL + EXT_ADD}
+            qmod.FOLD_B: EXT_SCALE + EXT_ADD, qmod.FOLD_E: EXT_MUL + EXT_ADD}
     ops = sum(cost.get(int(op), 0) for op in prog.code[:, 0]) + EXT_SCALE
-    if prog.sel_mask & 1:
-        ops += ADD_OPS + BB_INV + MUL_OPS
-    if prog.sel_mask & 2:
-        ops += BB_INV + MUL_OPS
-    return ops + (ADD_OPS if prog.sel_mask else 0)
+    for bit, with_inverse in ((1, True), (2, True), (4, False)):
+        if prog.sel_mask & bit:
+            ops += ADD_OPS + (BATCH_INV + MUL_OPS if with_inverse else 0)
+    return ops
+
+
+def reduced_open_ops(w: int, npts: int) -> int:
+    """The fewest operations per row of K13: the column combination (w
+    scales and adds), then per point z - x (a base sub), a batch inverse,
+    p(z) - comb, two products (by the inverse and by alpha_pow) and the add
+    into ro."""
+    return w * (EXT_SCALE + EXT_ADD) + npts * (
+        ADD_OPS + EXT_BATCH_INV + 2 * EXT_MUL + 2 * EXT_ADD)
 
 
 def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
@@ -664,8 +709,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     """Each kernel and its plain version at the paths' shapes."""
     tree = main["tree"]
     # ---- path 1 kernels: K1 to_monty of the widest trace; K3 the LDE of the
-    # tallest batch; K4 the leaf hash; K5 the top layer with injection; K6
-    # the 84 openings
+    # tallest batch; K4 the leaf hash; K5 the top layer with injection
     widest = traces[1]
     joined = torch.cat([main["monty"][0], main["monty"][1]], dim=1)
     leaf_in = torch.cat([main["ldes"][0], main["ldes"][1]], dim=1)
@@ -676,21 +720,18 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     log_n1 = n1.bit_length() - 1
     rows_leaf, w_leaf = leaf_in.shape
     h5 = top.shape[0] // 2
-    gplan = merkle.GatherPlan()
-    gplan.add_tree(tree)
-    idx = main["indices"]
-    g_words = len(idx) * sum(int(m.shape[1]) for m, _, _ in gplan.jobs)
 
-    # ---- path 2 kernels at the prove's shapes: FibonacciAir at 2^22
+    # ---- path 2 kernels at the prove's shapes: K6 the prove's whole query
+    # gather; K7 the prove's own quotient inputs of FibonacciAir at 2^22;
+    # the others on FibonacciAir at 2^22
+    gplan, gidx = proved["record"]["gather"]
+    g_words = len(gidx) * sum(int(m.shape[1]) for m, _, _ in gplan.jobs)
+    qargs = proved["record"]["quotient"][0]
+    prog, nq = qargs[0], 1 << (qargs[2] + qargs[3])
     fib_dev = bb.to_monty(bb.from_numpy(ctxs[0].common_main.astype(np.uint32), device=dev))
     log_n = int(fib_dev.shape[0]).bit_length() - 1
     fib_lde, fib_coeffs = ntt.coset_lde(fib_dev, 1, return_coeffs=True)
-    vk0 = proved["pk"].vk.per_air[0]
-    prog = qmod.compile_dag(vk0.dag, n_main=1, has_preprocessed=False,
-                            has_perm=False,
-                            publics=[bb.to_monty_int(v) for v in ctxs[0].public_values])
-    alpha, zeta = words(rng, dev, 4), words(rng, dev, 4)
-    nq = 1 << log_n
+    zeta = words(rng, dev, 4)
     zpows = ef.powers(zeta, nq)
     g_n = bb.two_adic_generator_int(log_n)
     geos = torch.stack([bb.from_numpy(pv._geo_series(m, nq), device=dev)
@@ -701,9 +742,6 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     fold_in, beta = words(rng, dev, 2 * nq, 4), words(rng, dev, 4)
     errs = {
         "ext_elementwise": max_abs_err(zpows, ef.powers_plain(zeta, nq)),
-        "gather": err["gather"],
-        "quotient": max_abs_err(qmod.evaluate(prog, [fib_lde], log_n, 0, alpha),
-                                qmod.evaluate_plain(prog, [fib_lde], log_n, 0, alpha)),
         "open_dot": max_abs_err(pv._open_dot(fib_coeffs, zpows, geos),
                                 pv._open_dot_plain(fib_coeffs, zpows, geos)),
         "fri_reduced_open": max_abs_err(
@@ -737,11 +775,10 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          lambda: ef.powers(zeta, nq), lambda: ef.powers_plain(zeta, nq), 5, 1,
          nq * 16, nq * EXT_MUL, [nq, 4]),
         ("gather", "gather.cu", "openvm_tpu/merkle.py:118",
-         lambda: gplan.run_device(idx), lambda: gplan.run_plain(idx), 20, 3,
-         g_words * 8, 0, [len(idx), len(gplan.jobs)]),
+         lambda: gplan.run_device(gidx), lambda: gplan.run_plain(gidx), 20, 3,
+         g_words * 8, 0, [len(gidx), len(gplan.jobs)]),
         ("quotient", "quotient.cu", "openvm_tpu/stark/evaluator.py:29",
-         lambda: qmod.evaluate(prog, [fib_lde], log_n, 0, alpha),
-         lambda: qmod.evaluate_plain(prog, [fib_lde], log_n, 0, alpha), 5, 1,
+         lambda: qmod.evaluate(*qargs), lambda: qmod.evaluate_plain(*qargs), 5, 1,
          nq * (w_f * 4 + 16 + 4), nq * quotient_ops(prog),
          [nq, int(prog.code.shape[0])]),
         ("open_dot", "open.cu", "openvm_tpu/stark/prover.py:232",
@@ -753,8 +790,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          lambda: pv.reduced_open(ro_k, fib_lde, apows, pts),
          lambda: pv.reduced_open_plain(ro0, fib_lde, apows, pts), 5, 1,
          2 * nq * (w_f * 4 + 32 + 4),
-         2 * nq * (w_f * (EXT_SCALE + EXT_ADD)
-                   + 2 * (2 * EXT_ADD + EXT_INV + 2 * EXT_MUL)),
+         2 * nq * reduced_open_ops(w_f, 2),
          [2 * nq, w_f, 2]),
         ("fri_fold", "fri.cu", "openvm_tpu/fri.py:78",
          lambda: fri.fold_evals(fold_in, beta),
@@ -763,6 +799,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          [2 * nq, 4]),
     ]
     t_open_row = time.perf_counter()
+    idx = main["indices"]
     for i in idx:
         merkle.open_row(tree, i)
     t_open_row = time.perf_counter() - t_open_row
@@ -771,14 +808,15 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     t_gather = time.perf_counter() - t_gather
     kernels = []
     for name, src, replaces, fn, plain, reps, plain_reps, nbytes, ops, shape in cases:
-        ms = cuda_ms(fn, reps)
+        ms, host_ms = cuda_ms(fn, reps, host=True)
         plain_ms = cuda_ms(plain, plain_reps)
         b_ms, b_by = bound(nbytes, ops)
         kernels.append({
             "name": name, "route": "cuda", "source": f"openvm_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": p_launches[name],
             "launches_path1": launches[name],
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err[name], "ms": ms, "host_enqueue_ms": host_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library": NO_LIBRARY + (" (a modular dot product has no torch call)"
                                      if name == "open_dot" else ""),
@@ -790,8 +828,9 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     emit({"phase": "timing", "nvidia_smi": setup["nvidia_smi"],
           "stage_warm_ms": warm_ms,
           "open_84_s": {"open_row_x84": t_open_row, "gather_rows_device": t_gather},
-          "kernels": {k["name"]: {"kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
-                                  "bound_ms": k["bound_ms"]} for k in kernels}})
+          "kernels": {k["name"]: {"kernel_ms": k["ms"], "host_enqueue_ms": k["host_enqueue_ms"],
+                                  "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"]}
+                      for k in kernels}})
     return kernels
 
 

@@ -9,9 +9,11 @@
 // for a quotient chunk), x_r = g w_H^rev(r) from a shared table.  The host
 // advances alpha_pow by alpha^w per (matrix, point) in the order of the
 // JAX loop, which is the transcript's.  Bound: operations (W scale-adds
-// plus an extension inverse, about 120 Montgomery products, per row and
-// point); the matrix is read once, ro read and written once.  Design: one
-// thread per row, the accumulation in place.
+// per row, then per point a batch inverse, 3 extension products, and two
+// more products); the matrix is read once, ro read and written once.
+// Design, first version: one thread per row, the accumulation in place, and
+// a full extension inverse (about 120 Montgomery products) per row and
+// point instead of a batch inverse.
 //
 // K14 replaces openvm_tpu/fri.py fold_evals (:78) inside commit_phase
 // (:104-133): v'[j] = v0 + (beta - y_j)(v1 - v0)/(-2 y_j), v0 = v[2j],

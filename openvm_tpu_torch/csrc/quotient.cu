@@ -8,10 +8,13 @@
 // kernel is compiled once and runs any AIR's bytecode (stark/quotient.py
 // compiles it), so a new AIR costs no device compile.
 //
-// Bound: operations for constraint-heavy AIRs (each node is one or a few
-// Montgomery products or adds per row, plus two Fermat inverses per row for
-// the first/last-row selectors when the program reads them), bytes for
-// narrow ones (each row reads its local and next cells, 16 bytes written).
+// Bound: the function needs each node's products and adds per row, a batch
+// inverse (3 products) per selector it reads, and the fold with precomputed
+// powers of alpha; each row reads its local and next cells and writes 16
+// bytes.  That is bytes for narrow AIRs such as FibonacciAir, operations for
+// constraint-heavy ones.  This first version spends a Fermat inverse (61
+// products) per row on each of the first/last-row selectors it reads and
+// folds by Horner, so even a narrow AIR costs it operations.
 // Design, first version: one thread per quotient-domain row in a
 // grid-stride loop; all threads run the same instruction at the same time,
 // so the dispatch never diverges and the instruction word is one broadcast

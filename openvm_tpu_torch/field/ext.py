@@ -248,13 +248,19 @@ def dot(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _powers(u: torch.Tensor, n: int, mul_fn) -> torch.Tensor:
-    pows = ones((1,), device=u.device)
-    cur = u.reshape(1, D)
-    while pows.shape[0] < n:
-        pows = torch.cat([pows, mul_fn(pows, cur)])[:n]
-        if pows.shape[0] < n:
+    """Doubling into one buffer: step k writes u^k * out[:k] into out[k:2k]."""
+    out = torch.empty((n, D), dtype=torch.int32, device=u.device)
+    if n:
+        out[0] = ones((), device=u.device)
+    cur = u.reshape(1, D)  # u^k
+    k = 1
+    while k < n:
+        m = min(k, n - k)
+        out[k:k + m] = mul_fn(out[:m], cur)
+        k += m
+        if k < n:
             cur = mul_fn(cur, cur)
-    return pows[:n]
+    return out
 
 
 def powers(u: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """FRI low-degree commitment: commit and fold phase on the device, host verify.
 
-Port of openvm_tpu/fri.py (all but ``answer_query`` :142 and
-``answer_queries_batch`` :181, which have no callers).  The protocol is the
+Port of openvm_tpu/fri.py (all but ``answer_query`` :142,
+``answer_queries_batch`` :181 and the scalar ``verify_query_host`` :261,
+which have no callers).  The protocol is the
 one pinned by the reference's recursive verifier:
 
   * inputs: per-LDE-height "reduced opening" polynomials (extension
@@ -209,11 +210,12 @@ def format_gathered_queries(per_level, q: int):
 def verify_queries_host(config, commit_phase_commits, indices,
                         steps_per_query, betas, reduced_openings,
                         log_max_lde: int, final_poly_ct) -> np.ndarray:
-    """Vectorized `verify_query_host` over all queries at once.
+    """Every query's fold chain at once (the reference's verify_query,
+    fri/mod.rs:32-170, vectorised over the query axis).
 
     indices: (Q,) ints; steps_per_query[qi][i] = CommitPhaseStep;
     reduced_openings: {log_height: (Q, 4) canonical uint64}.
-    Returns (Q,) bool, identical per-query semantics to the scalar path.
+    Returns (Q,) bool, one verdict per query.
     """
     from .stark import npext as nx
     q = len(indices)
@@ -268,52 +270,3 @@ def verify_queries_host(config, commit_phase_commits, indices,
     ok &= np.all(folded == np.asarray(final_poly_ct,
                                       dtype=np.uint64)[None, :], axis=1)
     return ok
-
-
-def verify_query_host(config, commit_phase_commits, index: int,
-                      commit_phase_openings, betas, reduced_openings,
-                      log_max_lde: int, final_poly_ct) -> bool:
-    """Mirror of the reference verify_query (fri/mod.rs:32-170)."""
-    from .stark.evaluator import base, hadd, hinv, hmul, hsub
-
-    folded = reduced_openings[log_max_lde]
-    for i, (commit, step, beta) in enumerate(
-            zip(commit_phase_commits, commit_phase_openings, betas)):
-        log_folded = log_max_lde - i - 1
-        idx_level = index >> i
-        bit = idx_level & 1
-        evals = [None, None]
-        evals[bit] = folded
-        evals[1 - bit] = step.sibling_value
-
-        # verify pair-matrix opening
-        row = [c for v in evals for c in v]  # 8 canonical ints
-        ok = merkle.verify_batch(
-            np.asarray(commit, dtype=np.uint64),
-            [(1 << log_folded, 8)], idx_level >> 1,
-            [np.asarray(row, dtype=np.uint64)], step.opening_proof)
-        if not ok:
-            return False
-
-        w = bb.two_adic_generator_int(log_folded + 1)
-        y0 = pow(w, _rev_bits(idx_level >> 1, log_folded), bb.P) \
-            if log_folded > 0 else 1
-        # xs for evals[0] is the even-position point: y0; odd is -y0
-        xs0 = base(y0)
-        xs1 = base(bb.P - y0)
-        e0, e1 = tuple(evals[0]), tuple(evals[1])
-        num = hmul(hsub(tuple(beta), xs0), hsub(e1, e0))
-        folded = hadd(e0, hmul(num, hinv(hsub(xs1, xs0))))
-        ro = reduced_openings.get(log_folded)
-        if ro is not None:
-            beta_sq = hmul(tuple(beta), tuple(beta))
-            folded = hadd(folded, hmul(beta_sq, ro))
-    return folded == tuple(final_poly_ct)
-
-
-def _rev_bits(x: int, bits: int) -> int:
-    r = 0
-    for _ in range(bits):
-        r = (r << 1) | (x & 1)
-        x >>= 1
-    return r

@@ -1,172 +1,38 @@
-"""DAG evaluation backends.
+"""DAG evaluation at one point, for the verifier.
 
-Port of openvm_tpu/stark/evaluator.py:29-190.  ``DeviceOps`` evaluates a
-SymbolicDag over trace rows with tensors (int32 Montgomery words; base
-values (N,) or scalars (), extension values (N, 4) or (4,)), through the
-port's field wrappers, so it runs K1/K2 on CUDA tensors and the plain
-versions on CPU tensors.  The prover does not use it: it compiles the DAG
-for the quotient interpreter (``stark.quotient``), and the tests hold the
-two against each other.  ``HostOps`` evaluates pointwise with python ints
-(the verifier's folded-constraint check at zeta).
+Port of openvm_tpu/stark/evaluator.py:156-190 (``HostOps``): a SymbolicDag
+evaluated pointwise at the out-of-domain point zeta.  Values are (4,)
+canonical uint64 extension elements and the arithmetic is ``npext``'s, the
+verifier's one host extension arithmetic.
 
-Values are tagged ('b', x) for base field or ('e', x) for the quartic
-extension; mixed arithmetic promotes as needed.  ``jit_dag_columns`` (no
-callers) and ``jit_dag_lookup_hist`` (the VM's lookup histograms) are not
-here.
+The JAX package's ``DeviceOps`` (evaluator.py:29) evaluates the DAG over
+trace rows; in the port that is the quotient interpreter
+(``stark.quotient``), whose plain version the tests hold against the JAX
+``DeviceOps``.  ``jit_dag_columns`` (no callers) and ``jit_dag_lookup_hist``
+(the VM's lookup histograms) are not here.
 """
 
 from __future__ import annotations
 
-import torch
+from . import npext as nx
 
-from ..field import babybear as bb
-from ..field import ext as ef
-
-P = bb.P
-EXT_W = 11
-
-
-# ---------------------------------------------------------------------------
-# Tensor backend
-# ---------------------------------------------------------------------------
-
-
-class DeviceOps:
-    """env keys:
-      main: list of (N, W) base Montgomery matrices (one per partition)
-      preprocessed: (N, W) or None
-      perm: (N, 4*m) base Montgomery (flattened ext columns) or None
-      publics: (num_pvs,) base Montgomery
-      challenges: (k, 4) ext Montgomery
-      exposed: (k, 4) ext Montgomery
-      sels: {'is_first_row'|'is_last_row'|'is_transition': (N,) base}
-      next_step: int row shift for offset=1 (wraps around)
-
-    An instance holds the device its constants are made on:
-    ``dag.eval(DeviceOps(device), env)``.
-    """
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-
-    def const(self, v: int):
-        return ("b", torch.tensor(bb.to_monty_int(v % P), dtype=torch.int32,
-                                  device=self.device))
-
-    @staticmethod
-    def var(env, entry, part, offset, index):
-        step = env["next_step"] * offset
-        if entry == "main":
-            col = env["main"][part][:, index]
-            return ("b", torch.roll(col, -step, 0) if step else col)
-        if entry == "preprocessed":
-            col = env["preprocessed"][:, index]
-            return ("b", torch.roll(col, -step, 0) if step else col)
-        if entry == "permutation":
-            cols = env["perm"][:, 4 * index:4 * index + 4]
-            return ("e", torch.roll(cols, -step, 0) if step else cols)
-        if entry == "public":
-            return ("b", env["publics"][index])
-        if entry == "challenge":
-            return ("e", env["challenges"][index])
-        if entry == "exposed":
-            return ("e", env["exposed"][index])
-        raise KeyError(entry)
-
-    @staticmethod
-    def sel(env, which):
-        return ("b", env["sels"][which])
-
-    @staticmethod
-    def _promote(x):
-        tag, v = x
-        return v if tag == "e" else ef.from_base(v)
-
-    @classmethod
-    def add(cls, a, b):
-        if a[0] == b[0]:
-            return (a[0], (bb.add if a[0] == "b" else ef.add)(a[1], b[1]))
-        return ("e", ef.add(cls._promote(a), cls._promote(b)))
-
-    @classmethod
-    def sub(cls, a, b):
-        if a[0] == b[0]:
-            return (a[0], (bb.sub if a[0] == "b" else ef.sub)(a[1], b[1]))
-        return ("e", ef.sub(cls._promote(a), cls._promote(b)))
-
-    @classmethod
-    def mul(cls, a, b):
-        if a[0] == "b" and b[0] == "b":
-            return ("b", bb.mul(a[1], b[1]))
-        if a[0] == "e" and b[0] == "e":
-            return ("e", ef.mul(a[1], b[1]))
-        e, s = (a, b) if a[0] == "e" else (b, a)
-        return ("e", ef.scale(e[1], s[1]))
-
-    @classmethod
-    def neg(cls, a):
-        return (a[0], (bb.neg if a[0] == "b" else ef.neg)(a[1]))
-
-
-# ---------------------------------------------------------------------------
-# Host backend (python ints; ext = tuple of 4 ints)
-# ---------------------------------------------------------------------------
-
-
-def hadd(a, b):
-    return tuple((x + y) % P for x, y in zip(a, b))
-
-
-def hsub(a, b):
-    return tuple((x - y) % P for x, y in zip(a, b))
-
-
-def hneg(a):
-    return tuple((-x) % P for x in a)
-
-
-def hmul(a, b):
-    c = [0] * 7
-    for i in range(4):
-        if a[i] == 0:
-            continue
-        for j in range(4):
-            c[i + j] = (c[i + j] + a[i] * b[j]) % P
-    return tuple((c[k] + EXT_W * c[k + 4]) % P if k < 3 else c[k]
-                 for k in range(4))
-
-
-def hinv(a):
-    """Extension inverse via frobenius/norm (host ints)."""
-    def frob(x, k):
-        s = pow(EXT_W, (P - 1) // 4 * k, P)
-        return tuple((x[i] * pow(s, i, P)) % P for i in range(4))
-
-    f1, f2, f3 = frob(a, 1), frob(a, 2), frob(a, 3)
-    g = hmul(f1, hmul(f2, f3))
-    norm = int(hmul(a, g)[0])
-    ninv = pow(norm, -1, P)
-    return tuple((x * ninv) % P for x in g)
-
-
-def base(v: int):
-    return (v % P, 0, 0, 0)
+_ZERO = nx.from_base(0)
 
 
 class HostOps:
-    """env keys (everything already at the out-of-domain point zeta):
-      main: list of (local_row, next_row) pairs of lists of ext tuples
+    """env keys (everything already at zeta, (4,) canonical uint64):
+      main: list of (local_row, next_row) pairs of lists of ext values
       preprocessed: (local, next) or None
-      perm: (local, next) lists of ext tuples (unflattened) or None
+      perm: (local, next) lists of ext values (unflattened) or None
       publics: list of ints
-      challenges: list of ext tuples
-      exposed: list of ext tuples
-      sels: {'is_first_row', 'is_last_row', 'is_transition'}: ext tuples
+      challenges: list of ext values
+      exposed: list of ext values
+      sels: {'is_first_row', 'is_last_row', 'is_transition'}: ext values
     """
 
     @staticmethod
     def const(v: int):
-        return base(v)
+        return nx.from_base(v % nx.P)
 
     @staticmethod
     def var(env, entry, part, offset, index):
@@ -177,7 +43,7 @@ class HostOps:
         if entry == "permutation":
             return env["perm"][offset][index]
         if entry == "public":
-            return base(env["publics"][index])
+            return nx.from_base(env["publics"][index] % nx.P)
         if entry == "challenge":
             return env["challenges"][index]
         if entry == "exposed":
@@ -188,7 +54,10 @@ class HostOps:
     def sel(env, which):
         return env["sels"][which]
 
-    add = staticmethod(hadd)
-    sub = staticmethod(hsub)
-    mul = staticmethod(hmul)
-    neg = staticmethod(hneg)
+    add = staticmethod(nx.nadd)
+    sub = staticmethod(nx.nsub)
+    mul = staticmethod(nx.nmul)
+
+    @staticmethod
+    def neg(a):
+        return nx.nsub(_ZERO, a)

@@ -240,10 +240,14 @@ class _Round:
 
 
 def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
-          stages: dict | None = None) -> Proof:
+          stages: dict | None = None, record: dict | None = None) -> Proof:
     """Prove the given AIR instances (``AirProvingContext`` list) on
     ``device``, CUDA unless the caller names another.  When ``stages`` is a
-    dict, the seconds of each stage are written into it."""
+    dict, the seconds of each stage are written into it.  When ``record`` is
+    a dict, the inputs of the quotient interpreter (``"quotient"``: per AIR
+    (program, sources, log_n, lqd, alpha)) and of the query gather
+    (``"gather"``: (plan, indices)) are kept in it, so that a caller can
+    run those kernels' plain versions at this prove's own shapes."""
     if pk.vk.num_phases:
         raise NotImplementedError(
             "AIRs with interactions need the LogUp phase (kernels K9, K10), "
@@ -335,6 +339,9 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
                                 has_preprocessed=prep is not None,
                                 has_perm=False, publics=publics)
         sources = mains + ([prep] if prep is not None else [])
+        if record is not None:
+            record.setdefault("quotient", []).append(
+                (prog, sources, log_degrees[i], lqd, alpha))
         q = qmod.evaluate(prog, sources, log_degrees[i], lqd, alpha)
         step = 1 << lqd
         quotient_chunk_mats.extend(
@@ -466,6 +473,8 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
                                                            for m in rnd.mats))
                  for rnd in rounds]
     level_ids = fri.add_query_jobs(plan, trees, evals_per_step)
+    if record is not None:
+        record["gather"] = (plan, indices)
     blocks = plan.run(indices)
     nq = len(indices)
     round_openings = [merkle.format_gathered_rows(

@@ -3,9 +3,9 @@
 Copy of openvm_tpu/stark/symbolic.py:1-440: AIR constraints are built by
 tracing a builder over symbolic row variables, deduplicated into a DAG, and
 evaluated with any backend through ``SymbolicDag.eval(ops, env, roots)``:
-the port's plain ``stark.evaluator.DeviceOps`` over rows, ``HostOps`` at
-zeta in the verifier.  The prover does not walk the DAG node by node: it
-compiles it to bytecode for the quotient interpreter (``stark.quotient``).
+in the port, ``stark.evaluator.HostOps`` at zeta in the verifier.  The
+prover does not walk the DAG node by node: it compiles it to bytecode for
+the quotient interpreter (``stark.quotient``).
 
 Entries mirror the reference: Preprocessed | Main(part) | Permutation
 (after-challenge, ext-valued) | PublicValue | Challenge | Exposed, each with

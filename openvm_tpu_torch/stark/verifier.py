@@ -3,7 +3,10 @@
 Copy of openvm_tpu/stark/verifier.py:1-408, a line-by-line mirror of the
 reference verifier semantics (reference extensions/native/recursion/src/
 stark/mod.rs verify_raps + fri/two_adic_pcs.rs verify_two_adic_pcs).  It
-checks the port's proofs and the JAX package's alike.
+checks the port's proofs and the JAX package's alike.  Extension values are
+(4,) canonical uint64 arrays and all extension arithmetic is ``npext``'s
+(the JAX copy mixes it with python-int tuple helpers); values read from a
+proof are reduced mod p on entry, as those helpers reduce them.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from .. import fri as fri_mod
 from .. import merkle
 from ..challenger import DuplexChallenger
 from .config import MAX_TWO_ADICITY
-from .evaluator import HostOps, base, hadd, hinv, hmul, hneg, hsub
+from . import npext as nx
+from .evaluator import HostOps
 from .keygen import MultiStarkVerifyingKey
 
 P = bb.P
@@ -32,12 +36,17 @@ def _check(cond: bool, msg: str):
         raise VerificationError(msg)
 
 
+def _ext(v) -> np.ndarray:
+    """An extension value from a proof or the challenger, canonical."""
+    return np.asarray(v, dtype=np.uint64) % P
+
+
 def _ext_pow(a, e: int):
-    r = base(1)
+    r = nx.from_base(1)
     while e:
         if e & 1:
-            r = hmul(r, a)
-        a = hmul(a, a)
+            r = nx.nmul(r, a)
+        a = nx.nmul(a, a)
         e >>= 1
     return r
 
@@ -61,12 +70,12 @@ def verify(vk: MultiStarkVerifyingKey, proof) -> None:
 
     # cumulative sums sum to zero
     if vk.num_phases:
-        total = base(0)
+        total = nx.from_base(0)
         for p in per_air:
             for phase_vals in p.exposed_values_after_challenge:
                 for v in phase_vals:
-                    total = hadd(total, tuple(v))
-        _check(total == base(0), "cumulative sums do not vanish")
+                    total = nx.nadd(total, _ext(v))
+        _check(not total.any(), "cumulative sums do not vanish")
 
     # air_perm_by_height is a perm, decreasing by height
     perm = proof.air_perm_by_height
@@ -105,7 +114,7 @@ def verify(vk: MultiStarkVerifyingKey, proof) -> None:
         _check(ch.check_witness(cfg.log_up_pow_bits,
                                 proof.log_up_pow_witness),
                "logup pow witness")
-        challenges = [tuple(ch.sample_ext()), tuple(ch.sample_ext())]
+        challenges = [_ext(ch.sample_ext()), _ext(ch.sample_ext())]
         for p, avk in zip(per_air, vks):
             if avk.num_exposed:
                 vals = p.exposed_values_after_challenge[0]
@@ -118,9 +127,9 @@ def verify(vk: MultiStarkVerifyingKey, proof) -> None:
     else:
         _check(len(proof.commitments.after_challenge) == 0, "no phase")
 
-    alpha = tuple(ch.sample_ext())
+    alpha = _ext(ch.sample_ext())
     ch.observe_slice(proof.commitments.quotient)
-    zeta = tuple(ch.sample_ext())
+    zeta = _ext(ch.sample_ext())
 
     # ---- build rounds (commit, mats:[(log_lde, width, points, values)]) --
     vals = proof.opening.values
@@ -191,19 +200,19 @@ def verify(vk: MultiStarkVerifyingKey, proof) -> None:
         if avk.preprocessed_commit is not None:
             ao = vals.preprocessed[prep_idx]
             prep_idx += 1
-            prep_pair = ([tuple(v) for v in ao.local],
-                         [tuple(v) for v in ao.next])
+            prep_pair = ([_ext(v) for v in ao.local],
+                         [_ext(v) for v in ao.next])
         mains = []
         for _ in avk.widths.cached_mains:
             ao = vals.main[commit_idx][0]
             commit_idx += 1
-            mains.append(([tuple(v) for v in ao.local],
-                          [tuple(v) for v in ao.next]))
+            mains.append(([_ext(v) for v in ao.local],
+                          [_ext(v) for v in ao.next]))
         if avk.widths.common_main:
             ao = vals.main[num_cached][cm_idx]
             cm_idx += 1
-            mains.append(([tuple(v) for v in ao.local],
-                          [tuple(v) for v in ao.next]))
+            mains.append(([_ext(v) for v in ao.local],
+                          [_ext(v) for v in ao.next]))
         perm_pair = None
         if avk.widths.after_challenge:
             ao = vals.after_challenge[0][ac_idx]
@@ -212,10 +221,10 @@ def verify(vk: MultiStarkVerifyingKey, proof) -> None:
             def unflatten(flat):
                 out = []
                 for j in range(len(flat) // 4):
-                    acc = base(0)
+                    acc = nx.from_base(0)
                     for c2 in range(4):
-                        mono = tuple(1 if t == c2 else 0 for t in range(4))
-                        acc = hadd(acc, hmul(tuple(flat[4 * j + c2]), mono))
+                        mono = np.eye(4, dtype=np.uint64)[c2]
+                        acc = nx.nadd(acc, nx.nmul(_ext(flat[4 * j + c2]), mono))
                     out.append(acc)
                 return out
             perm_pair = (unflatten(ao.local), unflatten(ao.next))
@@ -227,7 +236,7 @@ def verify(vk: MultiStarkVerifyingKey, proof) -> None:
 
 def _points(i, per_air, zeta):
     g_n = bb.two_adic_generator_int(per_air[i].log_degree)
-    zeta_next = hmul(zeta, base(g_n))
+    zeta_next = nx.nmul_base(zeta, g_n)
     return [zeta, zeta_next]
 
 
@@ -240,7 +249,7 @@ def _verify_pcs(cfg, rounds, fri_proof: fri_mod.FriProof, log_max_lde: int,
             for value_row in values:
                 for v in value_row:
                     ch.observe_ext(np.asarray(v, dtype=np.uint64))
-    alpha = tuple(ch.sample_ext())
+    alpha = _ext(ch.sample_ext())
 
     _check(len(fri_proof.query_proofs) == cfg.fri.num_queries, "num queries")
     _check(len(fri_proof.commit_phase_commits) == log_max_lde - lb,
@@ -256,7 +265,6 @@ def _verify_pcs(cfg, rounds, fri_proof: fri_mod.FriProof, log_max_lde: int,
 
     # ---- batched query verification (vectorized over the query axis;
     # semantics identical to per-query scalar checks) ---------------------
-    from . import npext as nx
     nq = cfg.fri.num_queries
     indices = np.asarray([ch.sample_bits(log_max_lde) for _ in range(nq)],
                          dtype=np.int64)
@@ -266,10 +274,10 @@ def _verify_pcs(cfg, rounds, fri_proof: fri_mod.FriProof, log_max_lde: int,
     # precompute alpha powers up to the max width (ext, canonical)
     max_w = max(w for (_, mats) in rounds for (_, w, _, _) in mats)
     apows = np.zeros((max_w + 1, 4), dtype=np.uint64)
-    cur = base(1)
+    cur = nx.from_base(1)
     for t in range(max_w + 1):
         apows[t] = cur
-        cur = hmul(cur, alpha)
+        cur = nx.nmul(cur, alpha)
 
     ro = {}
     alpha_pow = {}
@@ -291,7 +299,7 @@ def _verify_pcs(cfg, rounds, fri_proof: fri_mod.FriProof, log_max_lde: int,
                  * nx.npow_base_varexp(
                      bb.two_adic_generator_int(lh), rev)) % P  # (Q,)
             cur_ro = ro.setdefault(lh, np.zeros((nq, 4), dtype=np.uint64))
-            cur_ap = alpha_pow.setdefault(lh, base(1))
+            cur_ap = alpha_pow.setdefault(lh, nx.from_base(1))
             for z, ps_at_z in zip(pts, values):
                 vals = np.asarray([tuple(v) for v in ps_at_z],
                                   dtype=np.uint64) % P       # (w, 4)
@@ -307,7 +315,7 @@ def _verify_pcs(cfg, rounds, fri_proof: fri_mod.FriProof, log_max_lde: int,
                 cap = np.asarray(cur_ap, dtype=np.uint64)[None, :]
                 cur_ro = nx.nadd(cur_ro, nx.nmul(
                     np.broadcast_to(cap, (nq, 4)), quot))
-                cur_ap = hmul(cur_ap, tuple(int(v) for v in apows[w]))
+                cur_ap = nx.nmul(cur_ap, apows[w])
             ro[lh] = cur_ro
             alpha_pow[lh] = cur_ap
         dims = [(1 << lh, w) for (lh, w, _, _) in mats]
@@ -345,31 +353,31 @@ def _verify_air_constraints(cfg, avk, p, prep_pair, mains, perm_pair,
 
     # selectors at zeta (trace domain shift = 1)
     z_n = _ext_pow(zeta, n)
-    z_h = hsub(z_n, base(1))
-    first = hmul(z_h, hinv(hsub(zeta, base(1))))
-    g_inv = pow(g_n, -1, P)
-    last = hmul(z_h, hinv(hsub(zeta, base(g_inv))))
-    trans = hsub(zeta, base(g_inv))
-    inv_zeroifier = hinv(z_h)
+    one = nx.from_base(1)
+    z_h = nx.nsub(z_n, one)
+    first = nx.nmul(z_h, nx.ninv(nx.nsub(zeta, one)))
+    g_inv = nx.from_base(pow(g_n, -1, P))
+    last = nx.nmul(z_h, nx.ninv(nx.nsub(zeta, g_inv)))
+    trans = nx.nsub(zeta, g_inv)
+    inv_zeroifier = nx.ninv(z_h)
 
     env = {
-        "main": [( [tuple(v) for v in loc], [tuple(v) for v in nxt])
-                 for (loc, nxt) in mains],
+        "main": mains,
         "preprocessed": prep_pair,
         "perm": perm_pair,
         "publics": [int(v) for v in p.public_values],
         "challenges": challenges,
-        "exposed": [tuple(v) for v in
+        "exposed": [_ext(v) for v in
                     (p.exposed_values_after_challenge[0]
                      if p.exposed_values_after_challenge else [])],
         "sels": {"is_first_row": first, "is_last_row": last,
                  "is_transition": trans},
     }
     vals = avk.dag.eval(HostOps, env)
-    acc = base(0)
+    acc = nx.from_base(0)
     for root in avk.dag.constraint_roots:
-        acc = hadd(hmul(acc, alpha), vals[root])
-    folded = hmul(acc, inv_zeroifier)
+        acc = nx.nadd(nx.nmul(acc, alpha), vals[root])
+    folded = nx.nmul(acc, inv_zeroifier)
 
     # recompute quotient(zeta) from chunks
     lqd = avk.log_quotient_degree
@@ -379,29 +387,28 @@ def _verify_air_constraints(cfg, avk, p, prep_pair, mains, perm_pair,
     # chunk domain i: shift g * w_q^i, size n
     zps = []
     for i in range(num_chunks):
-        acc_zp = base(1)
+        acc_zp = one
         for j in range(num_chunks):
             if j == i:
                 continue
             s_j = (bb.GENERATOR * pow(w_q, j, P)) % P
             # Z_j(x) = (x / s_j)^n - 1
-            zp_zeta = hsub(_ext_pow(hmul(zeta, base(pow(s_j, -1, P))), n),
-                           base(1))
+            zp_zeta = nx.nsub(_ext_pow(nx.nmul_base(zeta, pow(s_j, -1, P)), n),
+                              one)
             s_i = (bb.GENERATOR * pow(w_q, i, P)) % P
-            first_point = base(s_i)
-            zp_first = hsub(
-                _ext_pow(hmul(first_point, base(pow(s_j, -1, P))), n),
-                base(1))
-            acc_zp = hmul(acc_zp, hmul(zp_zeta, hinv(zp_first)))
+            first_point = nx.from_base(s_i)
+            zp_first = nx.nsub(
+                _ext_pow(nx.nmul_base(first_point, pow(s_j, -1, P)), n), one)
+            acc_zp = nx.nmul(acc_zp, nx.nmul(zp_zeta, nx.ninv(zp_first)))
         zps.append(acc_zp)
 
-    quotient = base(0)
+    quotient = nx.from_base(0)
     for i, chunk in enumerate(quotient_chunks):
-        inner = base(0)
+        inner = nx.from_base(0)
         for e_i, c in enumerate(chunk):
-            mono = tuple(1 if t == e_i else 0 for t in range(4))
-            inner = hadd(inner, hmul(mono, tuple(c)))
-        quotient = hadd(quotient, hmul(zps[i], inner))
+            mono = np.eye(4, dtype=np.uint64)[e_i]
+            inner = nx.nadd(inner, nx.nmul(mono, _ext(c)))
+        quotient = nx.nadd(quotient, nx.nmul(zps[i], inner))
 
-    _check(folded == quotient,
+    _check(np.array_equal(folded, quotient),
            f"constraint check failed for air {avk.name}")

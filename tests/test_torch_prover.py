@@ -8,11 +8,12 @@ log_quotient_degree 1: two quotient chunks and next_step 2).  That covers
 every round kind of ``prove`` except the after-challenge round, which needs
 interactions.  This file makes the only JAX prove of the port's tests
 (about a minute of XLA:CPU compiles); the port proves on the CPU with its
-plain versions.
+plain versions.  The SHA-256 of that JAX proof is pinned here and checked
+on every run; chip_smoke.py proves the same instance on the card and checks
+the same hash.
 """
 
 import hashlib
-import os
 
 import numpy as np
 import pytest
@@ -37,11 +38,10 @@ P = bb.P
 CONFIG = stark.StarkConfig(fri=stark.FriParameters(
     log_blowup=1, num_queries=4, proof_of_work_bits=2))
 
-# sha256 of openvm_tpu's encode_proof bytes for FibonacciAir at 2^4 under
-# TEST_CONFIG, public values [0, 1, b_last] (the instance of
-# tests/test_stark_e2e.py:75-84); chip_smoke.py checks it on the card.
-FIB16_PROOF_SHA256 = \
-    "1b09cd57dc4a14d42f04991a1556d20ffbe22d93829c46944fe6ea150558f2e8"
+# sha256 of openvm_tpu's encode_proof bytes for the fixture's instance
+# (``contexts(...)`` under TEST_CONFIG); chip_smoke.py checks it on the card.
+FIXTURE_PROOF_SHA256 = \
+    "a7febea84f25e9074f2e80382be71111e236adbb861a996c3e3c026133de7e8d"
 
 
 class FibonacciAir(stark.Air):
@@ -95,19 +95,21 @@ def cube_trace(log_n, seed):
     return x[:, None], y[:, None], [5, int(x[-1])]
 
 
-def contexts(ctx_cls, last_pv_delta=0):
+def contexts(ctx_cls, last_pv_delta=0, as_tensor=False):
+    """FibonacciAir at 2^5 and 2^3, CubeAir at 2^4; traces as canonical
+    numpy, or as Montgomery CPU tensors when ``as_tensor``."""
     t5, t3 = fib_trace(32), fib_trace(8)
     x, y, cube_pvs = cube_trace(4, 1)
-    return [ctx_cls(air_id=0, common_main=t5, public_values=[0, 1, int(t5[-1, 1])]),
-            ctx_cls(air_id=1, common_main=t3,
-                    public_values=[0, 1, (int(t3[-1, 1]) + last_pv_delta) % P]),
-            ctx_cls(air_id=2, common_main=x, cached_mains=[y],
-                    public_values=cube_pvs)]
+    pvs = [[0, 1, int(t5[-1, 1])], [0, 1, (int(t3[-1, 1]) + last_pv_delta) % P],
+           cube_pvs]
 
+    def m(a):
+        return bb.monty(a, device="cpu") if as_tensor else a
 
-def port_key():
-    return stark.keygen([FibonacciAir(), FibonacciAir(),
-                         cube_air(stark.Air)(4)], CONFIG, device="cpu")
+    return [ctx_cls(air_id=0, common_main=m(t5), public_values=pvs[0]),
+            ctx_cls(air_id=1, common_main=m(t3), public_values=pvs[1]),
+            ctx_cls(air_id=2, common_main=m(x), cached_mains=[m(y)],
+                    public_values=pvs[2])]
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +117,8 @@ def proofs():
     jpk = jstark.keygen([JaxFibonacciAir(), JaxFibonacciAir(),
                          cube_air(jstark.Air)(4)], TEST_CONFIG)
     jproof = jstark.prove(jpk, contexts(jstark.AirProvingContext))
-    tpk = port_key()
+    tpk = stark.keygen([FibonacciAir(), FibonacciAir(), cube_air(stark.Air)(4)],
+                       CONFIG, device="cpu")
     tproof = stark.prove(tpk, contexts(stark.AirProvingContext), device="cpu")
     return jpk, jproof, tpk, tproof
 
@@ -142,8 +145,8 @@ def test_port_verifier_accepts_both_proofs(proofs):
     stark.verify(tpk.vk, codec.decode_proof(jcodec.encode_proof(jproof)))
 
 
-def test_wrong_public_value_fails():
-    tpk = port_key()
+def test_wrong_public_value_fails(proofs):
+    _, _, tpk, _ = proofs
     with pytest.raises((stark.VerificationError, AssertionError)):
         proof = stark.prove(tpk, contexts(stark.AirProvingContext, 1),
                             device="cpu")
@@ -227,21 +230,15 @@ def test_codec_reproduces_pinned_blob():
 
 
 @pytest.mark.parametrize("as_tensor", [False, True])
-def test_pinned_small_proof_hash(as_tensor):
-    """Canonical numpy traces and Montgomery tensors give the same proof."""
-    trace = fib_trace(16)
-    pvs = [0, 1, int(trace[-1, 1])]
-    main = bb.monty(trace, device="cpu") if as_tensor else trace
-    pk = stark.keygen([FibonacciAir()], CONFIG, device="cpu")
-    proof = stark.prove(pk, [stark.AirProvingContext(
-        air_id=0, common_main=main, public_values=pvs)], device="cpu")
-    assert hashlib.sha256(codec.encode_proof(proof)).hexdigest() == \
-        FIB16_PROOF_SHA256
+def test_pinned_small_proof_hash(proofs, as_tensor):
+    """The JAX proof has the pinned hash, and the port gives it from
+    canonical numpy traces and from Montgomery tensors alike."""
+    _, jproof, tpk, tproof = proofs
     if as_tensor:
-        return
-    if os.environ.get("OPENVM_SLOW"):  # a second JAX prove: tens of seconds
-        jpk = jstark.keygen([JaxFibonacciAir()], TEST_CONFIG)
-        jproof = jstark.prove(jpk, [jstark.AirProvingContext(
-            air_id=0, common_main=trace, public_values=pvs)])
+        tproof = stark.prove(tpk, contexts(stark.AirProvingContext, as_tensor=True),
+                             device="cpu")
+    else:
         assert hashlib.sha256(jcodec.encode_proof(jproof)).hexdigest() == \
-            FIB16_PROOF_SHA256
+            FIXTURE_PROOF_SHA256
+    assert hashlib.sha256(codec.encode_proof(tproof)).hexdigest() == \
+        FIXTURE_PROOF_SHA256

@@ -3,9 +3,9 @@ DeviceOps evaluation and group_closure fold.
 
 A seeded random SymbolicDag of about 200 nodes, with every op, every var
 entry, offsets 0 and 1 and next_step 2, is evaluated on an 8-row quotient
-domain three ways: the JAX package's DeviceOps (eagerly), the port's
-DeviceOps and the port's bytecode interpreter (plain version).  The
-alpha-folded, 1/Z_H-scaled results must be equal word for word.
+domain two ways: the JAX package's DeviceOps (eagerly) and the port's
+bytecode interpreter (plain version).  The alpha-folded, 1/Z_H-scaled
+results must be equal word for word.
 """
 
 import numpy as np
@@ -20,9 +20,7 @@ from openvm_tpu.stark.prover import _selectors_on_domain
 from openvm_tpu.stark.symbolic import SymbolicDag as JaxDag
 from openvm_tpu_torch import ntt
 from openvm_tpu_torch.field import babybear as bb
-from openvm_tpu_torch.field import ext as ef
 from openvm_tpu_torch.stark import quotient
-from openvm_tpu_torch.stark.evaluator import DeviceOps
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
 
 torch.set_num_threads(1)
@@ -105,51 +103,19 @@ def _jax_fold(dag, env):
         v = jef.from_base(jnp.broadcast_to(v, (N_Q,))) if tag == "b" else \
             jnp.broadcast_to(v, (N_Q, 4))
         acc = jef.add(acc, v)
-    return vals, np.asarray(jef.scale(acc, sels["inv_zeroifier"]))
-
-
-def _port_env(env):
-    t = {k: (bb.from_numpy(v, device="cpu") if not isinstance(v, list)
-             else [bb.from_numpy(m, device="cpu") for m in v])
-         for k, v in env.items()}
-    sels = quotient.selectors_on_domain(LOG_N, LOG_N + LQD, bb.GENERATOR, "cpu")
-    t.update(sels=sels, next_step=1 << LQD)
-    return t
+    return np.asarray(jef.scale(acc, sels["inv_zeroifier"]))
 
 
 @pytest.fixture(scope="module")
 def case():
     nodes, roots = random_dag(0)
     env = random_env(1)
-    jvals, jfold = _jax_fold(JaxDag(nodes=nodes, constraint_roots=roots), env)
-    return nodes, roots, env, jvals, jfold
-
-
-def test_port_device_ops_equal_jax(case):
-    nodes, roots, env, jvals, jfold = case
-    tenv = _port_env(env)
-    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
-    vals = dag.eval(DeviceOps("cpu"), tenv, roots=roots)
-    assert sum(v is not None for v in vals) == sum(v is not None for v in jvals)
-    for jv, tv in zip(jvals, vals):
-        if jv is None:
-            assert tv is None
-            continue
-        assert jv[0] == tv[0]
-        np.testing.assert_array_equal(np.asarray(jv[1], dtype=np.uint32),
-                                      bb.to_numpy(tv[1]))
-    acc = torch.zeros((N_Q, 4), dtype=torch.int32)
-    alpha = tenv["alpha"]
-    for r in roots:
-        tag, v = vals[r]
-        v = ef.from_base(v.expand(N_Q)) if tag == "b" else v.expand(N_Q, 4)
-        acc = ef.add(ef.mul(acc, alpha), v)
-    np.testing.assert_array_equal(
-        jfold, bb.to_numpy(ef.scale(acc, tenv["sels"]["inv_zeroifier"])))
+    jfold = _jax_fold(JaxDag(nodes=nodes, constraint_roots=roots), env)
+    return nodes, roots, env, jfold
 
 
 def test_bytecode_interpreter_equals_jax(case):
-    nodes, roots, env, _, jfold = case
+    nodes, roots, env, jfold = case
     dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
     prog = quotient.compile_dag(
         dag, n_main=2, has_preprocessed=True, has_perm=True,
