@@ -10,9 +10,11 @@ Phases, each printing one JSON line:
   setup     build the kernels, name the card and its power limit
   pinned    the kernels reproduce the vectors of
             tests/test_bitcompat_fixtures.py and the challenger's; the
-            codec reproduces the pinned blob; the proof of
-            tests/test_torch_prover.py's three-AIR instance has the SHA-256
-            that openvm_tpu gives, and a wrong public value fails
+            codec reproduces the pinned blob; the proofs of
+            tests/test_torch_prover.py's three-AIR instance, of
+            tests/test_torch_logup.py's sender/receiver pair and of the VM's
+            fib(10) (tests/test_torch_vm.py) have the SHA-256 that openvm_tpu
+            gives, and a wrong public value fails
   variants  every new kernel and every coset_lde argument, kernel against
             plain, mid-size
   main      path 1, one RV32IM segment's common-main commit at full size:
@@ -29,6 +31,15 @@ Phases, each printing one JSON line:
             CubeAir at 2^18 (preprocessed column, cached main, degree 3),
             84 queries and 16 PoW bits; the prove's own quotient inputs
             and query gather are run again through the plain versions
+  vm        path 3, the RV32IM VM proof: VirtualMachine keygen -> prove ->
+            verify of the fibonacci guest build_fib_program(200,000), about
+            1.0 M instructions (rv32_base_alu 800 k rows, padded to 2^20),
+            with FIB_EXECUTORS and the production profile (84 queries, 16
+            PoW bits, log_blowup 1); stage seconds, insn/s, trace cells/s;
+            then K8 on every AIR's sends, K9 and K10 on every AIR's
+            permutation trace and K7 on the two widest AIRs' quotient (LogUp
+            roots included) against their plain versions, on the prove's own
+            inputs
   timing    each kernel and its plain version at the paths' shapes
 
 then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
@@ -51,9 +62,11 @@ from openvm_tpu_torch import _build, fri, merkle, ntt, poseidon2 as p2, stark
 from openvm_tpu_torch.challenger import DuplexChallenger
 from openvm_tpu_torch.field import babybear as bb
 from openvm_tpu_torch.field import ext as ef
-from openvm_tpu_torch.stark import codec, prover as pv, quotient as qmod
+from openvm_tpu_torch.stark import codec, logup, lookup, prover as pv, quotient as qmod
 from openvm_tpu_torch.stark.config import FriParameters, StarkConfig
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
+from openvm_tpu_torch.vm.guest import FIB_EXECUTORS, build_fib_program, fib
+from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
 
 SEED = 0
 P = bb.P
@@ -88,6 +101,23 @@ CODEC_BLOB_SHA256 = \
 # tests/test_stark_e2e.py's TEST_CONFIG
 FIXTURE_PROOF_SHA256 = \
     "a7febea84f25e9074f2e80382be71111e236adbb861a996c3e3c026133de7e8d"
+# tests/test_torch_logup.py's SENDER_RECEIVER_PROOF_SHA256 and
+# tests/test_torch_vm.py's FIB10_PROOF_SHA256: openvm_tpu's proofs of the
+# balanced sender/receiver pair and of the VM's fib(10)
+SENDER_RECEIVER_PROOF_SHA256 = \
+    "69e8d8c994a91341064fa0a08d5652c33625279bb434def5e0963fceb46d2528"
+FIB10_PROOF_SHA256 = \
+    "7f2298f064201166dd6b35c8beec5f7895484312deeaee02c9d2d204136bf53c"
+TEST_STARK = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=2,
+                                           proof_of_work_bits=1))
+
+# Path 3: the fibonacci guest's loop count; 5 instructions an iteration.
+VM_FIB_N = 200_000
+# Path 2 has no interactions: it runs every kernel but K8, K9, K10 and the
+# columns mode of K7.
+PATH2_KERNELS = ("bb_elementwise", "ntt", "poseidon2_hash_rows",
+                 "poseidon2_compress_layer", "ext_elementwise", "gather",
+                 "quotient", "open_dot", "fri_reduced_open", "fri_fold")
 
 # Bounds.  Bytes: each input read once, each output written once, over the
 # H100's 3.35 TB/s.  Operations: the fewest 32-bit integer ALU operations
@@ -213,6 +243,26 @@ class CubeAir(stark.Air):
             b.assert_eq(x_next, x * y + c)
         with b.when_last_row():
             b.assert_eq(x, b.public_value(1))
+
+
+class SenderAir(stark.Air):
+    """Sends each row's value to bus 7 (tests/test_stark_e2e.py:48)."""
+
+    name = "sender"
+    width = 1
+
+    def eval(self, b):
+        b.push_send(7, [b.main(0)], 1)
+
+
+class ReceiverAir(stark.Air):
+    """Receives values on bus 7 with a multiplicity column."""
+
+    name = "receiver"
+    width = 2
+
+    def eval(self, b):
+        b.push_receive(7, [b.main(0)], b.main(1))
 
 
 def fib_trace(n: int) -> np.ndarray:
@@ -397,8 +447,38 @@ def phase_pinned(dev) -> None:
     except (stark.VerificationError, AssertionError) as e:
         wrong_public_fails = "constant" in str(e) or "constraint" in str(e)
     require(wrong_public_fails, "a wrong public value was accepted")
+    # tests/test_torch_logup.py's sender/receiver pair: a LogUp phase
+    pk = stark.keygen([SenderAir(), ReceiverAir()], cfg, device=dev)
+    sends = np.array([3, 5, 5, 7, 3, 3, 9, 9], dtype=np.uint64)[:, None]
+    table = np.array([[3, 3], [5, 2], [7, 1], [9, 2]], dtype=np.uint64)
+    proof = stark.prove(pk, [stark.AirProvingContext(air_id=0, common_main=sends),
+                             stark.AirProvingContext(air_id=1, common_main=table)],
+                        device=dev)
+    stark.verify(pk.vk, proof)
+    sr_sha = hashlib.sha256(codec.encode_proof(proof)).hexdigest()
+    require(sr_sha == SENDER_RECEIVER_PROOF_SHA256, f"sender/receiver proof sha {sr_sha}")
+    # tests/test_torch_vm.py's VM proof of fib(10)
+    vm = VirtualMachine(Rv32Config(stark=TEST_STARK, executors=FIB_EXECUTORS), device=dev)
+    vm.keygen()
+    exe = build_fib_program(10)
+    proof, pre = vm.prove(exe)
+    result = vm.verify(proof, expected_exe_commit=vm.commit_exe(exe), exe=exe)
+    vm_sha = hashlib.sha256(codec.encode_proof(proof)).hexdigest()
+    require(vm_sha == FIB10_PROOF_SHA256, f"fib(10) VM proof sha {vm_sha}")
+    require(int.from_bytes(bytes(result["public_values"][:4]), "little") == fib(11),
+            "fib(10) public value")
+    pv_air = proof.per_air[vm.air_index["public_values"]]
+    pv_air.public_values[0] = (pv_air.public_values[0] + 1) % P
+    try:
+        vm.verify(proof)
+        tampered_fails = False
+    except (stark.VerificationError, AssertionError):
+        tampered_fails = True
+    require(tampered_fails, "a tampered VM public value was accepted")
     emit({"phase": "pinned", "ok": True, "codec_blob_sha256": CODEC_BLOB_SHA256,
-          "fixture_proof_sha256": proof_sha, "wrong_public_value_fails": True})
+          "fixture_proof_sha256": proof_sha, "wrong_public_value_fails": True,
+          "sender_receiver_proof_sha256": sr_sha, "fib10_vm_proof_sha256": vm_sha,
+          "fib10_instret": pre.instret, "tampered_vm_public_value_fails": True})
 
 
 def phase_variants(dev, rng) -> None:
@@ -495,6 +575,53 @@ def phase_variants(dev, rng) -> None:
     plan.add(ev, 1, 1)
     idx = rng.integers(0, 4096, size=84).tolist()
     errs["gather"] = max_abs_err(plan.run_device(idx), plan.run_plain(idx))
+
+    # K7 columns mode: the random DAG's base roots over 2^12 natural rows
+    tags = qmod._tags(dag, range(len(nodes)))
+    base_roots = [r for r in range(len(nodes)) if tags[r] == "b"
+                  and nodes[r][0] not in ("sel",)][-40:] + [0, 3]
+    cprog = qmod.compile_columns(dag, base_roots, n_main=2, has_preprocessed=True,
+                                 publics=bb.to_monty_np(rng.integers(0, P, size=3)))
+    csrc = [s[:1 << 12] for s in srcs[:3]]
+    cols = qmod.evaluate_columns(cprog, csrc, 12)
+    errs["quotient_columns"] = max_abs_err(cols, qmod.evaluate_columns_plain(cprog, csrc, 12))
+
+    # K9 and K10: a layout of 5 interactions in 3 chunks (0 to 4 fields, a
+    # zero denominator), heights 1, 1000 (a partial block) and 2^21 (more
+    # block totals than one scan pass)
+    for n in (1, 1000, 1 << 21):
+        table = np.asarray([(0, 2, 0, 1), (3, 0, 0, 0), (4, 4, 1, 1),
+                            (9, 1, 2, 0), (11, 3, 2, 1)], dtype=np.int32)
+        layout = logup.InteractionLayout(
+            roots=list(range(15)), table=table,
+            bus_m=bb.to_monty_np(np.asarray([1, 2, 7, 3, 0], dtype=np.uint64)), m=3, f_max=4)
+        cols = words(rng, dev, 15, n)
+        alpha, bpows = words(rng, dev, 4), words(rng, dev, 4, 4)
+        cols[0, 0] = 0
+        cols[1, 0] = 0
+        alpha[1:] = 0
+        alpha[0] = P - int(layout.bus_m[0])  # interaction 0, row 0: d = 0
+        perm = logup.perm_cols(cols, layout, alpha, bpows)
+        errs[f"perm_cols/{n}"] = max_abs_err(perm, logup.perm_cols_plain(cols, layout, alpha, bpows))
+        got, want = logup.perm_scan(perm), logup.perm_scan_plain(perm)
+        errs[f"perm_scan/{n}"] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+
+    # K8: random sends of all three kinds, canonical values small and large
+    sends_tab = np.asarray([(lookup.RANGE, 0, 1, 1, 2), (lookup.BITWISE, 3, 4, 5, 2),
+                            (lookup.TUPLE, 3, 4, 4, 6)], dtype=np.int32)
+    layout = lookup.SendLayout(roots=list(range(7)), table=sends_tab)
+    vals = rng.integers(0, 300, size=(7, 1 << 16)).astype(np.uint64)
+    vals[1] = rng.integers(0, 33, size=1 << 16)
+    vals[2] = rng.integers(0, 3, size=1 << 16)
+    vals[6] = rng.integers(0, P, size=1 << 16)
+    vals[:, :64] = rng.integers(0, P, size=(7, 64))
+    cols = bb.monty(vals, device=dev)
+    k_tabs = lookup.new_tables(1 << 16, 256 * 2048, dev)
+    p_tabs = lookup.new_tables(1 << 16, 256 * 2048, dev)
+    for _ in range(2):  # the second call adds into the first call's counts
+        lookup.lookup_hist(cols, layout, k_tabs, 2048)
+        lookup.lookup_hist_plain(cols, layout, p_tabs, 2048)
+    errs["lookup_hist"] = max(max_abs_err(a, b) for a, b in zip(k_tabs, p_tabs))
     bad = {k: v for k, v in errs.items() if v}
     emit({"phase": "variants", "cases": len(errs), "mismatched": bad,
           "quotient_dag": {"nodes": len(nodes), "roots": len(roots),
@@ -545,6 +672,77 @@ def run_prove(dev, cfg: StarkConfig, airs, ctxs) -> dict:
     t3 = time.perf_counter()
     return {"pk": pk, "proof": proof, "stages_s": stages, "record": record,
             "s": {"keygen": t1 - t0, "prove": t2 - t1, "verify": t3 - t2}}
+
+
+def run_vm(dev, cfg: StarkConfig) -> dict:
+    """Path 3: VirtualMachine keygen -> prove -> verify of the fibonacci
+    guest through the port's entry points."""
+    vm = VirtualMachine(Rv32Config(stark=cfg, executors=FIB_EXECUTORS), device=dev)
+    exe = build_fib_program(VM_FIB_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vm.keygen()
+    commit = vm.commit_exe(exe)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stages: dict = {}
+    record: dict = {}
+    proof, pre = vm.prove(exe, stages=stages, record=record)
+    t2 = time.perf_counter()
+    result = vm.verify(proof, expected_exe_commit=commit, exe=exe)
+    t3 = time.perf_counter()
+    launches = dict(_build.LAUNCHES)  # keygen, cold prove and verify
+    # again, warm, as bench.py:91-96 re-measures a prove that took under a
+    # third of its budget: the domain tables are built by now
+    warm_stages: dict = {}
+    warm, _ = vm.prove(exe, stages=warm_stages)
+    t4 = time.perf_counter()
+    require(codec.encode_proof(warm) == codec.encode_proof(proof),
+            "a second prove of the same guest gave other bytes")
+    return {"vm": vm, "exe": exe, "proof": proof, "pre": pre, "result": result,
+            "stages_s": stages, "warm_stages_s": warm_stages, "record": record,
+            "launches": launches,
+            "s": {"keygen_and_commit_exe": t1 - t0, "prove": t2 - t1,
+                  "verify": t3 - t2, "prove_warm": t4 - t3}}
+
+
+def check_vm_kernels(vm, record: dict) -> dict:
+    """K7 (columns mode), K8, K9, K10 and K7 (quotient) of path 3 against
+    their plain versions on the prove's own inputs: every AIR's sends and
+    permutation trace, the two widest AIRs' quotient."""
+    lk = record["lookup"]
+    range_h, tuple_total, sizes1 = lk["sizes"]
+    p_tabs = lookup.new_tables(range_h, tuple_total, lk["tables"][0].device)
+    cols_err, perm_err, scan_err = {}, {}, {}
+    for name, prog, sources, log_n, layout in lk["airs"]:
+        plain_cols = qmod.evaluate_columns_plain(prog, sources, log_n)
+        cols_err[f"lookup/{name}"] = max_abs_err(
+            qmod.evaluate_columns(prog, sources, log_n), plain_cols)
+        lookup.lookup_hist_plain(plain_cols, layout, p_tabs, sizes1)
+    hist_err = max(max_abs_err(a, b) for a, b in zip(lk["tables"], p_tabs))
+    names = [a.name for a, vk in zip(vm.airs, vm.pk.vk.per_air)
+             if vk.widths.after_challenge]
+    for name, entry in zip(names, record["logup"]):
+        prog, sources, log_n = entry["columns"]
+        cols_err[f"logup/{name}"] = max_abs_err(
+            qmod.evaluate_columns(prog, sources, log_n),
+            qmod.evaluate_columns_plain(prog, sources, log_n))
+        perm_err[name] = max_abs_err(entry["perm_scan"],
+                                     logup.perm_cols_plain(*entry["perm_cols"]))
+        got, want = logup.perm_scan(entry["perm_scan"]), logup.perm_scan_plain(entry["perm_scan"])
+        scan_err[name] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    widest = sorted(range(len(vm.airs)), key=lambda i: -vm.airs[i].width)[:2]
+    q_err = {vm.airs[i].name: max_abs_err(qmod.evaluate(*record["quotient"][i]),
+                                          qmod.evaluate_plain(*record["quotient"][i]))
+             for i in widest}
+    errs = {"quotient_columns": max(cols_err.values()), "lookup_hist": hist_err,
+            "perm_cols": max(perm_err.values()), "perm_scan": max(scan_err.values()),
+            "quotient": max(q_err.values())}
+    require(all(v == 0 for v in errs.values()),
+            f"kernel and plain differ on the VM prove's inputs: {cols_err} "
+            f"{perm_err} {scan_err} {q_err} {errs}")
+    return {"max": errs, "columns_airs": len(cols_err), "perm_airs": len(perm_err),
+            "quotient_airs": {vm.airs[i].name: record["quotient"][i][2] for i in widest}}
 
 
 def main() -> int:
@@ -624,7 +822,8 @@ def run(dev: torch.device) -> int:
     proved = run_prove(dev, cfg, airs, ctxs)
     p_launches = dict(_build.LAUNCHES)
     p_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    require(all(p_launches.values()), f"a kernel of path 2 never ran: {p_launches}")
+    require(all(p_launches[k] for k in PATH2_KERNELS),
+            f"a kernel of path 2 never ran: {p_launches}")
     # K7 and K6 again through their plain versions, on the prove's own
     # inputs: every AIR's program and sources, the whole query gather
     q_err = {f"{kind}/2^{lh}": max_abs_err(qmod.evaluate(*args), qmod.evaluate_plain(*args))
@@ -650,8 +849,42 @@ def run(dev: torch.device) -> int:
                                 "gather_jobs": len(plan.jobs)}})
     err = {**err, **{k: max(v, err.get(k, 0)) for k, v in p_err.items()}}
 
+    # ---- path 3: the RV32IM VM proof of the fibonacci guest -----------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    vmr = run_vm(dev, cfg)
+    v_launches = vmr["launches"]
+    v_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    require(all(v_launches.values()), f"a kernel of path 3 never ran: {v_launches}")
+    vm, vproof, pre = vmr["vm"], vmr["proof"], vmr["pre"]
+    x2 = (0, 1)
+    for _ in range(VM_FIB_N):
+        x2 = (x2[1], (x2[0] + x2[1]) & 0xFFFFFFFF)
+    require(pre.exit_code == 0 and vmr["result"]["public_values"][:4]
+            == list(x2[1].to_bytes(4, "little")), "fib guest result")
+    vblob = codec.encode_proof(vproof)
+    require(codec.encode_proof(codec.decode_proof(vblob)) == vblob, "VM codec round trip")
+    cells = sum((1 << pa.log_degree) * (vm.airs[pa.air_id].width
+                                        + sum(vm.airs[pa.air_id].cached_main_widths))
+                for pa in vproof.per_air)
+    prove_s, warm_s = vmr["s"]["prove"], vmr["s"]["prove_warm"]
+    v_checks = check_vm_kernels(vm, vmr["record"])
+    err = {**err, **{k: max(v, err.get(k, 0)) for k, v in v_checks["max"].items()}}
+    emit({"phase": "vm", "guest": f"build_fib_program({VM_FIB_N})",
+          "executors": list(FIB_EXECUTORS), "insns": pre.instret,
+          "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
+          "log_blowup": cfg.fri.log_blowup,
+          "heights": {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in vproof.per_air},
+          "s": vmr["s"], "stage_s": vmr["stages_s"],
+          "warm_stage_s": vmr["warm_stages_s"], "verified": True,
+          "insn_per_s": pre.instret / warm_s, "insn_per_s_cold": pre.instret / prove_s,
+          "cells": cells, "cells_per_s": cells / warm_s,
+          "cells_per_s_cold": cells / prove_s, "proof_bytes": len(vblob),
+          "proof_sha256": hashlib.sha256(vblob).hexdigest(), "peak_gb": v_peak_gb,
+          "launches": v_launches, "plain_checks": v_checks})
+
     kernels = timing(dev, setup, rng, main, err, traces, launches, proved,
-                     ctxs, cfg, p_launches)
+                     ctxs, cfg, p_launches, vmr, v_launches)
     print(setup["nvidia_smi"].splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -704,8 +937,54 @@ def reduced_open_ops(w: int, npts: int) -> int:
         ADD_OPS + EXT_BATCH_INV + 2 * EXT_MUL + 2 * EXT_ADD)
 
 
+def columns_cost(prog) -> tuple:
+    """(distinct columns loaded, operations) per row of a columns program:
+    its node operations, no fold and no selectors."""
+    cost = {qmod.ADD_BB: ADD_OPS, qmod.SUB_BB: ADD_OPS, qmod.NEG_B: ADD_OPS,
+            qmod.MUL_BB: MUL_OPS}
+    loads = {(int(a) >> 1, int(b)) for op, _, a, b in prog.code if op == qmod.LOAD_B}
+    return len(loads), sum(cost.get(int(op), 0) for op in prog.code[:, 0])
+
+
+def perm_cols_ops(layout) -> int:
+    """The fewest operations per row of K9: per interaction its fields'
+    scales and adds, alpha + bus, a batch inverse, the count's scale and
+    the add into its chunk."""
+    return sum(int(nf) * (EXT_SCALE + EXT_ADD) + ADD_OPS + EXT_BATCH_INV
+               + EXT_SCALE + EXT_ADD for nf in layout.table[:, 1])
+
+
+def lookup_scatter(cols, layout, sizes) -> tuple:
+    """The live sends' (index, count) pairs of one AIR over the three tables
+    laid end to end, and the words the function must read (each send's
+    count, and its fields where the count is live); for the index_add_
+    yardstick and the bound."""
+    range_h, tuple_h, sizes1 = sizes
+    offsets = {lookup.RANGE: 0, lookup.BITWISE: range_h,
+               lookup.TUPLE: range_h + lookup.BITWISE_BINS}
+    limit = {lookup.RANGE: range_h, lookup.BITWISE: lookup.BITWISE_BINS,
+             lookup.TUPLE: tuple_h}
+    c = bb.from_monty_plain(cols).long()
+    idxs, cnts, words = [], [], 0
+    for kind, rx, ry, rz, rc in layout.table.tolist():
+        x, y, cnt = c[rx], c[ry], c[rc]
+        if kind == lookup.RANGE:
+            high = torch.bitwise_left_shift(torch.ones_like(y), torch.clamp(y, max=30))
+            idx = torch.where(y == 0, 0, (high - 1 + x) & 0xFFFFFFFF)
+        elif kind == lookup.TUPLE:
+            idx = (x * sizes1 + y) & 0xFFFFFFFF
+        else:
+            idx = ((x * 256 + y) * 2 + c[rz]) & 0xFFFFFFFF
+        live = cnt != 0
+        words += int(cnt.numel()) + int(live.sum()) * (3 if kind == lookup.BITWISE else 2)
+        keep = live & (idx < limit[kind])
+        idxs.append(idx[keep] + offsets[kind])
+        cnts.append(cnt[keep])
+    return torch.cat(idxs), torch.cat(cnts), words
+
+
 def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
-           p_launches) -> list:
+           p_launches, vmr, v_launches) -> list:
     """Each kernel and its plain version at the paths' shapes."""
     tree = main["tree"]
     # ---- path 1 kernels: K1 to_monty of the widest trace; K3 the LDE of the
@@ -754,6 +1033,31 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     require(all(v == 0 for v in errs.values()), f"kernel and plain differ: {errs}")
     w_f = int(fib_lde.shape[1])
     ro_k = ro0.clone()
+
+    # ---- path 3 kernels at the VM prove's own inputs: rv32_base_alu, the
+    # tallest AIR (2^20 rows), its interaction columns, permutation
+    # columns and scan, and its lookup sends
+    vm, rec = vmr["vm"], vmr["record"]
+    alu = vm.air_index["rv32_base_alu"]
+    with_perm = [i for i, vk in enumerate(vm.pk.vk.per_air) if vk.widths.after_challenge]
+    lentry = rec["logup"][with_perm.index(alu)]
+    c_prog, c_src, c_log_n = lentry["columns"]
+    n_alu = 1 << c_log_n
+    c_loads, c_ops = columns_cost(c_prog)
+    k9_args = lentry["perm_cols"]
+    k9_layout = k9_args[1]
+    m_alu = k9_layout.m
+    perm_in = lentry["perm_scan"]
+    row_sums = perm_in.long().reshape(n_alu, m_alu, 4).sum(dim=1)
+    lk = rec["lookup"]
+    _, h_prog, h_src, h_log_n, h_layout = next(a for a in lk["airs"]
+                                               if a[0] == "rv32_base_alu")
+    h_cols = qmod.evaluate_columns(h_prog, h_src, h_log_n)
+    h_idx, h_cnt, h_words = lookup_scatter(h_cols, h_layout, lk["sizes"])
+    range_h, tuple_total, sizes1 = lk["sizes"]
+    h_tabs = lookup.new_tables(range_h, tuple_total, dev)
+    h_table_words = sum(int(x.numel()) for x in h_tabs)
+    flat_tab = torch.zeros(h_table_words, dtype=torch.int64, device=dev)
     cases = [
         ("bb_elementwise", "babybear.cu", "openvm_tpu/field/babybear.py:174",
          lambda: bb.to_monty(widest), lambda: bb.to_monty_plain(widest), 20, 3,
@@ -797,7 +1101,35 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          lambda: fri.fold_evals_plain(fold_in, beta), 20, 2,
          2 * nq * 16 + nq * (16 + 8), nq * (EXT_ADD * 2 + EXT_SCALE + EXT_MUL + ADD_OPS),
          [2 * nq, 4]),
+        ("quotient_columns", "quotient.cu", "openvm_tpu/stark/logup.py:155",
+         lambda: qmod.evaluate_columns(c_prog, c_src, c_log_n),
+         lambda: qmod.evaluate_columns_plain(c_prog, c_src, c_log_n), 10, 1,
+         n_alu * (c_loads + c_prog.n_roots) * 4, n_alu * c_ops,
+         [n_alu, c_prog.n_roots, int(c_prog.code.shape[0])]),
+        ("perm_cols", "logup.cu", "openvm_tpu/stark/logup.py:247",
+         lambda: logup.perm_cols(*k9_args), lambda: logup.perm_cols_plain(*k9_args),
+         5, 1, n_alu * (len(k9_layout.roots) + 4 * m_alu) * 4,
+         n_alu * perm_cols_ops(k9_layout), [n_alu, len(k9_layout.roots), m_alu]),
+        ("perm_scan", "logup.cu", "openvm_tpu/stark/logup.py:328",
+         lambda: logup.perm_scan(perm_in), lambda: logup.perm_scan_plain(perm_in),
+         10, 2, n_alu * (8 * m_alu + 4) * 4, n_alu * (m_alu + 1) * EXT_ADD,
+         [n_alu, 4 * m_alu]),
+        ("lookup_hist", "lookup.cu", "openvm_tpu/stark/evaluator.py:253",
+         lambda: lookup.lookup_hist(h_cols, h_layout, h_tabs, sizes1),
+         lambda: lookup.lookup_hist_plain(h_cols, h_layout, h_tabs, sizes1), 10, 2,
+         (h_words + 2 * h_table_words) * 4,
+         h_words * MUL_OPS + int(h_cnt.numel()) * (3 * ADD_OPS + 1),
+         [n_alu, int(h_layout.table.shape[0])]),
     ]
+    library = {
+        "perm_scan": (lambda: torch.cumsum(row_sums, dim=0),
+                      "torch.cumsum of the int64 row sums: the prefix sum without "
+                      "its reduction mod p or the concatenation"),
+        "lookup_hist": (lambda: flat_tab.index_add_(0, h_idx, h_cnt),
+                        "index_add_ of the live sends' precomputed indices and "
+                        "counts into the three tables laid end to end: the "
+                        "scatter without the index arithmetic"),
+    }
     t_open_row = time.perf_counter()
     idx = main["indices"]
     for i in idx:
@@ -811,15 +1143,16 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
         ms, host_ms = cuda_ms(fn, reps, host=True)
         plain_ms = cuda_ms(plain, plain_reps)
         b_ms, b_by = bound(nbytes, ops)
+        lib_fn, lib_what = library.get(name, (None, NO_LIBRARY + (
+            " (a modular dot product has no torch call)" if name == "open_dot" else "")))
         kernels.append({
             "name": name, "route": "cuda", "source": f"openvm_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": p_launches[name],
-            "launches_path1": launches[name],
+            "replaces": replaces, "launches": v_launches[name],
+            "launches_path2": p_launches[name], "launches_path1": launches[name],
             "max_abs_err": err[name], "ms": ms, "host_enqueue_ms": host_ms,
             "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "library": NO_LIBRARY + (" (a modular dot product has no torch call)"
-                                     if name == "open_dot" else ""),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lib_fn, 10) if lib_fn else None, "library": lib_what,
             "shape": shape, "bytes": nbytes, "ops": ops})
     # path 1's stages again, warm: the NTT tables are cached now
     warm_ms = {"to_monty_lde": cuda_ms(lambda: ntt.batched_coset_ldes(

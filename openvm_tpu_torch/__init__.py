@@ -11,10 +11,15 @@ raises when there is none.  The CPU is used only when the caller passes
 ``device="cpu"``, and then every kernel wrapper runs its plain PyTorch
 version.  A wrapper given a CUDA tensor launches its kernel or raises.
 
-Layer map (the slices ported so far: the trace-commitment pipeline and the
-STARK prover for AIRs without interactions):
+Layer map (the slices ported so far: the trace-commitment pipeline, the
+STARK prover with its LogUp phase, and the RV32IM VM proof):
+  vm/machine       VirtualMachine: keygen -> prove -> verify of an RV32IM
+                   guest (preflight in C++ on the host, numpy tracegen)
   stark            keygen -> prove -> verify, codec (host orchestration)
-  stark/quotient   constraint DAG -> bytecode -> interpreter (K7+K11)
+  stark/quotient   constraint DAG -> bytecode -> interpreter (K7+K11), and
+                   its columns mode over the trace (K7)
+  stark/logup      LogUp permutation trace (K9, K10)
+  stark/lookup     lookup-multiplicity histograms (K8)
   stark/prover     openings (K12) and reduced openings (K13)
   fri              FRI fold (K14), query gathers, host verification
   field/babybear   BabyBear Montgomery arithmetic (kernel K1)

@@ -26,7 +26,7 @@ from ._device import require_cuda
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("babybear.cu", "ntt.cu", "poseidon2.cu", "ext.cu", "gather.cu",
-           "quotient.cu", "open.cu", "fri.cu")
+           "quotient.cu", "open.cu", "fri.cu", "logup.cu", "lookup.cu")
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "openvm_tpu_torch"
 LIB_NAME = "libopenvm_tpu_torch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -37,7 +37,8 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LAUNCHES = {"bb_elementwise": 0, "ntt": 0, "poseidon2_hash_rows": 0,
             "poseidon2_compress_layer": 0, "ext_elementwise": 0, "gather": 0,
             "quotient": 0, "open_dot": 0, "fri_reduced_open": 0,
-            "fri_fold": 0}
+            "fri_fold": 0, "quotient_columns": 0, "perm_cols": 0,
+            "perm_scan": 0, "lookup_hist": 0}
 
 _V, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _SIGNATURES = {
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "ovt_open_reduce": (_V, _I, _I, _V, _V),
     "ovt_fri_fold": (_V, _V, _V, _V, _V, _LL, _V, _V),
     "ovt_reduced_open": (_V, _LL, _I, _LL, _V, _I, _V, _V, _V, _V),
+    "ovt_quotient_columns": (_V, _I, _V, _V, _V, _I, _V, _V),
+    "ovt_perm_cols": (_V, _U, _V, _I, _V, _V, _V, _I, _V, _V),
+    "ovt_perm_scan": (_V, _LL, _I, _U, _V, _V, _V, _V),
+    "ovt_lookup_hist": (_V, _U, _V, _I, _V, _U, _V, _V, _U, _U, _V),
 }
 
 _LIB = None
@@ -77,7 +82,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH + CFLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
+    for f in sorted(p for p in CSRC.iterdir() if p.is_file()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]

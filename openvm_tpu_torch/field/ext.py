@@ -63,15 +63,17 @@ def scale64(a: torch.Tensor, s) -> torch.Tensor:
 
 
 def bb_pow64(x: torch.Tensor, e: int) -> torch.Tensor:
-    """Base-field x^e, int64 words, square and multiply."""
-    r = torch.full_like(x, bb.R_MOD_P)
+    """Base-field x^e, int64 Montgomery words, square and multiply on
+    canonical values (one reduction a product; the same words)."""
+    c = x * bb.RINV_MOD_P % P
+    r = torch.ones_like(x)
     while e:
         if e & 1:
-            r = bb.mul64(r, x)
+            r = r * c % P
         e >>= 1
         if e:
-            x = bb.mul64(x, x)
-    return r
+            c = c * c % P
+    return r * bb.R_MOD_P % P
 
 
 def bb_inv64(x: torch.Tensor) -> torch.Tensor:

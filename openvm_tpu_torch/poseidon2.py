@@ -133,8 +133,10 @@ def _monty_constants():
 
 @functools.lru_cache(maxsize=8)
 def _plain_constants(version: int, device: torch.device):
-    return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
-                 for a in _monty_constants())
+    """Round constants and diagonal as canonical int64 values (the plain
+    version computes on canonical values)."""
+    return tuple(torch.from_numpy(np.asarray(a, dtype=np.uint64).astype(np.int64) % P)
+                 .to(device) for a in (BEGIN_RC, PARTIAL_RC, END_RC, INTERNAL_DIAG))
 
 
 def upload_constants(device: torch.device) -> None:
@@ -149,54 +151,67 @@ def upload_constants(device: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Plain version (int64 Montgomery words, any device)
+# Plain version (int64, any device)
+#
+# The permutation is computed on canonical values: Montgomery words go in
+# and out, converted once at each end.  Every step is a field operation, so
+# the words equal the Montgomery computation's; a product then takes one
+# reduction instead of two, and sums are reduced once after the linear
+# layers (inputs below p, so every intermediate stays below 2^63).
 # ---------------------------------------------------------------------------
 
 def _sbox(x):
-    x2 = bb.mul64(x, x)
-    x3 = bb.mul64(x2, x)
-    return bb.mul64(bb.mul64(x3, x3), x)
-
-
-def _mat4(x):
-    """plonky3 MDSMat4 on the last axis of x (..., 4)."""
-    x0, x1, x2, x3 = x.unbind(-1)
-    t01 = bb.add64(x0, x1)
-    t23 = bb.add64(x2, x3)
-    t0123 = bb.add64(t01, t23)
-    t01123 = bb.add64(t0123, x1)
-    t01233 = bb.add64(t0123, x3)
-    y3 = bb.add64(t01233, bb.add64(x0, x0))
-    y1 = bb.add64(t01123, bb.add64(x2, x2))
-    y0 = bb.add64(t01123, t01)
-    y2 = bb.add64(t01233, t23)
-    return torch.stack([y0, y1, y2, y3], dim=-1)
+    x2 = x * x % P
+    x3 = x2 * x % P
+    return x3.mul_(x3).remainder_(P).mul_(x).remainder_(P)
 
 
 def _external_linear(state):
-    s = _mat4(state.reshape(state.shape[:-1] + (4, 4)))
-    sums = s.sum(dim=-2) % P
-    return bb.add64(s, sums[..., None, :]).reshape(state.shape)
+    """plonky3's external layer: MDSMat4 on each 4-lane block, then each
+    lane plus its column's sum over the blocks; (..., 16) below p in and
+    out (the sums stay below 35p)."""
+    x = state.reshape(state.shape[:-1] + (4, 4))
+    x0, x1, x2, x3 = x.unbind(-1)
+    t01 = x0 + x1
+    t23 = x2 + x3
+    t0123 = t01 + t23
+    t01123 = t0123 + x1
+    t01233 = t0123 + x3
+    s = torch.stack([t01123 + t01, t01123 + 2 * x2, t01233 + t23,
+                     t01233 + 2 * x0], dim=-1)
+    return s.add_(s.sum(dim=-2, keepdim=True)).remainder_(P).reshape(state.shape)
 
 
 def _permute64(s, consts):
+    """Poseidon2 on canonical int64 values (..., 16)."""
     begin, partial, end, diag = consts
     s = _external_linear(s)
     for r in range(HALF_FULL_ROUNDS):
-        s = _external_linear(_sbox(bb.add64(s, begin[r])))
+        s = _external_linear(_sbox((s + begin[r]) % P))
     for r in range(PARTIAL_ROUNDS):
-        s0 = _sbox(bb.add64(s[..., :1], partial[r]))
-        s = torch.cat([s0, s[..., 1:]], dim=-1)
-        s = bb.add64(bb.mul64(s, diag), s.sum(dim=-1, keepdim=True) % P)
+        # lane 0 through the S-box, then diag * s + sum(s) on every lane
+        x0 = _sbox((s[..., 0] + partial[r]) % P)
+        total = s[..., 1:].sum(dim=-1).add_(x0)
+        s = s * diag
+        s[..., 0] = x0 * diag[0]
+        s.add_(total[..., None]).remainder_(P)
     for r in range(HALF_FULL_ROUNDS):
-        s = _external_linear(_sbox(bb.add64(s, end[r])))
+        s = _external_linear(_sbox((s + end[r]) % P))
     return s
+
+
+def _canonical64(words: torch.Tensor) -> torch.Tensor:
+    return words.long() * bb.RINV_MOD_P % P
+
+
+def _monty32(values: torch.Tensor) -> torch.Tensor:
+    return (values * bb.R_MOD_P % P).int()
 
 
 def permute(state: torch.Tensor) -> torch.Tensor:
     """Batched Poseidon2, plain PyTorch: state (..., 16) int32 monty."""
     consts = _plain_constants(_RC_VERSION, state.device)
-    return _permute64(state.long(), consts).int()
+    return _monty32(_permute64(_canonical64(state), consts))
 
 
 def compress_pairs(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
@@ -207,14 +222,14 @@ def compress_pairs(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 def hash_rows_plain(matrix: torch.Tensor) -> torch.Tensor:
     """PaddingFreeSponge over each row, plain PyTorch: (N, W) -> (N, 8)."""
     consts = _plain_constants(_RC_VERSION, matrix.device)
-    m = matrix.long()
+    m = _canonical64(matrix)
     n, w = m.shape
     state = m.new_zeros((n, WIDTH))
     for c0 in range(0, w, RATE):
         chunk = m[:, c0:c0 + RATE]
         state = _permute64(torch.cat([chunk, state[:, chunk.shape[1]:]], dim=1),
                            consts)
-    return state[:, :OUT].int()
+    return _monty32(state[:, :OUT])
 
 
 def hash_rows(matrix: torch.Tensor) -> torch.Tensor:

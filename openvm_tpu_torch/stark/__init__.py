@@ -3,8 +3,7 @@
 The same exports as openvm_tpu.stark.  ``keygen(airs, config, device=None)``
 and ``prove(pk, ctxs, device=None)`` place their tensors on CUDA unless the
 caller names another device; ``verify`` and the codec are host code.  AIRs
-with interactions (LogUp) are not ported yet: ``prove`` raises
-NotImplementedError for them.
+with interactions get the LogUp phase (``logup``, kernels K9 and K10).
 """
 
 from .config import FriParameters, StarkConfig, baby_bear_poseidon2_config

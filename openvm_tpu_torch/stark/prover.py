@@ -1,12 +1,14 @@
-"""Multi-trace STARK prover on the card, for AIRs without interactions.
+"""Multi-trace STARK prover on the card.
 
 Port of openvm_tpu/stark/prover.py: the same transcript and the same proof,
 so ``codec.encode_proof`` gives equal bytes for equal inputs.  Host code
 (this file) orchestrates; every row-parallel step runs a kernel of
 ``openvm_tpu_torch/csrc`` on CUDA tensors:
 
-  main and quotient LDEs     ntt.batched_coset_ldes / coset_lde (K3)
+  main, perm, quotient LDEs  ntt.batched_coset_ldes / coset_lde (K3)
   Merkle commits             merkle.commit (K4, K5)
+  interaction fields         stark.quotient.evaluate_columns (K7, columns)
+  LogUp permutation trace    stark.logup.perm_cols, perm_scan (K9, K10)
   quotient                   stark.quotient.evaluate (K7+K11)
   zeta power series          field.ext.powers (K2)
   out-of-domain openings     _open_dot (K12)
@@ -14,15 +16,16 @@ so ``codec.encode_proof`` gives equal bytes for equal inputs.  Host code
   FRI folds                  fri.fold_evals (K14)
   query gathers              merkle.GatherPlan (K6)
 
-AIRs with interactions need the LogUp phase (kernels K9, K10), which is the
-next slice of the port: ``prove`` raises NotImplementedError for them.
-The JAX package's XLA workarounds are not ported: the constraint-root
-grouping, the executable cache, the compile pool, the trace sharding and
-its statistics (prover.py:28, :99-141, :307-339, :415-417).
+The LogUp phase (prover.py:455-514) and the after-challenge round of the
+openings (:708-713) are ported with them.  The JAX package's XLA
+workarounds are not ported: the constraint-root grouping, the executable
+cache, the compile pool, the trace sharding and its statistics
+(prover.py:28, :99-141, :307-339, :415-417).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 
@@ -34,6 +37,7 @@ from .._device import resolve_device
 from ..challenger import DuplexChallenger
 from ..field import babybear as bb
 from ..field import ext as ef
+from . import logup
 from . import npext as nx
 from . import quotient as qmod
 from .config import MAX_TWO_ADICITY
@@ -171,14 +175,22 @@ def reduced_open_plain(ro: torch.Tensor, mat: torch.Tensor,
     tensors; ro (H, 4) bit-reversed; returns the new ro."""
     h = mat.shape[0]
     comb = _col_comb(mat, apows).long()
-    xs = ntt.lde_points(h.bit_length() - 1, ro.device).long()
     acc = ro.long()
     for pz, z, ap in points:
         num = bb.sub64(pz.long(), comb)
-        zmx = z.long().expand(h, 4).clone()
-        zmx[:, 0] = bb.sub64(zmx[:, 0], xs)
-        acc = bb.add64(acc, ef.mul64(ap.long(), ef.mul64(num, ef.inv64(zmx))))
+        inv = _inv_z_minus_x(tuple(z.tolist()), h.bit_length() - 1, ro.device)
+        acc = bb.add64(acc, ef.mul64(ap.long(), ef.mul64(num, inv)))
     return acc.int()
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_z_minus_x(z: tuple, log_h: int, device) -> torch.Tensor:
+    """1 / (z - x) over the bit-reversed LDE points of height 2^log_h,
+    int64 (H, 4); every matrix of that height opened at z shares it."""
+    xs = ntt.lde_points(log_h, device).long()
+    zmx = torch.tensor(z, dtype=torch.int64, device=device).expand(1 << log_h, 4).clone()
+    zmx[:, 0] = bb.sub64(zmx[:, 0], xs)
+    return ef.inv64(zmx)
 
 
 def reduced_open(ro: torch.Tensor, mat: torch.Tensor, apows: torch.Tensor,
@@ -245,13 +257,11 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     ``device``, CUDA unless the caller names another.  When ``stages`` is a
     dict, the seconds of each stage are written into it.  When ``record`` is
     a dict, the inputs of the quotient interpreter (``"quotient"``: per AIR
-    (program, sources, log_n, lqd, alpha)) and of the query gather
-    (``"gather"``: (plan, indices)) are kept in it, so that a caller can
-    run those kernels' plain versions at this prove's own shapes."""
-    if pk.vk.num_phases:
-        raise NotImplementedError(
-            "AIRs with interactions need the LogUp phase (kernels K9, K10), "
-            "the next slice of the port")
+    (program, sources, log_n, lqd, alpha)), of the LogUp kernels
+    (``"logup"``: per AIR with interactions, see ``logup.build_perm_trace``)
+    and of the query gather (``"gather"``: (plan, indices)) are kept in it,
+    so that a caller can run those kernels' plain versions at this prove's
+    own shapes."""
     dev = resolve_device(device)
     if stages is not None:
         marks = [time.perf_counter()]
@@ -323,6 +333,44 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     for ld in log_degrees:
         challenger.observe(ld)
 
+    # ---- phase 1: LogUp (prover.py:455-514) ------------------------------
+    num_phases = pk.vk.num_phases
+    perm_ldes, perm_coeffs = {}, {}
+    exposed = {i: [] for i in range(len(ctxs))}
+    challenges_m = np.zeros((2, 4), dtype=np.uint32)
+    log_up_pow_witness = 0
+    after_challenge_commits = []
+    perm_order, perm_tree = [], None
+    if num_phases:
+        log_up_pow_witness = challenger.grind(cfg.log_up_pow_bits)
+        challenges_c = (challenger.sample_ext(), challenger.sample_ext())
+        challenges_m = bb.to_monty_np(np.asarray(challenges_c, dtype=np.uint64))
+        perm_traces, cumsums = {}, {}
+        for i, (c, vk) in enumerate(zip(ctxs, vks)):
+            if not vk.widths.after_challenge:
+                continue
+            mains = cacheds[i] + ([commons[i]] if commons[i] is not None else [])
+            publics = [bb.to_monty_int(int(v) % P) for v in c.public_values]
+            perm_traces[i], cumsums[i] = logup.build_perm_trace(
+                vk.dag, vk.interaction_chunks, mains,
+                pk.per_air[c.air_id].preprocessed_trace, publics, challenges_c,
+                record=None if record is None else record.setdefault("logup", []))
+        perm_order = sorted(perm_traces)
+        # every cumulative sum is built before any is observed, so one copy
+        # brings them all to the host; they are observed in AIR order
+        cums = bb.canonical_np(torch.stack([cumsums[i] for i in perm_order]))
+        for i, cum in zip(perm_order, cums):
+            exposed[i] = [tuple(int(x) for x in cum)]
+            challenger.observe_ext(cum)
+        ldes_p, coeffs_p = ntt.batched_coset_ldes(
+            [perm_traces[i] for i in perm_order], lb, return_coeffs=True)
+        for i, y, cf in zip(perm_order, ldes_p, coeffs_p):
+            perm_ldes[i], perm_coeffs[i] = y, cf
+        perm_tree = merkle.commit([perm_ldes[i] for i in perm_order])
+        after_challenge_commits = [perm_tree.root]
+        challenger.observe_slice(perm_tree.root)
+    mark("logup")
+
     alpha_c = challenger.sample_ext()
     alpha = ef.from_canonical(alpha_c, device=dev)
 
@@ -335,10 +383,14 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
             [common_ldes[i]] if common_ldes[i] is not None else [])
         prep = apk.preprocessed_lde
         publics = [bb.to_monty_int(int(v) % P) for v in c.public_values]
+        expo = (bb.to_monty_np(np.asarray(exposed[i], dtype=np.uint64))
+                if exposed[i] else np.zeros((1, 4), dtype=np.uint32))
         prog = qmod.compile_dag(vk.dag, n_main=len(mains),
                                 has_preprocessed=prep is not None,
-                                has_perm=False, publics=publics)
-        sources = mains + ([prep] if prep is not None else [])
+                                has_perm=i in perm_ldes, publics=publics,
+                                challenges=challenges_m, exposed=expo)
+        sources = mains + ([prep] if prep is not None else []) + (
+            [perm_ldes[i]] if i in perm_ldes else [])
         if record is not None:
             record.setdefault("quotient", []).append(
                 (prog, sources, log_degrees[i], lqd, alpha))
@@ -382,6 +434,11 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
         _MatInfo(common_ldes[i], log_degrees[i] + lb, trace_points(i),
                  coeffs=common_coeffs[i])
         for i in common_present]))
+    if num_phases:
+        rounds.append(_Round(tree=perm_tree, mats=[  # 3. after-challenge round
+            _MatInfo(perm_ldes[i], log_degrees[i] + lb, trace_points(i),
+                     coeffs=perm_coeffs[i])
+            for i in perm_order]))
     rounds.append(_Round(tree=quotient_tree, mats=[  # 4. quotient round
         _MatInfo(q_ldes[k], log_degrees[i] + lb, [tuple(zeta_c)],
                  coeffs=q_triples[k][1], in_shift=q_triples[k][2])
@@ -516,6 +573,10 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
         ridx += 1
     main_values.append([adjacent(m) for m in rounds[ridx].mats])
     ridx += 1
+    after_values = []
+    if num_phases:
+        after_values.append([adjacent(m) for m in rounds[ridx].mats])
+        ridx += 1
     quotient_values = [[] for _ in ctxs]
     for (i, _, _), mat in zip(quotient_chunk_mats, rounds[ridx].mats):
         quotient_values[i].append(row_to_exts(mat.opened[0]))
@@ -524,14 +585,15 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     air_perm_by_height = sorted(range(len(ctxs)), key=lambda i: -log_degrees[i])
     per_air = [AirProofData(
         air_id=air_ids[i], log_degree=log_degrees[i],
-        exposed_values_after_challenge=[],
+        exposed_values_after_challenge=[exposed[i]] if num_phases else [],
         public_values=[int(v) % P for v in ctxs[i].public_values])
         for i in range(len(ctxs))]
     return Proof(
-        commitments=Commitments(main_trace=main_commits, after_challenge=[],
+        commitments=Commitments(main_trace=main_commits,
+                                after_challenge=after_challenge_commits,
                                 quotient=quotient_tree.root),
         opening=Opening(proof=fri_proof, values=OpeningValues(
-            preprocessed=prep_values, main=main_values, after_challenge=[],
-            quotient=quotient_values)),
+            preprocessed=prep_values, main=main_values,
+            after_challenge=after_values, quotient=quotient_values)),
         per_air=per_air, air_perm_by_height=air_perm_by_height,
-        log_up_pow_witness=0)
+        log_up_pow_witness=log_up_pow_witness)

@@ -1,0 +1,350 @@
+"""RISC-V -> VM instruction transpiler, the RV32IM and IO extensions.
+
+Copy of openvm_tpu/vm/transpiler.py:1-306 (decoder, ``Rv32ITranspiler-
+Extension``, ``Rv32MTranspilerExtension``, ``Rv32IoTranspilerExtension``)
+and :507-557 (``Transpiler``, ``transpile_elf``).  The default extension
+list is the three RV32IM ones: the extension opcodes (int256, modular,
+ecc, fp2, keccak, pairing) wait for the slice that ports their chips, and a
+word only they would claim transpiles to ``unimp`` here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .elf import Elf, memory_image_to_init_memory
+from .instructions import (BaseAluOpcode, BranchEqualOpcode,
+                           BranchLessThanOpcode, DivRemOpcode, Instruction,
+                           LessThanOpcode, MulHOpcode, MulOpcode, P, Program,
+                           Rv32AuipcOpcode, Rv32HintStoreOpcode,
+                           Rv32JalLuiOpcode, Rv32JalrOpcode,
+                           Rv32LoadStoreOpcode, Rv32Phantom, ShiftOpcode,
+                           SysPhantom, SystemOpcode, VmExe, nop, phantom,
+                           unimp)
+
+# RISC-V base opcodes
+OP_LUI = 0b0110111
+OP_AUIPC = 0b0010111
+OP_JAL = 0b1101111
+OP_JALR = 0b1100111
+OP_BRANCH = 0b1100011
+OP_LOAD = 0b0000011
+OP_STORE = 0b0100011
+OP_IMM = 0b0010011
+OP_ALU = 0b0110011
+OP_FENCE = 0b0001111
+OP_SYSTEM_RV = 0b1110011  # CSR_OPCODE in the reference
+OP_CUSTOM0 = 0x0b  # SYSTEM_OPCODE in the reference
+
+RV32M_FUNCT7 = 0x01
+TERMINATE_FUNCT3 = 0b000
+HINT_FUNCT3 = 0b001
+REVEAL_FUNCT3 = 0b010
+PHANTOM_FUNCT3 = 0b011
+NATIVE_STOREW_FUNCT3 = 0b111
+NATIVE_STOREW_FUNCT7 = 2
+CSRRW_FUNCT3 = 0b001
+HINT_STOREW_IMM = 0
+HINT_BUFFER_IMM = 1
+
+
+def _sx(value: int, bits: int) -> int:
+    """Sign-extend `bits`-wide value to python int."""
+    if value & (1 << (bits - 1)):
+        return value - (1 << bits)
+    return value
+
+
+@dataclass
+class Decoded:
+    rd: int
+    rs1: int
+    rs2: int
+    funct3: int
+    funct7: int
+    imm_i: int  # sign-extended 12-bit
+    imm_s: int
+    imm_b: int
+    imm_u: int  # raw upper 20 bits << 12 (unsigned as encoded)
+    imm_j: int
+    shamt: int
+
+
+def decode(word: int) -> Decoded:
+    rd = (word >> 7) & 0x1F
+    rs1 = (word >> 15) & 0x1F
+    rs2 = (word >> 20) & 0x1F
+    funct3 = (word >> 12) & 0x7
+    funct7 = (word >> 25) & 0x7F
+    imm_i = _sx(word >> 20, 12)
+    imm_s = _sx(((word >> 25) << 5) | ((word >> 7) & 0x1F), 12)
+    imm_b = _sx((((word >> 31) & 1) << 12) | (((word >> 7) & 1) << 11)
+                | (((word >> 25) & 0x3F) << 5) | (((word >> 8) & 0xF) << 1),
+                13)
+    imm_u = _sx(word & 0xFFFFF000, 32)
+    imm_j = _sx((((word >> 31) & 1) << 20) | (((word >> 12) & 0xFF) << 12)
+                | (((word >> 20) & 1) << 11) | (((word >> 21) & 0x3FF) << 1),
+                21)
+    shamt = (word >> 20) & 0x1F
+    return Decoded(rd, rs1, rs2, funct3, funct7, imm_i, imm_s, imm_b, imm_u,
+                   imm_j, shamt)
+
+
+def _i12_to_u24(imm: int) -> int:
+    return imm & 0xFFFFFF
+
+
+def from_r_type(opcode, e_as, d: Decoded, allow_rd_zero=False) -> Instruction:
+    if not allow_rd_zero and d.rd == 0:
+        return nop()
+    return Instruction(opcode, a=4 * d.rd, b=4 * d.rs1, c=4 * d.rs2, d=1,
+                       e=e_as)
+
+
+def from_i_type(opcode, d: Decoded) -> Instruction:
+    if d.rd == 0:
+        return nop()
+    return Instruction(opcode, a=4 * d.rd, b=4 * d.rs1,
+                       c=_i12_to_u24(d.imm_i), d=1, e=0)
+
+
+def from_i_type_shamt(opcode, d: Decoded) -> Instruction:
+    if d.rd == 0:
+        return nop()
+    return Instruction(opcode, a=4 * d.rd, b=4 * d.rs1, c=d.shamt, d=1, e=0)
+
+
+def from_load(opcode, d: Decoded) -> Instruction:
+    return Instruction(opcode, a=4 * d.rd, b=4 * d.rs1,
+                       c=d.imm_i & 0xFFFF, d=1, e=2,
+                       f=int(d.rd != 0), g=int(d.imm_i < 0))
+
+
+def from_s_type(opcode, d: Decoded) -> Instruction:
+    return Instruction(opcode, a=4 * d.rs2, b=4 * d.rs1,
+                       c=d.imm_s & 0xFFFF, d=1, e=2, f=1,
+                       g=int(d.imm_s < 0))
+
+
+def from_b_type(opcode, d: Decoded) -> Instruction:
+    return Instruction(opcode, a=4 * d.rs1, b=4 * d.rs2, c=d.imm_b % P,
+                       d=1, e=1)
+
+
+def from_j_type(opcode, d: Decoded) -> Instruction:
+    return Instruction(opcode, a=4 * d.rd, b=0, c=d.imm_j % P, d=1, e=0,
+                       f=int(d.rd != 0), g=0)
+
+
+class Rv32ITranspilerExtension:
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        opcode = w & 0x7F
+        d = decode(w)
+        f3 = d.funct3
+
+        if opcode == OP_SYSTEM_RV:
+            if f3 == CSRRW_FUNCT3 and d.rs1 == 0 and d.rd == 0:
+                return one(nop())
+            return one(unimp())
+        if opcode == OP_CUSTOM0:
+            if f3 == TERMINATE_FUNCT3:
+                return one(Instruction(SystemOpcode.TERMINATE,
+                                       c=d.imm_i & 0xFF))
+            if f3 == PHANTOM_FUNCT3:
+                imm = d.imm_i & 0xFFFF
+                if imm == 0x0:  # HintInput
+                    return one(phantom(Rv32Phantom.HINT_INPUT))
+                if imm == 0x1:  # PrintStr
+                    return one(phantom(Rv32Phantom.PRINT_STR, a=4 * d.rd,
+                                       b=4 * d.rs1))
+                if imm == 0x2:  # HintRandom
+                    return one(phantom(Rv32Phantom.HINT_RANDOM, a=4 * d.rd))
+                if imm == 0x3:  # HintLoadByKey
+                    return one(phantom(Rv32Phantom.HINT_LOAD_BY_KEY,
+                                       a=4 * d.rd, b=4 * d.rs1))
+                if imm == 0x10:  # CtStart (cycle tracker; rd = span id)
+                    return one(phantom(SysPhantom.CT_START, c_upper=d.rd))
+                if imm == 0x11:  # CtEnd
+                    return one(phantom(SysPhantom.CT_END))
+                return None
+            return None
+        if opcode == OP_ALU:
+            if d.funct7 == RV32M_FUNCT7:
+                return None  # rv32m extension handles
+            table = {
+                (0, 0x00): BaseAluOpcode.ADD, (0, 0x20): BaseAluOpcode.SUB,
+                (4, 0x00): BaseAluOpcode.XOR, (6, 0x00): BaseAluOpcode.OR,
+                (7, 0x00): BaseAluOpcode.AND,
+                (1, 0x00): ShiftOpcode.SLL, (5, 0x00): ShiftOpcode.SRL,
+                (5, 0x20): ShiftOpcode.SRA,
+                (2, 0x00): LessThanOpcode.SLT,
+                (3, 0x00): LessThanOpcode.SLTU,
+            }
+            op = table.get((f3, d.funct7))
+            if op is None:
+                return None
+            return one(from_r_type(op, 1, d))
+        if opcode == OP_IMM:
+            if f3 == 0:
+                return one(from_i_type(BaseAluOpcode.ADD, d))
+            if f3 == 4:
+                return one(from_i_type(BaseAluOpcode.XOR, d))
+            if f3 == 6:
+                return one(from_i_type(BaseAluOpcode.OR, d))
+            if f3 == 7:
+                return one(from_i_type(BaseAluOpcode.AND, d))
+            if f3 == 2:
+                return one(from_i_type(LessThanOpcode.SLT, d))
+            if f3 == 3:
+                return one(from_i_type(LessThanOpcode.SLTU, d))
+            if f3 == 1 and d.funct7 == 0x00:
+                return one(from_i_type_shamt(ShiftOpcode.SLL, d))
+            if f3 == 5 and d.funct7 == 0x00:
+                return one(from_i_type_shamt(ShiftOpcode.SRL, d))
+            if f3 == 5 and d.funct7 == 0x20:
+                return one(from_i_type_shamt(ShiftOpcode.SRA, d))
+            return None
+        if opcode == OP_LOAD:
+            table = {0: Rv32LoadStoreOpcode.LOADB, 1: Rv32LoadStoreOpcode.LOADH,
+                     2: Rv32LoadStoreOpcode.LOADW,
+                     4: Rv32LoadStoreOpcode.LOADBU,
+                     5: Rv32LoadStoreOpcode.LOADHU}
+            if f3 not in table:
+                return None
+            return one(from_load(table[f3], d))
+        if opcode == OP_STORE:
+            table = {0: Rv32LoadStoreOpcode.STOREB,
+                     1: Rv32LoadStoreOpcode.STOREH,
+                     2: Rv32LoadStoreOpcode.STOREW}
+            if f3 not in table:
+                return None
+            return one(from_s_type(table[f3], d))
+        if opcode == OP_BRANCH:
+            table = {0: BranchEqualOpcode.BEQ, 1: BranchEqualOpcode.BNE,
+                     4: BranchLessThanOpcode.BLT, 5: BranchLessThanOpcode.BGE,
+                     6: BranchLessThanOpcode.BLTU,
+                     7: BranchLessThanOpcode.BGEU}
+            if f3 not in table:
+                return None
+            return one(from_b_type(table[f3], d))
+        if opcode == OP_JAL:
+            return one(from_j_type(Rv32JalLuiOpcode.JAL, d))
+        if opcode == OP_JALR:
+            return one(Instruction(Rv32JalrOpcode.JALR, a=4 * d.rd,
+                                   b=4 * d.rs1, c=d.imm_i & 0xFFFF, d=1, e=0,
+                                   f=int(d.rd != 0), g=int(d.imm_i < 0)))
+        if opcode == OP_LUI:
+            if d.rd == 0:
+                return one(nop())
+            return one(Instruction(Rv32JalLuiOpcode.LUI, a=4 * d.rd, b=0,
+                                   c=((d.imm_u & 0xFFFFFFFF) >> 12) & 0xFFFFF,
+                                   d=1, e=0, f=1, g=0))
+        if opcode == OP_AUIPC:
+            if d.rd == 0:
+                return one(nop())
+            return one(Instruction(Rv32AuipcOpcode.AUIPC, a=4 * d.rd, b=0,
+                                   c=((d.imm_u & 0xFFFFF000) & 0xFFFFFFFF)
+                                   >> 8, d=1, e=0))
+        if opcode == OP_FENCE:
+            return one(nop())
+        return None
+
+
+class Rv32MTranspilerExtension:
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_ALU:
+            return None
+        d = decode(w)
+        if d.funct7 != RV32M_FUNCT7:
+            return None
+        table = {0: MulOpcode.MUL, 1: MulHOpcode.MULH, 2: MulHOpcode.MULHSU,
+                 3: MulHOpcode.MULHU, 4: DivRemOpcode.DIV,
+                 5: DivRemOpcode.DIVU, 6: DivRemOpcode.REM,
+                 7: DivRemOpcode.REMU}
+        return one(from_r_type(table[d.funct3], 0, d))
+
+
+class Rv32IoTranspilerExtension:
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_CUSTOM0:
+            return None
+        d = decode(w)
+        if d.funct3 == HINT_FUNCT3:
+            imm = d.imm_i & 0xFFFF
+            if imm == HINT_STOREW_IMM:
+                return one(Instruction(Rv32HintStoreOpcode.HINT_STOREW,
+                                       a=0, b=4 * d.rd, c=0, d=1, e=2))
+            if imm == HINT_BUFFER_IMM:
+                return one(Instruction(Rv32HintStoreOpcode.HINT_BUFFER,
+                                       a=4 * d.rs1, b=4 * d.rd, c=0, d=1,
+                                       e=2))
+            return None
+        if d.funct3 == REVEAL_FUNCT3:
+            imm = d.imm_i
+            return one(Instruction(Rv32LoadStoreOpcode.STOREW,
+                                   a=4 * d.rs1, b=4 * d.rd,
+                                   c=imm & 0xFFFF, d=1, e=3, f=1,
+                                   g=int(imm < 0)))
+        if d.funct3 == NATIVE_STOREW_FUNCT3:
+            if d.funct7 != NATIVE_STOREW_FUNCT7:
+                return None
+            return one(Instruction(Rv32LoadStoreOpcode.STOREW,
+                                   a=4 * d.rs1, b=4 * d.rd, c=0, d=1, e=4,
+                                   f=1, g=0))
+        return None
+
+@dataclass
+class TranspilerOutput:
+    instructions: list
+    used_u32s: int
+
+
+def one(insn: Instruction) -> TranspilerOutput:
+    return TranspilerOutput([insn], 1)
+
+
+class Transpiler:
+    """Ordered list of extension processors (reference transpiler.rs:12-60).
+
+    Panics on ambiguity (two extensions claiming the same word).
+    """
+
+    def __init__(self, extensions=None):
+        self.extensions = extensions or [Rv32ITranspilerExtension(),
+                                         Rv32MTranspilerExtension(),
+                                         Rv32IoTranspilerExtension()]
+
+    def transpile(self, words: list) -> list:
+        out: list = []
+        i = 0
+        while i < len(words):
+            results = [ext.process_custom(words[i:])
+                       for ext in self.extensions]
+            hits = [r for r in results if r is not None]
+            if len(hits) > 1:
+                raise ValueError(
+                    f"ambiguous transpilation at word {i}: {words[i]:#010x}")
+            if not hits:
+                # unknown instruction: trap at runtime
+                out.append(unimp())
+                i += 1
+                continue
+            out.extend(hits[0].instructions)
+            i += hits[0].used_u32s
+        return out
+
+
+def transpile_elf(elf: Elf, extensions=None) -> VmExe:
+    program = Program(instructions=Transpiler(extensions)
+                      .transpile(elf.instructions), pc_base=elf.pc_base)
+    return VmExe(program=program, pc_start=elf.pc_start,
+                 init_memory=memory_image_to_init_memory(elf.memory_image))

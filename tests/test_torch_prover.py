@@ -153,22 +153,6 @@ def test_wrong_public_value_fails(proofs):
         stark.verify(tpk.vk, proof)
 
 
-def test_interactions_raise_not_implemented():
-    class SenderAir(stark.Air):
-        name = "sender"
-        width = 1
-
-        def eval(self, b):
-            b.push_send(7, [b.main(0)], 1)
-
-    pk = stark.keygen([SenderAir()], CONFIG, device="cpu")
-    assert pk.vk.num_phases == 1
-    with pytest.raises(NotImplementedError, match="LogUp"):
-        stark.prove(pk, [stark.AirProvingContext(
-            air_id=0, common_main=np.arange(4, dtype=np.uint64)[:, None])],
-            device="cpu")
-
-
 def test_open_dot_and_col_comb_equal_jax():
     rng = np.random.default_rng(5)
 
