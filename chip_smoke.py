@@ -15,8 +15,10 @@ Phases, each printing one JSON line:
             tests/test_torch_logup.py's sender/receiver pair and of the VM's
             fib(10) (tests/test_torch_vm.py) have the SHA-256 that openvm_tpu
             gives, and a wrong public value fails
-  variants  every new kernel and every coset_lde argument, kernel against
-            plain, mid-size
+  variants  every kernel and every coset_lde argument, kernel against
+            plain, mid-size; K3 at heights around its 2^11-row tile (2^10 to
+            2^12, 2^21, 2^22) and widths 1 to 257, K4 at widths 0 to 101 on
+            row counts that are not a multiple of its block
   main      path 1, one RV32IM segment's common-main commit at full size:
             the matrix widths of the VM's AIRs, heights at the fib_e2e
             segment cap (1,048,476 rows) padded to 2^20; to_monty -> coset
@@ -29,18 +31,25 @@ Phases, each printing one JSON line:
             verify over FibonacciAir at 2^22 and 2^20 (the kitchen_sink and
             fib_e2e segment caps, 4,194,204 and 1,048,476 rows, padded) and
             CubeAir at 2^18 (preprocessed column, cached main, degree 3),
-            84 queries and 16 PoW bits; the prove's own quotient inputs
-            and query gather are run again through the plain versions
+            84 queries and 16 PoW bits; the proof's SHA-256 pinned
+            (PROVE_PROOF_SHA256); the prove's own quotient inputs and query
+            gather are run again through the plain versions
   vm        path 3, the RV32IM VM proof: VirtualMachine keygen -> prove ->
             verify of the fibonacci guest build_fib_program(200,000), about
             1.0 M instructions (rv32_base_alu 800 k rows, padded to 2^20),
             with FIB_EXECUTORS and the production profile (84 queries, 16
             PoW bits, log_blowup 1); stage seconds, insn/s, trace cells/s;
-            then K8 on every AIR's sends, K9 and K10 on every AIR's
+            the proof's SHA-256 pinned (VM_PROOF_SHA256); then K8 on every
+            AIR's sends, K9 and K10 on every AIR's
             permutation trace and K7 on the two widest AIRs' quotient (LogUp
             roots included) against their plain versions, on the prove's own
             inputs
-  timing    each kernel and its plain version at the paths' shapes
+  vm_profile one more warm prove of path 3 under torch.profiler: each
+            kernel's summed device ms and launches, the device's busy and
+            idle share of the prove
+  timing    each kernel and its plain version at the paths' shapes; K3 also
+            in the prove's form (return_coeffs), K4 and K5 also against the
+            issue rate of the SASS they run (cuobjdump)
 
 then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -51,6 +60,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +119,13 @@ SENDER_RECEIVER_PROOF_SHA256 = \
     "69e8d8c994a91341064fa0a08d5652c33625279bb434def5e0963fceb46d2528"
 FIB10_PROOF_SHA256 = \
     "7f2298f064201166dd6b35c8beec5f7895484312deeaee02c9d2d204136bf53c"
+# The full-size proofs of the prove phase (path 2, 958,433 bytes) and of the
+# vm phase (path 3, 1,221,209 bytes) as the slice-3 kernels made them on
+# the H100: every later kernel change is held to the same bytes.
+PROVE_PROOF_SHA256 = \
+    "61fc23a45089327e5b372489bbd451502832fc1fe577038e7559a6895ec7ae91"
+VM_PROOF_SHA256 = \
+    "ed00812571abd6d0b592d2147a6f505e0198a3064724a41ca63e37d87e7de1e3"
 TEST_STARK = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=2,
                                            proof_of_work_bits=1))
 
@@ -131,11 +149,19 @@ OPS_PER_S = 67e12
 MUL_OPS, ADD_OPS = 8, 3
 # One permutation: the initial external layer (72 adds), 8 full rounds of
 # 16 constant adds, 16 S-boxes (4 products each) and an external layer,
-# 13 partial rounds of 1 add, 1 S-box, 15 adds for the sum, 16 products and
-# 16 adds.
-PERM_MULS = 8 * 16 * 4 + 13 * (4 + 16)
-PERM_ADDS = 72 + 8 * (16 + 72) + 13 * (1 + 15 + 16)
-PERM_OPS = PERM_MULS * MUL_OPS + PERM_ADDS * ADD_OPS
+# 13 partial rounds of 1 add, 1 S-box, 15 adds for the sum and the
+# internal diagonal [-2, 1, 2, 1/2, 3, 4, -1/2, -3, -4, 2^-8, 1/4, 1/8,
+# 2^-27, -2^-8, -1/16, -2^-27] plus the sum on 16 lanes: 16 adds, 10 adds
+# for the small multiples and 9 Montgomery reductions (no 32x32 product by
+# the word, counted as 6) for the powers of 1/2.
+RED_OPS = 6
+PERM_MULS = 8 * 16 * 4 + 13 * 4
+PERM_REDS = 13 * 9
+PERM_ADDS = 72 + 8 * (16 + 72) + 13 * (1 + 15 + 16 + 10)
+PERM_OPS = PERM_MULS * MUL_OPS + PERM_REDS * RED_OPS + PERM_ADDS * ADD_OPS
+# Issue rate for the instruction bound: 4 schedulers of an SM each issue
+# one warp instruction (32 threads) a clock.
+H100_SMS, ISSUE_PER_SM_CLOCK = 132, 4 * 32
 # Extension arithmetic: a product is 19 Montgomery products and 12 adds.
 # Batch inversion (Montgomery's trick) costs 3 products per element, base
 # or extension, plus one inverse per batch, which rounds to nothing.
@@ -484,13 +510,22 @@ def phase_pinned(dev) -> None:
 def phase_variants(dev, rng) -> None:
     """Every kernel against its plain version at mid sizes."""
     errs = {}
-    for log_n, w in ((0, 5), (1, 3), (12, 45)):
+    # K3 around its tile of 2^11 rows: heights 2^10, 2^11, 2^12 (one and
+    # two passes) at every width and every argument set; 2^21 (11 + 10
+    # stages) and 2^22 at the widths whose plain version fits the card
+    tk = ntt.K_MAX
+    shapes = [(0, 5), (1, 3)] + [(lh, w) for lh in (tk - 1, tk, tk + 1)
+                                 for w in (1, 7, 8, 9, 45, 101, 257)]
+    shapes += [(2 * tk - 1, w) for w in (1, 8, 9, 45)] + [(22, w) for w in (1, 7)]
+    for log_n, w in shapes:
         x = bb.monty(rng.integers(0, bb.P, size=(1 << log_n, w)), device=dev)
         errs[f"ntt/{log_n}x{w}"] = max_abs_err(ntt.ntt(x), ntt.ntt_plain(x))
         errs[f"intt/{log_n}x{w}"] = max_abs_err(ntt.intt(x), ntt.intt_plain(x))
         for lb, shift, bitrev_out, in_shift, coeffs in (
                 (1, 31, True, 1, False), (2, 7, False, 31, True),
                 (0, 31, False, 11, False), (3, 31, True, 1, True)):
+            if log_n > 2 * tk - 1 and lb > 1:
+                continue
             args = (lb, shift, bitrev_out, in_shift, coeffs)
             got = ntt.coset_lde(x, *args)
             want = ntt.coset_lde_plain(x, *args)
@@ -505,9 +540,10 @@ def phase_variants(dev, rng) -> None:
                             ("sub", bb.sub, bb.sub_plain)):
         errs[name] = max_abs_err(fn(a, b), plain(a, b))
     errs["from_monty"] = max_abs_err(bb.from_monty(a), bb.from_monty_plain(a))
-    for w in (1, 7, 8, 9, 45):
-        m = bb.monty(rng.integers(0, bb.P, size=(300, w)), device=dev)
-        errs[f"hash_rows/{w}"] = max_abs_err(p2.hash_rows(m), p2.hash_rows_plain(m))
+    # K4: rows not a multiple of its 128-row block, the 32-column window
+    for n, w in [(1000, w) for w in (0, 1, 7, 8, 9, 16, 17, 33, 101)] + [(4173, 101)]:
+        m = bb.monty(rng.integers(0, bb.P, size=(n, w)), device=dev)
+        errs[f"hash_rows/{n}x{w}"] = max_abs_err(p2.hash_rows(m), p2.hash_rows_plain(m))
 
     # K2, zeros included (inv(0) = 0), a one-element operand broadcast
     ea, eb = words(rng, dev, 4096, 4), words(rng, dev, 4096, 4)
@@ -745,6 +781,116 @@ def check_vm_kernels(vm, record: dict) -> dict:
             "quotient_airs": {vm.airs[i].name: record["quotient"][i][2] for i in widest}}
 
 
+def kernel_names() -> list:
+    """The __global__ functions of openvm_tpu_torch/csrc."""
+    names = []
+    for f in sorted(_build.CSRC.glob("*.cu")):
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                            f.read_text())
+    return names
+
+
+def profile_prove(vm, exe) -> dict:
+    """One more warm VirtualMachine.prove under torch.profiler (CPU and CUDA
+    activities): each kernel's summed device ms and launches by its
+    __global__ name, the other device work, and the device's busy and idle
+    share of the prove's wall time (the union of device intervals over the
+    host clock around the prove, profiler on).  If the profiler sees no
+    device time, CUDA events around every _build.launch instead."""
+    from torch.profiler import ProfilerActivity, profile
+    names = kernel_names()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        vm.prove(exe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per: dict = {}
+    other = {"ms": 0.0, "calls": 0}
+    spans = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        hit = max((n for n in names if n in e.name), key=len, default=None)
+        slot = per.setdefault(hit, {"ms": 0.0, "calls": 0}) if hit else other
+        slot["ms"] += (end - start) / 1e3
+        slot["calls"] += 1
+    if sum(v["ms"] for v in per.values()) > 0:
+        busy_us, last = 0.0, float("-inf")
+        for start, end in sorted(spans):
+            busy_us += max(0.0, end - max(start, last))
+            last = max(last, end)
+        return {"method": "torch.profiler", "wall_s": wall,
+                "device_busy_share": busy_us / 1e6 / wall,
+                "device_idle_share": 1 - busy_us / 1e6 / wall,
+                "kernels": per, "other_device": other}
+    # CUDA events around each launch: kernels only, no copies
+    recs, launch = [], _build.launch
+
+    def timed(kernel, fn_name, device, *args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch(kernel, fn_name, device, *args)
+        b.record()
+        recs.append((kernel, a, b))
+
+    _build.launch = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vm.prove(exe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        _build.launch = launch
+    for kernel, a, b in recs:
+        slot = per.setdefault(kernel, {"ms": 0.0, "calls": 0})
+        slot["ms"] += a.elapsed_time(b)
+        slot["calls"] += 1
+    busy = sum(v["ms"] for v in per.values()) / 1e3
+    return {"method": "cuda events around _build.launch (the profiler showed "
+            "no device time)", "wall_s": wall, "kernel_busy_share": busy / wall,
+            "kernel_idle_share": 1 - busy / wall, "kernels": per}
+
+
+def sass_permutation() -> dict:
+    """SASS instructions of one Poseidon2 permutation in K4's kernel, from
+    cuobjdump -sass of the built library: the rounds are loops (unroll 1),
+    so the three largest innermost loops are the beginning full rounds, the
+    partial rounds and the ending full rounds; one permutation issues 4, 13
+    and 4 of their bodies (the initial external layer outside them is not
+    counted, so the count is a lower bound)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    txt = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    body = next(p for p in re.split(r"\n\s*Function : ", txt)
+                if "poseidon2_hash_rows" in p.splitlines()[0])
+    ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for a, t in ins:
+        m = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) <= a:
+            start = int(m.group(1), 16)
+            loops.append((start, a, sum(1 for b, u in ins if start <= b <= a
+                                        and not u.strip().startswith("NOP"))))
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    begin, partial, end = sorted(sorted(inner, key=lambda lp: -lp[2])[:3])
+    per_perm = 4 * begin[2] + 13 * partial[2] + 4 * end[2]
+    return {"full_round_begin": begin[2], "partial_round": partial[2],
+            "full_round_end": end[2], "per_permutation": per_perm,
+            "kernel_instructions": len(ins)}
+
+
+def max_sm_clock_hz(dev) -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.split()
+    return float(out[dev.index or 0]) * 1e6
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -835,6 +981,8 @@ def run(dev: torch.device) -> int:
             f"kernel and plain differ on the prove's inputs: {q_err} {p_err}")
     blob = codec.encode_proof(proved["proof"])
     require(codec.encode_proof(codec.decode_proof(blob)) == blob, "codec round trip")
+    prove_sha = hashlib.sha256(blob).hexdigest()
+    require(prove_sha == PROVE_PROOF_SHA256, f"full-size prove proof sha {prove_sha}")
     fri_proof = proved["proof"].opening.proof
     require(len(fri_proof.query_proofs) == cfg.fri.num_queries
             and len(fri_proof.commit_phase_commits)
@@ -843,7 +991,7 @@ def run(dev: torch.device) -> int:
           "rows": sum(1 << lh for _, lh in PROVE_AIRS),
           "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
           "verified": True, "s": proved["s"], "stage_s": proved["stages_s"],
-          "proof_bytes": len(blob), "proof_sha256": hashlib.sha256(blob).hexdigest(),
+          "proof_bytes": len(blob), "proof_sha256": prove_sha,
           "peak_gb": p_peak_gb, "launches": p_launches,
           "plain_max_abs_err": {"quotient": q_err, "gather": p_err["gather"],
                                 "gather_jobs": len(plan.jobs)}})
@@ -864,6 +1012,8 @@ def run(dev: torch.device) -> int:
             == list(x2[1].to_bytes(4, "little")), "fib guest result")
     vblob = codec.encode_proof(vproof)
     require(codec.encode_proof(codec.decode_proof(vblob)) == vblob, "VM codec round trip")
+    vm_sha = hashlib.sha256(vblob).hexdigest()
+    require(vm_sha == VM_PROOF_SHA256, f"full-size VM proof sha {vm_sha}")
     cells = sum((1 << pa.log_degree) * (vm.airs[pa.air_id].width
                                         + sum(vm.airs[pa.air_id].cached_main_widths))
                 for pa in vproof.per_air)
@@ -880,8 +1030,8 @@ def run(dev: torch.device) -> int:
           "insn_per_s": pre.instret / warm_s, "insn_per_s_cold": pre.instret / prove_s,
           "cells": cells, "cells_per_s": cells / warm_s,
           "cells_per_s_cold": cells / prove_s, "proof_bytes": len(vblob),
-          "proof_sha256": hashlib.sha256(vblob).hexdigest(), "peak_gb": v_peak_gb,
-          "launches": v_launches, "plain_checks": v_checks})
+          "proof_sha256": vm_sha, "peak_gb": v_peak_gb, "launches": v_launches, "plain_checks": v_checks})
+    emit({"phase": "vm_profile", **profile_prove(vm, vmr["exe"])})
 
     kernels = timing(dev, setup, rng, main, err, traces, launches, proved,
                      ctxs, cfg, p_launches, vmr, v_launches)
@@ -1154,6 +1304,30 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lib_fn, 10) if lib_fn else None, "library": lib_what,
             "shape": shape, "bytes": nbytes, "ops": ops})
+    by_name = {k["name"]: k for k in kernels}
+    # K3 in the prove path's form (stark/prover.py: every LDE returns its
+    # raw coefficients too, one more n x w output), and its launches per LDE
+    k3 = by_name["ntt"]
+    k3["ms_return_coeffs"] = cuda_ms(lambda: ntt.coset_lde(joined, 1, return_coeffs=True), 5)
+    k3["plain_ms_return_coeffs"] = cuda_ms(
+        lambda: ntt.coset_lde_plain(joined, 1, return_coeffs=True), 1)
+    k3["bound_ms_return_coeffs"] = bound(n1 * w1 * 4 * 4, k3["ops"])[0]
+    _build.reset_launches()
+    ntt.coset_lde(joined, 1)
+    k3["launches_per_lde"] = _build.LAUNCHES["ntt"]
+    k3["passes"] = {"inverse": ntt._pass_plan(log_n1), "forward": ntt._pass_plan(log_n1 + 1)}
+    # K4 and K5 against the issue rate of the SASS they run
+    try:
+        sass = sass_permutation()
+        clock = max_sm_clock_hz(dev)
+        for name, perms in (("poseidon2_hash_rows", rows_leaf * -(-w_leaf // 8)),
+                            ("poseidon2_compress_layer", h5 * 2)):
+            by_name[name]["sass_per_permutation"] = sass
+            by_name[name]["bound_issue_ms"] = (perms * sass["per_permutation"]
+                                               / (H100_SMS * ISSUE_PER_SM_CLOCK * clock) * 1e3)
+            by_name[name]["max_sm_clock_hz"] = clock
+    except (OSError, subprocess.SubprocessError, StopIteration, ValueError) as e:
+        by_name["poseidon2_hash_rows"]["sass_per_permutation"] = f"not measured: {e}"
     # path 1's stages again, warm: the NTT tables are cached now
     warm_ms = {"to_monty_lde": cuda_ms(lambda: ntt.batched_coset_ldes(
                    [bb.to_monty(t) for t in traces], cfg.fri.log_blowup), 3),
@@ -1163,7 +1337,12 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
           "open_84_s": {"open_row_x84": t_open_row, "gather_rows_device": t_gather},
           "kernels": {k["name"]: {"kernel_ms": k["ms"], "host_enqueue_ms": k["host_enqueue_ms"],
                                   "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"]}
-                      for k in kernels}})
+                      for k in kernels},
+          "ntt_return_coeffs_ms": k3["ms_return_coeffs"],
+          "ntt_launches_per_lde": k3["launches_per_lde"], "ntt_passes": k3["passes"],
+          "poseidon2_sass": by_name["poseidon2_hash_rows"].get("sass_per_permutation"),
+          "poseidon2_hash_rows_bound_issue_ms":
+              by_name["poseidon2_hash_rows"].get("bound_issue_ms")})
     return kernels
 
 

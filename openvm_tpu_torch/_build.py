@@ -43,9 +43,8 @@ LAUNCHES = {"bb_elementwise": 0, "ntt": 0, "poseidon2_hash_rows": 0,
 _V, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _SIGNATURES = {
     "ovt_bb_elementwise": (_I, _V, _V, _V, _LL, _V),
-    "ovt_ntt_dif_stage": (_V, _V, _V, _I, _U, _I, _V),
-    "ovt_ntt_rows": (_V, _V, _V, _U, _U, _U, _I, _V),
-    "ovt_p2_set_constants": (_V, _V, _V, _V, _V),
+    "ovt_ntt_pass": (_V, _V, _V, _V, _V, _I, _U, _I, _I, _U, _I, _V),
+    "ovt_p2_set_constants": (_V, _V, _V, _V),
     "ovt_poseidon2_hash_rows": (_V, _V, _U, _U, _V),
     "ovt_poseidon2_compress_layer": (_V, _V, _V, _U, _V),
     "ovt_ext_elementwise": (_I, _V, _V, _V, _LL, _I, _V),

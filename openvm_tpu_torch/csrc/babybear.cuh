@@ -28,12 +28,17 @@ constexpr uint32_t R2 = (uint32_t)((uint64_t)ONE * ONE % P);  // R^2 mod p
 static_assert(P * inv_mod_2_32(P) == 1u, "Newton inverse of p");
 static_assert(NPRIME == 2013265919u, "-p^-1 mod 2^32");
 
+// The conditional subtractions are written as unsigned minima: for s < 2p,
+// s - p wraps above s exactly when s < p, so min(s, s - p) is s mod p (and
+// min(d, d + p) for a wrapped difference), three instructions with no
+// predicate.
+
 // x * R^-1 mod p, canonical, for any x < p * 2^32.
 __device__ __forceinline__ uint32_t monty_reduce(uint64_t x) {
   const uint32_t m = (uint32_t)x * NPRIME;
   // x + m*p < 2^64 and is divisible by 2^32; the quotient is below 2p.
   const uint32_t t = (uint32_t)((x + (uint64_t)m * P) >> 32);
-  return t >= P ? t - P : t;
+  return min(t, t - P);
 }
 
 __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
@@ -42,11 +47,12 @@ __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
 
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
   const uint32_t s = a + b;  // < 2p < 2^32
-  return s >= P ? s - P : s;
+  return min(s, s - P);
 }
 
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a - b + P;
+  const uint32_t d = a - b;
+  return min(d, d + P);
 }
 
 __device__ __forceinline__ uint32_t to_monty(uint32_t x) { return mul(x, R2); }

@@ -163,6 +163,155 @@ def coset_lde_plain(x: torch.Tensor, log_blowup: int, shift: int = bb.GENERATOR,
 
 
 # ---------------------------------------------------------------------------
+# K3: the pass plan and its plain model
+# ---------------------------------------------------------------------------
+
+K_MAX = 11  # stages per pass (csrc/ntt.cu K_MAX): a tile of 2^11 rows x 8 columns
+
+
+def _pass_plan(log_n: int, k_max: int = K_MAX) -> list:
+    """The passes [(s0, k), ...] of a 2^log_n-point DIF: every stage once, in
+    order, in as few passes of at most k_max stages as can be, their sizes
+    as even as can be (21 -> 11 + 10)."""
+    if log_n == 0:
+        return []
+    n_pass = -(-log_n // k_max)
+    base, extra = divmod(log_n, n_pass)
+    plan, s0 = [], 0
+    for p in range(n_pass):
+        k = base + (p < extra)
+        plan.append((s0, k))
+        s0 += k
+    return plan
+
+
+def _pass_model(src, dst, tw, in_fac, out_fac, log_n, w, s0, k, n_in,
+                bitrev_out) -> None:
+    """Plain PyTorch mirror of one launch of csrc/ntt.cu's pass kernel, with
+    its index arithmetic: tile rows hi | t << L | lo, 3-stage groups over
+    bits b .. b+g-1 of t, twiddle tw[j << s] with j = ((t mod 2^(b+bv)) <<
+    L) | lo; loads stop at n_in and take in_fac, stores go to bitrev(r) when
+    bitrev_out and take out_fac of the row they go to."""
+    n = 1 << log_n
+    L = log_n - s0 - k
+    x = torch.zeros((n, w), dtype=torch.int64, device=dst.device)
+    x[:n_in] = src[:n_in].long()
+    if in_fac is not None:
+        x[:n_in] = bb.mul64(x[:n_in], in_fac[:n_in].long()[:, None])
+    x = x.reshape(1 << s0, 1 << k, 1 << L, w)  # (hi, t, lo, column)
+    lo = torch.arange(1 << L, device=dst.device)
+    twl = tw.long()
+    n_groups = (k + 2) // 3
+    i = 0
+    for gi in range(n_groups):
+        g = k // n_groups + (gi < k % n_groups)
+        b = k - i - g
+        u = torch.arange(1 << (k - g), device=dst.device)
+        base = ((u >> b) << (b + g)) | (u & ((1 << b) - 1))
+        for qs in range(g):
+            bv = g - 1 - qs
+            for a in range(1 << g):
+                if a & (1 << bv):
+                    continue
+                ta = base | (a << b)
+                tb = ta | (1 << (b + bv))
+                j = ((ta & ((1 << (b + bv)) - 1))[:, None] << L) | lo[None, :]
+                wv = twl[j << (s0 + i + qs)][None, :, :, None]
+                xa, xb = x[:, ta], x[:, tb]
+                x[:, ta] = bb.add64(xa, xb)
+                x[:, tb] = bb.mul64(bb.sub64(xa, xb), wv)
+        i += g
+    x = x.reshape(n, w)
+    rows = torch.arange(n, device=dst.device)
+    if bitrev_out:
+        rows = torch.from_numpy(bitrev_perm(log_n)).to(dst.device)
+    if out_fac is not None:
+        x = bb.mul64(x, out_fac.long()[rows][:, None])
+    dst[rows] = x.int()
+
+
+def _launch_pass(src, dst, tw, in_fac, out_fac, log_n, w, s0, k, n_in,
+                 bitrev_out) -> None:
+    _build.launch("ntt", "ovt_ntt_pass", dst.device, src.data_ptr(),
+                  dst.data_ptr(), tw.data_ptr(),
+                  None if in_fac is None else in_fac.data_ptr(),
+                  None if out_fac is None else out_fac.data_ptr(),
+                  log_n, w, s0, k, n_in, int(bitrev_out))
+
+
+def _dif(run_pass, src, dst, log_n: int, inverse: bool, *, n_in=None,
+         in_fac=None, out=None, out_fac=None, k_max: int = K_MAX) -> torch.Tensor:
+    """All DIF stages of a 2^log_n-point transform as passes: the first
+    reads ``src`` (rows below n_in, times in_fac) and writes ``dst``, the
+    rest work on ``dst`` in place; given ``out``, the last pass stores
+    bit-reversed (natural order) into ``out`` instead, times out_fac.
+    Returns the tensor written last.  No stage (log_n 0) is one pass of
+    k = 0: the row work alone."""
+    w = int(dst.shape[1])
+    tw = _device_twiddles(log_n, inverse, dst.device)
+    plan = _pass_plan(log_n, k_max) or [(0, 0)]
+    n_in = (1 << log_n) if n_in is None else n_in
+    cur = src
+    for p, (s0, k) in enumerate(plan):
+        last = p == len(plan) - 1
+        target = out if last and out is not None else dst
+        run_pass(cur, target, tw, in_fac if p == 0 else None,
+                 out_fac if last else None, log_n, w, s0, k,
+                 n_in if p == 0 else 1 << log_n, last and out is not None)
+        cur = target
+    return cur
+
+
+def _ntt_passes(x, inverse: bool, run_pass, k_max: int = K_MAX):
+    """ntt (inverse False) or intt of x through the pass kernel: the last
+    pass stores in natural order, the inverse's times 1/N."""
+    n, w = x.shape
+    log_n = _log2_exact(n)
+    fac = (_device_row_factors(log_n, 1, bb.inv_int(n), x.device)
+           if inverse else None)
+    y = torch.empty_like(x) if len(_pass_plan(log_n, k_max)) > 1 else None
+    out = torch.empty_like(x)
+    return _dif(run_pass, x, x if y is None else y, log_n, inverse, out=out,
+                out_fac=fac, k_max=k_max)
+
+
+def _coset_lde_passes(x, log_blowup, shift, bitrev_out, in_shift,
+                      return_coeffs, run_pass, k_max: int = K_MAX):
+    """coset_lde through the pass kernel (or its model).
+
+    The inverse's last pass stores the coefficients in natural order, times
+    1/N (the raw coefficients) or times (1/N) (shift/in_shift)^i (straight
+    into the first n rows of the LDE); the forward transform's first pass
+    reads those n rows, times the shift powers when they are raw, and the
+    zero rows of the padding never; its last pass stores bit-reversed only
+    when ``bitrev_out`` is False.  2^20 -> 2^21 rows is four launches."""
+    n, w = x.shape
+    log_n = _log2_exact(n)
+    big_n = n << log_blowup
+    big_log = log_n + log_blowup
+    dev = x.device
+    eff_shift = shift * bb.inv_int(in_shift) % bb.P
+    padded = torch.empty((big_n, w), dtype=torch.int32, device=dev)
+    if w == 0:
+        return (padded, x.clone()) if return_coeffs else padded
+    if return_coeffs:
+        coeffs = _ntt_passes(x, True, run_pass, k_max) if log_n else x.clone()
+        src, fac = coeffs, _device_row_factors(log_n, eff_shift, 1, dev)
+    elif log_n:
+        tmp = torch.empty_like(x) if len(_pass_plan(log_n, k_max)) > 1 else x
+        src, fac = _dif(run_pass, x, tmp, log_n, True, out=padded,
+                        out_fac=_device_row_factors(log_n, eff_shift,
+                                                    bb.inv_int(n), dev),
+                        k_max=k_max), None
+    else:
+        src, fac = x, _device_row_factors(0, eff_shift, 1, dev)
+    out = None if bitrev_out else torch.empty_like(padded)
+    y = _dif(run_pass, src, padded, big_log, False, n_in=n, in_fac=fac,
+             out=out, k_max=k_max)
+    return (y, coeffs) if return_coeffs else y
+
+
+# ---------------------------------------------------------------------------
 # K3 wrappers
 # ---------------------------------------------------------------------------
 
@@ -177,22 +326,6 @@ def _check(x: torch.Tensor, rows: int) -> torch.device:
     return dev
 
 
-def _dif(src: torch.Tensor, dst: torch.Tensor, log_n: int, inverse: bool) -> None:
-    """All DIF stages, the first from src into dst, the rest in place."""
-    tw = _device_twiddles(log_n, inverse, dst.device)
-    for s in range(log_n):
-        _build.launch("ntt", "ovt_ntt_dif_stage", dst.device,
-                      (src if s == 0 else dst).data_ptr(), dst.data_ptr(),
-                      tw.data_ptr(), log_n, dst.shape[1], s)
-
-
-def _rows(src: torch.Tensor, dst: torch.Tensor, factors, bitrev_log: int) -> None:
-    """dst[i] = src[bitrev(i) or i] * factors[i] for i < len(src), 0 below."""
-    _build.launch("ntt", "ovt_ntt_rows", dst.device, src.data_ptr(),
-                  dst.data_ptr(), None if factors is None else factors.data_ptr(),
-                  src.shape[0], dst.shape[0], dst.shape[1], bitrev_log)
-
-
 def ntt(x: torch.Tensor) -> torch.Tensor:
     """Forward NTT along axis 0, natural in / natural out. x: (N, W) monty."""
     log_n = _log2_exact(x.shape[0])
@@ -200,27 +333,17 @@ def ntt(x: torch.Tensor) -> torch.Tensor:
         return ntt_plain(x)
     if log_n == 0 or x.numel() == 0:
         return x.clone()
-    y = torch.empty_like(x)
-    _dif(x, y, log_n, False)
-    out = torch.empty_like(x)
-    _rows(y, out, None, log_n)
-    return out
+    return _ntt_passes(x, False, _launch_pass)
 
 
 def intt(x: torch.Tensor) -> torch.Tensor:
     """Inverse NTT along axis 0, natural in / natural out (scaled by 1/N)."""
     log_n = _log2_exact(x.shape[0])
-    dev = _check(x, x.shape[0])
-    if dev.type == "cpu":
+    if _check(x, x.shape[0]).type == "cpu":
         return intt_plain(x)
     if log_n == 0 or x.numel() == 0:
         return x.clone()
-    y = torch.empty_like(x)
-    _dif(x, y, log_n, True)
-    out = torch.empty_like(x)
-    n_inv = bb.inv_int(x.shape[0])
-    _rows(y, out, _device_row_factors(log_n, 1, n_inv, dev), log_n)
-    return out
+    return _ntt_passes(x, True, _launch_pass)
 
 
 def coset_lde(x: torch.Tensor, log_blowup: int, shift: int = bb.GENERATOR,
@@ -234,40 +357,17 @@ def coset_lde(x: torch.Tensor, log_blowup: int, shift: int = bb.GENERATOR,
     INTT coefficients (natural order, monty, before the coset-shift
     multiply), as the JAX package's coset_lde (ntt.py:117) does.
 
-    Kernel K3 on CUDA: inverse DIF stages, one row pass that bit-reverses,
-    multiplies by (1/N)*(shift/in_shift)^i and zero-pads, forward DIF stages
-    on the padded matrix in place, and a bit-reversal pass only when
-    ``bitrev_out`` is False.  Bound by bytes (see csrc/ntt.cu)."""
+    Kernel K3 on CUDA: the inverse and forward transforms in passes of up to
+    11 stages each, the bit-reversal, the scale and the zero-pad fused into
+    their first and last passes (``_coset_lde_passes``): four launches for
+    2^20 -> 2^21 rows.  Bound by bytes and integer issue (see csrc/ntt.cu)."""
     n, w = x.shape
-    log_n = _log2_exact(n)
-    big_n = n << log_blowup
-    dev = _check(x, big_n)
+    dev = _check(x, n << log_blowup)
     if dev.type == "cpu":
         return coset_lde_plain(x, log_blowup, shift, bitrev_out, in_shift,
                                return_coeffs)
-    eff_shift = shift * bb.inv_int(in_shift) % bb.P
-    padded = torch.empty((big_n, w), dtype=torch.int32, device=dev)
-    raw_coeffs = None
-    if w == 0:
-        return (padded, x.clone()) if return_coeffs else padded
-    if return_coeffs:
-        raw_coeffs = intt(x)
-        _rows(raw_coeffs, padded,
-              _device_row_factors(log_n, eff_shift, 1, dev), 0)
-    else:
-        y = x
-        if log_n:
-            y = torch.empty_like(x)
-            _dif(x, y, log_n, True)
-        _rows(y, padded,
-              _device_row_factors(log_n, eff_shift, bb.inv_int(n), dev), log_n)
-    big_log = log_n + log_blowup
-    _dif(padded, padded, big_log, False)
-    if not bitrev_out and big_log:
-        out = torch.empty_like(padded)
-        _rows(padded, out, None, big_log)
-        padded = out
-    return (padded, raw_coeffs) if return_coeffs else padded
+    return _coset_lde_passes(x, log_blowup, shift, bitrev_out, in_shift,
+                             return_coeffs, _launch_pass)
 
 
 def batched_coset_ldes(mats: list, log_blowup: int, return_coeffs: bool = False):

@@ -43,11 +43,13 @@ def _frac(num: int, den: int) -> int:
     return (num * pow(den, -1, P)) % P
 
 
-INTERNAL_DIAG = np.array([
+PLONKY3_DIAG = np.array([
     P - 2, 1, 2, _frac(1, 2), 3, 4, _frac(-1, 2), P - 3, P - 4,
     _frac(1, 1 << 8), _frac(1, 4), _frac(1, 8), _frac(1, 1 << 27),
     _frac(-1, 1 << 8), _frac(-1, 16), _frac(-1, 1 << 27),
 ], dtype=np.uint64)
+PLONKY3_DIAG.setflags(write=False)
+INTERNAL_DIAG = PLONKY3_DIAG.copy()
 
 
 def grain_round_constants(p: int = P, t: int = WIDTH,
@@ -126,9 +128,9 @@ def set_round_constants(begin_rc, partial_rc, end_rc) -> None:
 
 
 def _monty_constants():
-    """Round constants and diagonal as uint32 Montgomery words."""
+    """Round constants as uint32 Montgomery words."""
     return (bb.to_monty_np(BEGIN_RC), bb.to_monty_np(PARTIAL_RC),
-            bb.to_monty_np(END_RC), bb.to_monty_np(INTERNAL_DIAG))
+            bb.to_monty_np(END_RC))
 
 
 @functools.lru_cache(maxsize=8)
@@ -140,8 +142,13 @@ def _plain_constants(version: int, device: torch.device):
 
 
 def upload_constants(device: torch.device) -> None:
-    """Copy the current constants into the kernels' __constant__ memory on
-    ``device`` unless it already holds them."""
+    """Copy the current round constants into the kernels' __constant__
+    memory on ``device`` unless it already holds them.  The kernels build the
+    internal diagonal into their code (csrc/poseidon2.cu partial_round), so
+    the diagonal must still be plonky3's."""
+    if not np.array_equal(INTERNAL_DIAG, PLONKY3_DIAG):
+        raise ValueError("the Poseidon2 kernels compute with plonky3's BabyBear "
+                         "internal diagonal; INTERNAL_DIAG differs from it")
     if _UPLOADED.get(device) == _RC_VERSION:
         return
     arrays = [np.ascontiguousarray(a) for a in _monty_constants()]
@@ -182,8 +189,56 @@ def _external_linear(state):
     return s.add_(s.sum(dim=-2, keepdim=True)).remainder_(P).reshape(state.shape)
 
 
-def _permute64(s, consts):
-    """Poseidon2 on canonical int64 values (..., 16)."""
+def _monty_reduce64(y):
+    """csrc/babybear.cuh monty_reduce in int64: y 2^-32 mod p for 0 <= y <
+    p 2^32, with m p split as m + 15 m 2^27 so that no sum passes 2^63."""
+    lo = y & 0xFFFFFFFF
+    m = (lo * bb.NPRIME) & 0xFFFFFFFF
+    t = (y >> 32) + ((lo + m + ((15 * m) << 27)) >> 32)
+    return torch.where(t >= P, t - P, t)
+
+
+def _reduce_sum64(v):
+    """csrc/poseidon2.cu reduce_sum in int64: v mod p for 0 <= v < 16p by
+    2^31 = 2^27 - 1 (mod p) and two conditional subtractions."""
+    v = (v & 0x7FFFFFFF) + (v >> 31) * ((1 << 27) - 1)
+    v = torch.where(v >= P, v - P, v)
+    return torch.where(v >= P, v - P, v)
+
+
+def _diag_layer64(s, total):
+    """diag * s + total on canonical (..., 16) lanes, as csrc/poseidon2.cu's
+    partial_round computes it: +-1..4 as additions, 2^-k as one Montgomery
+    reduction of s << (32 - k) (plonky3's diagonal, PLONKY3_DIAG)."""
+    x = [s[..., i] for i in range(WIDTH)]
+
+    def add(a, b):
+        return (a + b) % P
+
+    def sub(a, b):
+        return (a - b) % P
+
+    def div(a, k):
+        return _monty_reduce64(a << (32 - k))
+
+    def dbl(a):
+        return add(a, a)
+
+    lanes = [sub(total, dbl(x[0])), add(total, x[1]), add(total, dbl(x[2])),
+             add(total, div(x[3], 1)), add(total, add(dbl(x[4]), x[4])),
+             add(total, dbl(dbl(x[5]))), sub(total, div(x[6], 1)),
+             sub(total, add(dbl(x[7]), x[7])), sub(total, dbl(dbl(x[8]))),
+             add(total, div(x[9], 8)), add(total, div(x[10], 2)),
+             add(total, div(x[11], 3)), add(total, div(x[12], 27)),
+             sub(total, div(x[13], 8)), sub(total, div(x[14], 4)),
+             sub(total, div(x[15], 27))]
+    return torch.stack(lanes, dim=-1)
+
+
+def _permute64(s, consts, structured_diag: bool = False):
+    """Poseidon2 on canonical int64 values (..., 16).  ``structured_diag``
+    computes the internal layer as the kernels do (``_diag_layer64``, lane
+    sum by ``_reduce_sum64``) instead of by general products."""
     begin, partial, end, diag = consts
     s = _external_linear(s)
     for r in range(HALF_FULL_ROUNDS):
@@ -192,6 +247,11 @@ def _permute64(s, consts):
         # lane 0 through the S-box, then diag * s + sum(s) on every lane
         x0 = _sbox((s[..., 0] + partial[r]) % P)
         total = s[..., 1:].sum(dim=-1).add_(x0)
+        if structured_diag:
+            s = s.clone()
+            s[..., 0] = x0
+            s = _diag_layer64(s, _reduce_sum64(total))
+            continue
         s = s * diag
         s[..., 0] = x0 * diag[0]
         s.add_(total[..., None]).remainder_(P)
@@ -242,7 +302,7 @@ def hash_rows(matrix: torch.Tensor) -> torch.Tensor:
 
     Kernel K4 on CUDA (csrc/poseidon2.cu), replacing the JAX package's
     hash_rows (poseidon2.py:213): one thread per row, bound by integer
-    operations."""
+    operations; a block's rows load through shared memory."""
     dev = _build.kernel_device(matrix)
     if dev.type == "cpu":
         return hash_rows_plain(matrix)

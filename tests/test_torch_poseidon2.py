@@ -102,3 +102,54 @@ def test_pinned_vectors():
         PERM_0_15[:8]
     m = bb.monty((np.arange(4 * 12).reshape(4, 12) * 7 + 3) % bb.P, device="cpu")
     assert bb.canonical_np(p2.hash_rows(m))[0].tolist() == HASH_ROWS_0
+
+
+# ---------------------------------------------------------------------------
+# K4's internal layer: the diagonal by additions and shifts, lane sums
+# reduced once (p2._diag_layer64 and p2._reduce_sum64 model the kernel)
+# ---------------------------------------------------------------------------
+
+def _edge_lanes(seed):
+    rng = np.random.default_rng(seed)
+    vals = np.concatenate([[0, 1, bb.P - 1, bb.P - 2, 2, (bb.P - 1) // 2],
+                           rng.integers(0, bb.P, size=58)]).astype(np.int64)
+    lanes = np.stack([np.roll(vals, i) for i in range(16)], axis=1)
+    return torch.from_numpy(lanes), vals
+
+
+def test_structured_diagonal_equals_general_products():
+    s, vals = _edge_lanes(20)
+    diag = torch.from_numpy(p2.INTERNAL_DIAG.astype(np.int64))
+    for total in (0, 1, bb.P - 1, int(vals[-1])):
+        t = torch.full((s.shape[0],), total, dtype=torch.int64)
+        np.testing.assert_array_equal(p2._diag_layer64(s, t).numpy(),
+                                      ((s * diag + t[:, None]) % bb.P).numpy())
+
+
+def test_lane_sum_reduction():
+    rng = np.random.default_rng(21)
+    v = rng.integers(0, 16 * bb.P, size=2000)
+    v[:5] = [0, 1, bb.P, 16 * bb.P - 1, 15 << 31]
+    np.testing.assert_array_equal(p2._reduce_sum64(torch.from_numpy(v)).numpy(),
+                                  v % bb.P)
+
+
+def test_structured_permutation_matches_jax():
+    js, ts = _inputs((6, 16), 22)
+    consts = p2._plain_constants(p2._RC_VERSION, torch.device("cpu"))
+    got = p2._monty32(p2._permute64(p2._canonical64(ts), consts, structured_diag=True))
+    _same(jp2.permute(js), got)
+    st = bb.monty(np.arange(16), device="cpu")
+    got = p2._monty32(p2._permute64(p2._canonical64(st), consts, structured_diag=True))
+    assert bb.canonical_np(got).tolist() == PERM_0_15
+
+
+def test_upload_refuses_another_diagonal():
+    saved = p2.INTERNAL_DIAG
+    try:
+        p2.INTERNAL_DIAG = saved.copy()
+        p2.INTERNAL_DIAG[3] = 5
+        with pytest.raises(ValueError, match="diagonal"):
+            p2.upload_constants(torch.device("cpu"))
+    finally:
+        p2.INTERNAL_DIAG = saved
