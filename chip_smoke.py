@@ -18,7 +18,11 @@ Phases, each printing one JSON line:
   variants  every kernel and every coset_lde argument, kernel against
             plain, mid-size; K3 at heights around its 2^11-row tile (2^10 to
             2^12, 2^21, 2^22) and widths 1 to 257, K4 at widths 0 to 101 on
-            row counts that are not a multiple of its block
+            row counts that are not a multiple of its block; K7 on random
+            DAGs up to its slot limit (the next one refused) and on one
+            launch over a job table of heights 2^1 to 2^12, lqd 0 and 1;
+            K5's tail on trees of 2^1 to 2^14 leaves with injections at
+            every height, at tails of 2, 64 and 512 digests
   main      path 1, one RV32IM segment's common-main commit at full size:
             the matrix widths of the VM's AIRs, heights at the fib_e2e
             segment cap (1,048,476 rows) padded to 2^20; to_monty -> coset
@@ -40,16 +44,21 @@ Phases, each printing one JSON line:
             with FIB_EXECUTORS and the production profile (84 queries, 16
             PoW bits, log_blowup 1); stage seconds, insn/s, trace cells/s;
             the proof's SHA-256 pinned (VM_PROOF_SHA256); then K8 on every
-            AIR's sends, K9 and K10 on every AIR's
-            permutation trace and K7 on the two widest AIRs' quotient (LogUp
-            roots included) against their plain versions, on the prove's own
-            inputs
+            AIR's sends, K9 and K10 on every AIR's permutation trace and K7
+            on all 15 AIRs' quotient in one launch (LogUp roots included)
+            against their plain versions, on the prove's own inputs
   vm_profile one more warm prove of path 3 under torch.profiler: each
             kernel's summed device ms and launches, the device's busy and
             idle share of the prove
   timing    each kernel and its plain version at the paths' shapes; K3 also
             in the prove's form (return_coeffs), K4 and K5 also against the
-            issue rate of the SASS they run (cuobjdump)
+            issue rate of the SASS they run (cuobjdump); K5 over the whole
+            compress phase of path 1's main tree and of a 2^20-leaf FRI tree
+            at tail thresholds of 64 to 512 digests and layer by layer; K7
+            on path 3's own rv32_base_alu quotient input and on the prove's
+            one launch over all 15 AIRs; each device time with the card
+            kept busy while the host enqueues, and beside it the reading
+            whose events span the host's enqueue (ms_host)
 
 then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -131,10 +140,13 @@ TEST_STARK = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=2,
 
 # Path 3: the fibonacci guest's loop count; 5 instructions an iteration.
 VM_FIB_N = 200_000
+# K5's compress phase is timed on a FRI tree of 2^20 leaves, path 3's largest.
+FRI_TREE_LOG = 20
 # Path 2 has no interactions: it runs every kernel but K8, K9, K10 and the
 # columns mode of K7.
 PATH2_KERNELS = ("bb_elementwise", "ntt", "poseidon2_hash_rows",
-                 "poseidon2_compress_layer", "ext_elementwise", "gather",
+                 "poseidon2_compress_layer", "poseidon2_compress_tail",
+                 "ext_elementwise", "gather",
                  "quotient", "open_dot", "fri_reduced_open", "fri_fold")
 
 # Bounds.  Bytes: each input read once, each output written once, over the
@@ -188,13 +200,23 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def cuda_ms(fn, reps: int, host: bool = False):
+def cuda_ms(fn, reps: int, host: bool = False, busy: bool = True):
     """Mean device time of fn() over reps calls after one warm-up call; with
-    ``host``, also the mean host time to enqueue one call.  Where the two
-    are close, the card waited on the host and the device time is the
-    host's."""
+    ``host``, also the mean host time to enqueue one call.  With ``busy``
+    the card is kept busy (torch.cuda._sleep) while the host enqueues the
+    calls, so that a kernel shorter than its host enqueue is timed on the
+    card; a call that waits on the card (a blocking copy) still makes the
+    time the host's.  Without it, the events span the host's enqueue too
+    (the method before the card was kept busy): where the two readings are
+    close, the host's enqueue was not what the card waited on."""
     fn()
     torch.cuda.synchronize()
+    if busy:
+        t0 = time.perf_counter()
+        fn()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(1.5 * reps * enqueue_s, 1.0) * 2e9))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -354,12 +376,31 @@ def fixture_contexts(on=None, last_pv_delta=0) -> list:
                                     public_values=cube_pvs)]
 
 
-def random_dag(rng, n_ops: int) -> tuple:
+def near_limit_dag(fits: bool) -> tuple:
+    """The first random DAG (widening operand windows) whose program takes
+    over 90% of the kernel's slot words beside its code and still fits
+    (``fits``), or the first one past the limit."""
+    for window in range(500, 40000, 250):
+        nodes, roots = random_dag(np.random.default_rng(window), 2 * window, window)
+        dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+        try:
+            prog = qmod.compile_dag_code(dag, n_main=2, has_preprocessed=True,
+                                         has_perm=True)
+        except ValueError:
+            if not fits:
+                return nodes, roots
+            continue
+        if fits and prog.lane_words > 0.9 * qmod.max_lane_words(int(prog.code.shape[0])):
+            return nodes, roots
+    raise AssertionError("no random DAG reached the slot limit")
+
+
+def random_dag(rng, n_ops: int, window: int = 16) -> tuple:
     """A random constraint DAG over two main parts (3 and 2 columns), a
     preprocessed matrix (2), a permutation matrix (2 ext columns), 3
     publics, 2 challenges, 1 exposed value and the selectors; operands come
-    from the last 16 nodes or from the leaves, so the program's live slots
-    stay bounded.  Returns (nodes, roots)."""
+    from the last ``window`` nodes or from the leaves, so the window bounds
+    the program's live slots.  Returns (nodes, roots)."""
     nodes = [("const", 0), ("const", 1), ("const", P - 1), ("const", 12345)]
     nodes += [("var", "main", part, off, c) for part, w in enumerate((3, 2))
               for c in range(w) for off in (0, 1)]
@@ -373,7 +414,7 @@ def random_dag(rng, n_ops: int) -> tuple:
     for _ in range(n_ops):
         k = len(nodes)
         ab = [int(rng.integers(0, n_leaves)) if rng.random() < 0.3
-              else int(rng.integers(max(0, k - 16), k)) for _ in range(2)]
+              else int(rng.integers(max(0, k - window), k)) for _ in range(2)]
         op = ("add", "sub", "mul", "mul", "neg")[int(rng.integers(0, 5))]
         nodes.append(("neg", ab[0]) if op == "neg" else (op, ab[0], ab[1]))
     roots = sorted(int(x) for x in rng.choice(
@@ -560,27 +601,68 @@ def phase_variants(dev, rng) -> None:
     errs["ext_powers/4099"] = max_abs_err(ef.powers(eb[9], 4099),
                                           ef.powers_plain(eb[9], 4099))
 
-    # K7+K11: a random DAG of ~2,000 nodes at 2^12 rows, next_step 2
-    nodes, roots = random_dag(rng, 1960)
-    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    # K7+K11: random DAGs at 2^12 rows, next_step 2: ~2,000 nodes, and one
+    # whose slots come within 10% of the kernel's limit beside its code (a
+    # block of 32 threads); the next larger one is refused.  Then one launch over a job
+    # table of heights 2^1 to 2^12, lqd 0 and 1, and FibonacciAir at 2^12.
+    vals = dict(publics=bb.to_monty_np(rng.integers(0, P, size=3)),
+                challenges=bb.to_monty_np(rng.integers(0, P, size=(2, 4))),
+                exposed=bb.to_monty_np(rng.integers(0, P, size=(1, 4))),
+                alpha=bb.to_monty_np(rng.integers(0, P, size=4)))
     log_n, lqd = 11, 1
-    prog = qmod.compile_dag(
-        dag, n_main=2, has_preprocessed=True, has_perm=True,
-        publics=bb.to_monty_np(rng.integers(0, P, size=3)),
-        challenges=bb.to_monty_np(rng.integers(0, P, size=(2, 4))),
-        exposed=bb.to_monty_np(rng.integers(0, P, size=(1, 4))))
     srcs = [words(rng, dev, 1 << (log_n + 1), w) for w in (3, 2, 2, 8)]
     srcs[1] = torch.cat([srcs[1], srcs[2]], dim=1)[:, :2]  # a column slice
-    alpha = words(rng, dev, 4)
-    errs["quotient/dag2k"] = max_abs_err(
-        qmod.evaluate(prog, srcs, log_n, lqd, alpha),
-        qmod.evaluate_plain(prog, srcs, log_n, lqd, alpha))
+    big = {}
+    for name, (nodes, roots) in (("dag2k", random_dag(np.random.default_rng(1960), 1960)),
+                                 ("near_limit", near_limit_dag(True))):
+        dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+        prog = qmod.compile_dag(dag, n_main=2, has_preprocessed=True,
+                                has_perm=True, **vals)
+        n_instr = int(prog.code.shape[0])
+        big[name] = {"nodes": len(nodes), "instructions": n_instr,
+                     "lane_words": prog.lane_words,
+                     "limit": qmod.max_lane_words(n_instr),
+                     "threads": qmod.block_threads(prog.lane_words, n_instr)}
+        errs[f"quotient/{name}"] = max_abs_err(
+            qmod.evaluate(prog, srcs, log_n, lqd),
+            qmod.evaluate_plain(prog, srcs, log_n, lqd))
+    nodes, roots = near_limit_dag(False)
+    too_big = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    try:
+        qmod.compile_dag_code(too_big, n_main=2, has_preprocessed=True, has_perm=True)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "a program over the slot limit was accepted")
+    nodes, roots = random_dag(np.random.default_rng(400), 400)
+    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    jprog = qmod.compile_dag(dag, n_main=2, has_preprocessed=True, has_perm=True,
+                             **vals)
+    jobs = [(k - q, q) for k in range(1, 13) for q in (0, 1) if k - q >= 0]
+    jsrcs = [[words(rng, dev, 1 << (ln + q + 1), w) for w in (3, 2, 2, 8)]
+             for ln, q in jobs]
+    got = qmod.evaluate_many([jprog] * len(jobs), jsrcs, [j[0] for j in jobs],
+                             [j[1] for j in jobs])
+    errs["quotient/jobs"] = max(
+        max_abs_err(g, qmod.evaluate_plain(jprog, s_, ln, q))
+        for g, s_, (ln, q) in zip(got, jsrcs, jobs))
     fib_dag = stark.keygen([FibonacciAir()], StarkConfig(), device=dev).vk.per_air[0].dag
     fprog = qmod.compile_dag(fib_dag, n_main=1, has_preprocessed=False,
-                             has_perm=False, publics=[1, 2, 3])
+                             has_perm=False, publics=[1, 2, 3], alpha=vals["alpha"])
     fsrc = [words(rng, dev, 1 << 13, 2)]
-    errs["quotient/fib"] = max_abs_err(qmod.evaluate(fprog, fsrc, 12, 0, alpha),
-                                       qmod.evaluate_plain(fprog, fsrc, 12, 0, alpha))
+    errs["quotient/fib"] = max_abs_err(qmod.evaluate(fprog, fsrc, 12, 0),
+                                       qmod.evaluate_plain(fprog, fsrc, 12, 0))
+
+    # K5's tail against plain: trees of 2^1 to 2^14 leaves with a matrix at
+    # every height (an injection at every layer), tails from 2, 64 (one
+    # block of the cluster) and the default 512 digests (all 8 blocks)
+    for log_h in range(1, 15):
+        mats = [words(rng, dev, 1 << k, 1 + k % 3) for k in range(log_h, -1, -1)]
+        want = merkle.commit_layers_plain(mats)
+        for tail_max in (2, 64, merkle.TAIL_MAX):
+            got = merkle.commit_layers(mats, tail_max=tail_max)
+            errs[f"compress_tail/2^{log_h}/{tail_max}"] = max(
+                max_abs_err(a, b) for a, b in zip(got, want))
 
     # K12, K13, K14 at 2^12; K12 on a column slice
     coeffs = words(rng, dev, 4096, 9)[:, 2:7]
@@ -612,7 +694,9 @@ def phase_variants(dev, rng) -> None:
     idx = rng.integers(0, 4096, size=84).tolist()
     errs["gather"] = max_abs_err(plan.run_device(idx), plan.run_plain(idx))
 
-    # K7 columns mode: the random DAG's base roots over 2^12 natural rows
+    # K7 columns mode: a random DAG's base roots over 2^12 natural rows
+    nodes, roots = random_dag(np.random.default_rng(1960), 1960)
+    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
     tags = qmod._tags(dag, range(len(nodes)))
     base_roots = [r for r in range(len(nodes)) if tags[r] == "b"
                   and nodes[r][0] not in ("sel",)][-40:] + [0, 3]
@@ -660,9 +744,7 @@ def phase_variants(dev, rng) -> None:
     errs["lookup_hist"] = max(max_abs_err(a, b) for a, b in zip(k_tabs, p_tabs))
     bad = {k: v for k, v in errs.items() if v}
     emit({"phase": "variants", "cases": len(errs), "mismatched": bad,
-          "quotient_dag": {"nodes": len(nodes), "roots": len(roots),
-                           "instructions": int(prog.code.shape[0]),
-                           "slots": prog.n_slots}})
+          "quotient_dags": big, "quotient_jobs": jobs})
     require(not bad, f"kernel and plain disagree: {bad}")
 
 
@@ -745,7 +827,7 @@ def run_vm(dev, cfg: StarkConfig) -> dict:
 def check_vm_kernels(vm, record: dict) -> dict:
     """K7 (columns mode), K8, K9, K10 and K7 (quotient) of path 3 against
     their plain versions on the prove's own inputs: every AIR's sends and
-    permutation trace, the two widest AIRs' quotient."""
+    permutation trace, and every AIR's quotient from one launch."""
     lk = record["lookup"]
     range_h, tuple_total, sizes1 = lk["sizes"]
     p_tabs = lookup.new_tables(range_h, tuple_total, lk["tables"][0].device)
@@ -767,10 +849,11 @@ def check_vm_kernels(vm, record: dict) -> dict:
                                      logup.perm_cols_plain(*entry["perm_cols"]))
         got, want = logup.perm_scan(entry["perm_scan"]), logup.perm_scan_plain(entry["perm_scan"])
         scan_err[name] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    widest = sorted(range(len(vm.airs)), key=lambda i: -vm.airs[i].width)[:2]
-    q_err = {vm.airs[i].name: max_abs_err(qmod.evaluate(*record["quotient"][i]),
-                                          qmod.evaluate_plain(*record["quotient"][i]))
-             for i in widest}
+    # K7 on every AIR in one launch, as the prove ran it
+    qrec = record["quotient"]
+    got = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))
+    q_err = {vm.airs[i].name: max_abs_err(g, qmod.evaluate_plain(*qrec[i]))
+             for i, g in enumerate(got)}
     errs = {"quotient_columns": max(cols_err.values()), "lookup_hist": hist_err,
             "perm_cols": max(perm_err.values()), "perm_scan": max(scan_err.values()),
             "quotient": max(q_err.values())}
@@ -778,14 +861,16 @@ def check_vm_kernels(vm, record: dict) -> dict:
             f"kernel and plain differ on the VM prove's inputs: {cols_err} "
             f"{perm_err} {scan_err} {q_err} {errs}")
     return {"max": errs, "columns_airs": len(cols_err), "perm_airs": len(perm_err),
-            "quotient_airs": {vm.airs[i].name: record["quotient"][i][2] for i in widest}}
+            "quotient_airs": {vm.airs[i].name: {"log_n": r[2], "lqd": r[3],
+                                                "lane_words": r[0].lane_words}
+                              for i, r in enumerate(qrec)}}
 
 
 def kernel_names() -> list:
     """The __global__ functions of openvm_tpu_torch/csrc."""
     names = []
     for f in sorted(_build.CSRC.glob("*.cu")):
-        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+        names += re.findall(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*(\w+)\s*\(",
                             f.read_text())
     return names
 
@@ -919,7 +1004,7 @@ def run(dev: torch.device) -> int:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tree = main["tree"]
     path1 = ("bb_elementwise", "ntt", "poseidon2_hash_rows",
-             "poseidon2_compress_layer", "gather")
+             "poseidon2_compress_layer", "poseidon2_compress_tail", "gather")
     require(all(launches[k] for k in path1), f"a path-1 kernel never ran: {launches}")
     log_max = max(lh for _, lh, _ in SEGMENT) + cfg.fri.log_blowup
     require(len(main["indices"]) == cfg.fri.num_queries
@@ -946,8 +1031,13 @@ def run(dev: torch.device) -> int:
     require(err["ntt"] == 0, "K3 differs from plain")
     p_layers = merkle.commit_layers_plain(p_ldes)
     err["poseidon2_hash_rows"] = max_abs_err(tree.digest_layers[0], p_layers[0])
+    n_single = len(merkle.commit_plan(tree.max_height(), merkle.TAIL_MAX)[0])
     err["poseidon2_compress_layer"] = max(
-        max_abs_err(a, b) for a, b in zip(tree.digest_layers[1:], p_layers[1:]))
+        (max_abs_err(a, b) for a, b in zip(tree.digest_layers[1:1 + n_single],
+                                           p_layers[1:1 + n_single])), default=0)
+    err["poseidon2_compress_tail"] = max(
+        max_abs_err(a, b) for a, b in zip(tree.digest_layers[1 + n_single:],
+                                          p_layers[1 + n_single:]))
     p_root = bb.canonical_np(p_layers[-1][0])
     plan = merkle.GatherPlan()
     plan.add_tree(tree)
@@ -1070,7 +1160,11 @@ def quotient_ops(prog) -> int:
             qmod.MUL_BB: MUL_OPS, qmod.ADD_EE: EXT_ADD, qmod.SUB_EE: EXT_ADD,
             qmod.NEG_E: EXT_ADD, qmod.MUL_EE: EXT_MUL, qmod.ADD_EB: ADD_OPS,
             qmod.SUB_EB: ADD_OPS, qmod.SUB_BE: EXT_ADD, qmod.MUL_EB: EXT_SCALE,
-            qmod.FOLD_B: EXT_SCALE + EXT_ADD, qmod.FOLD_E: EXT_MUL + EXT_ADD}
+            qmod.FOLD_B: EXT_SCALE + EXT_ADD, qmod.FOLD_E: EXT_MUL + EXT_ADD,
+            qmod.MADD_EB: EXT_SCALE + EXT_ADD, qmod.MSUB_EB: EXT_SCALE + EXT_ADD,
+            qmod.MRSUB_EB: EXT_SCALE + EXT_ADD,
+            qmod.MULFOLD_BB: MUL_OPS + EXT_SCALE + EXT_ADD,
+            qmod.SUBFOLD_EE: EXT_ADD + EXT_MUL + EXT_ADD}
     ops = sum(cost.get(int(op), 0) for op in prog.code[:, 0]) + EXT_SCALE
     for bit, with_inverse in ((1, True), (2, True), (4, False)):
         if prog.sel_mask & bit:
@@ -1149,6 +1243,10 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     log_n1 = n1.bit_length() - 1
     rows_leaf, w_leaf = leaf_in.shape
     h5 = top.shape[0] // 2
+    # K5's tail at its default threshold: the last layers of a FRI tree
+    h_tail = merkle.TAIL_MAX
+    n_tail = h_tail.bit_length()
+    tail_in = words(rng, dev, 2 * h_tail, 8)
 
     # ---- path 2 kernels at the prove's shapes: K6 the prove's whole query
     # gather; K7 the prove's own quotient inputs of FibonacciAir at 2^22;
@@ -1225,6 +1323,11 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          lambda: merkle.compress_layer(top, inj),
          lambda: merkle.compress_layer_plain(top, inj), 10, 1,
          h5 * 32 * 4, h5 * 2 * PERM_OPS, [2 * h5, 8]),
+        ("poseidon2_compress_tail", "poseidon2.cu", "openvm_tpu/merkle.py:49",
+         lambda: merkle.compress_tail(tail_in, [None] * n_tail),
+         lambda: merkle.compress_tail_plain(tail_in, [None] * n_tail), 10, 1,
+         (2 * h_tail + 2 * h_tail - 1) * 32, (2 * h_tail - 1) * PERM_OPS,
+         [2 * h_tail, 8]),
         ("ext_elementwise", "ext.cu", "openvm_tpu/field/ext.py:72",
          lambda: ef.powers(zeta, nq), lambda: ef.powers_plain(zeta, nq), 5, 1,
          nq * 16, nq * EXT_MUL, [nq, 4]),
@@ -1291,6 +1394,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     kernels = []
     for name, src, replaces, fn, plain, reps, plain_reps, nbytes, ops, shape in cases:
         ms, host_ms = cuda_ms(fn, reps, host=True)
+        ms_host = cuda_ms(fn, reps, busy=False)
         plain_ms = cuda_ms(plain, plain_reps)
         b_ms, b_by = bound(nbytes, ops)
         lib_fn, lib_what = library.get(name, (None, NO_LIBRARY + (
@@ -1299,7 +1403,8 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
             "name": name, "route": "cuda", "source": f"openvm_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": v_launches[name],
             "launches_path2": p_launches[name], "launches_path1": launches[name],
-            "max_abs_err": err[name], "ms": ms, "host_enqueue_ms": host_ms,
+            "max_abs_err": err[name], "ms": ms, "ms_host": ms_host,
+            "host_enqueue_ms": host_ms,
             "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lib_fn, 10) if lib_fn else None, "library": lib_what,
@@ -1317,6 +1422,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     k3["launches_per_lde"] = _build.LAUNCHES["ntt"]
     k3["passes"] = {"inverse": ntt._pass_plan(log_n1), "forward": ntt._pass_plan(log_n1 + 1)}
     # K4 and K5 against the issue rate of the SASS they run
+    sass = clock = None
     try:
         sass = sass_permutation()
         clock = max_sm_clock_hz(dev)
@@ -1328,22 +1434,116 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
             by_name[name]["max_sm_clock_hz"] = clock
     except (OSError, subprocess.SubprocessError, StopIteration, ValueError) as e:
         by_name["poseidon2_hash_rows"]["sass_per_permutation"] = f"not measured: {e}"
-    # path 1's stages again, warm: the NTT tables are cached now
+    compress = compress_timing(dev, rng, tree, sass, clock)
+    by_name["poseidon2_compress_tail"]["tail_max"] = merkle.TAIL_MAX
+    quotient_vm = quotient_timing(vmr)
+    # path 1's stages again, warm: the NTT tables are cached now; stage
+    # times, so the host's enqueue counts
     warm_ms = {"to_monty_lde": cuda_ms(lambda: ntt.batched_coset_ldes(
-                   [bb.to_monty(t) for t in traces], cfg.fri.log_blowup), 3),
-               "commit_layers": cuda_ms(lambda: merkle.commit_layers(main["ldes"]), 3)}
+                   [bb.to_monty(t) for t in traces], cfg.fri.log_blowup), 3, busy=False),
+               "commit_layers": cuda_ms(lambda: merkle.commit_layers(main["ldes"]), 3,
+                                        busy=False)}
     emit({"phase": "timing", "nvidia_smi": setup["nvidia_smi"],
           "stage_warm_ms": warm_ms,
           "open_84_s": {"open_row_x84": t_open_row, "gather_rows_device": t_gather},
-          "kernels": {k["name"]: {"kernel_ms": k["ms"], "host_enqueue_ms": k["host_enqueue_ms"],
+          "kernels": {k["name"]: {"kernel_ms": k["ms"], "ms_host": k["ms_host"],
+                                  "host_enqueue_ms": k["host_enqueue_ms"],
                                   "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"]}
                       for k in kernels},
           "ntt_return_coeffs_ms": k3["ms_return_coeffs"],
           "ntt_launches_per_lde": k3["launches_per_lde"], "ntt_passes": k3["passes"],
           "poseidon2_sass": by_name["poseidon2_hash_rows"].get("sass_per_permutation"),
           "poseidon2_hash_rows_bound_issue_ms":
-              by_name["poseidon2_hash_rows"].get("bound_issue_ms")})
+              by_name["poseidon2_hash_rows"].get("bound_issue_ms"),
+          "compress_phase": compress, "quotient_vm": quotient_vm})
     return kernels
+
+
+def compress_phase(leaf, inj: dict, tail_max) -> None:
+    """K5's launches of one commit after its leaf hash: compress_layer for
+    each layer of more than ``tail_max`` digests, then the tail; with
+    ``tail_max`` None every layer its own compress_layer launch (the plan
+    without a tail).  ``inj``: row digests injected by output height."""
+    single, rest = merkle.commit_plan(int(leaf.shape[0]), tail_max or 1)
+    if tail_max is None:
+        single, rest = single + rest, []
+    x = leaf
+    for h in single:
+        x = merkle.compress_layer(x, inj.get(h))
+    if rest:
+        merkle.compress_tail(x, [inj.get(h) for h in rest])
+
+
+def compress_timing(dev, rng, tree, sass, clock) -> dict:
+    """K5 over the whole compress phase of path 1's main tree (2^21 leaves,
+    injections at 2^20 to 2^17) and of a FRI tree of 2^20 leaves, at tail
+    thresholds from 64 to 512 digests and layer by layer, with bounds by
+    operations and by issue from the permutation count."""
+    by_h: dict = {}
+    for m in tree.matrices:
+        by_h.setdefault(int(m.shape[0]), []).append(m)
+    max_h = tree.max_height()
+    inj = {h: p2.hash_rows(torch.cat(ms, dim=1).contiguous())
+           for h, ms in by_h.items() if h < max_h}
+    trees = {f"path1_main_2^{max_h.bit_length() - 1}": (tree.digest_layers[0], inj),
+             f"fri_2^{FRI_TREE_LOG}": (words(rng, dev, 1 << FRI_TREE_LOG, 8), {})}
+    out = {}
+    for name, (leaf, injd) in trees.items():
+        outs = merkle.commit_plan(int(leaf.shape[0]), 1)[0] + [1]
+        perms = sum(h * (2 if h in injd else 1) for h in outs)
+        b_ms, b_by = bound(sum(h * 32 * (3 + (1 if h in injd else 0)) for h in outs),
+                           perms * PERM_OPS)
+        row = {"permutations": perms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_issue_ms": (perms * sass["per_permutation"]
+                                  / (H100_SMS * ISSUE_PER_SM_CLOCK * clock) * 1e3)
+               if sass and clock else "not measured"}
+        for t in (None, 64, 128, 256, 512):
+            _build.reset_launches()
+            compress_phase(leaf, injd, t)
+            launches = (_build.LAUNCHES["poseidon2_compress_layer"]
+                        + _build.LAUNCHES["poseidon2_compress_tail"])
+            key = "layer_by_layer" if t is None else f"tail_{t}"
+            row[key] = {"ms": cuda_ms(lambda: compress_phase(leaf, injd, t), 5),
+                        "ms_host": cuda_ms(lambda: compress_phase(leaf, injd, t), 5,
+                                           busy=False),
+                        "launches": launches}
+        row["default_tail_max"] = merkle.TAIL_MAX
+        out[name] = row
+    return out
+
+
+def quotient_timing(vmr) -> dict:
+    """K7 at path 3's own quotient inputs: rv32_base_alu alone and the
+    prove's one launch over all 15 AIRs with the code kept on the card,
+    each with its bound (quotient_ops per row)."""
+    vm, qrec = vmr["vm"], vmr["record"]["quotient"]
+    alu = vm.air_index["rv32_base_alu"]
+    code = next(iter(vm.pk.quotient_code.values()))[1]
+    cols = [list(c) for c in zip(*qrec)]
+
+    def cost(recs):
+        ops = sum((1 << (r[2] + r[3])) * quotient_ops(r[0]) for r in recs)
+        nbytes = 0
+        for prog, _, log_n, lqd in recs:  # each cell read once, 16 bytes out
+            cells = {(int(a) >> 1, int(b), int(op)) for op, _, a, b in prog.code
+                     if op in (qmod.LOAD_B, qmod.LOAD_E)}
+            row_words = sum(4 if op == qmod.LOAD_E else 1 for _, _, op in cells)
+            nbytes += (1 << (log_n + lqd)) * (row_words * 4 + 16)
+        return bound(nbytes, ops)
+
+    out = {"rv32_base_alu": {"rows": 1 << (qrec[alu][2] + qrec[alu][3]),
+                             "instructions": int(qrec[alu][0].code.shape[0]),
+                             "lane_words": qrec[alu][0].lane_words,
+                             "ops_per_row": quotient_ops(qrec[alu][0])},
+           "path3_launch": {"airs": len(qrec)}}
+    for key, recs in (("rv32_base_alu", [qrec[alu]]), ("path3_launch", qrec)):
+        b_ms, b_by = cost(recs)
+        out[key].update({"bound_ms": b_ms, "bound_by": b_by})
+    for key, fn in (("rv32_base_alu", lambda: qmod.evaluate(*qrec[alu])),
+                    ("path3_launch", lambda: qmod.evaluate_many(*cols, code=code))):
+        out[key]["ms"] = cuda_ms(fn, 10)
+        out[key]["ms_host"] = cuda_ms(fn, 10, busy=False)
+    return out
 
 
 if __name__ == "__main__":

@@ -30,6 +30,7 @@
 // through shared memory: a warp loads one row's 32-word window with
 // neighbouring threads on neighbouring words, then each thread absorbs its
 // own row from there.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "babybear.cuh"
@@ -194,23 +195,187 @@ poseidon2_hash_rows_kernel(const uint32_t* __restrict__ mat, uint32_t* __restric
   }
 }
 
+// K5, one layer: one thread per output digest, the pair (64 bytes) and the
+// injected digest (32 bytes) read as 16-byte vectors.
 __global__ void poseidon2_compress_layer_kernel(
     const uint32_t* __restrict__ prev, const uint32_t* __restrict__ inj,
     uint32_t* __restrict__ out, uint32_t h_out) {
   const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= h_out) return;
   uint32_t s[WIDTH];
-  const uint32_t* pair = prev + (uint64_t)i * 2 * RATE;  // rows 2i and 2i+1
+  const uint4* pair = reinterpret_cast<const uint4*>(prev) + (uint64_t)i * 4;
 #pragma unroll
-  for (int k = 0; k < WIDTH; ++k) s[k] = pair[k];
+  for (int k = 0; k < 4; ++k) {
+    const uint4 v = pair[k];
+    s[4 * k] = v.x;
+    s[4 * k + 1] = v.y;
+    s[4 * k + 2] = v.z;
+    s[4 * k + 3] = v.w;
+  }
   permute(s);
   if (inj != nullptr) {
+    const uint4* in = reinterpret_cast<const uint4*>(inj) + (uint64_t)i * 2;
 #pragma unroll
-    for (int k = 0; k < RATE; ++k) s[RATE + k] = inj[(uint64_t)i * RATE + k];
+    for (int k = 0; k < 2; ++k) {
+      const uint4 v = in[k];
+      s[RATE + 4 * k] = v.x;
+      s[RATE + 4 * k + 1] = v.y;
+      s[RATE + 4 * k + 2] = v.z;
+      s[RATE + 4 * k + 3] = v.w;
+    }
     permute(s);
   }
+  uint4* dst = reinterpret_cast<uint4*>(out) + (uint64_t)i * 2;
+  dst[0] = make_uint4(s[0], s[1], s[2], s[3]);
+  dst[1] = make_uint4(s[4], s[5], s[6], s[7]);
+}
+
+// ---------------------------------------------------------------------------
+// K5's tail: every layer from an output height of at most TAIL_MAX digests
+// to the root, in one launch of one thread-block cluster.  A small layer
+// cannot fill the card, so what it costs is one permutation's dependent
+// chain (and, one launch per layer, the launch); here four threads hold one
+// state, thread q of a group the lanes 4q..4q+3 (M4 block q):
+//  * the external layer's M4 is local and its sum over the four blocks two
+//    xor-shuffles per lane;
+//  * a partial round puts lane 0 through the S-box (every thread computes
+//    it, thread 0 keeps it), sums its four lanes into one canonical word and
+//    the group's four sums by two xor-shuffles, then applies the diagonal;
+//  * the diagonal is one Montgomery product of each lane by its entry's
+//    Montgomery form (for 2^-k that is the word 2^(32-k), the reduction of
+//    x << (32-k) that K4 uses; for +-1..4 the small multiple), so the four
+//    threads of a group run the same instructions;
+//  * the round constants are staged in shared memory, where the four
+//    threads' different words fall in different banks.
+// The cluster's TAIL_BLOCKS blocks (on as many SMs) hold TAIL_MAX groups,
+// group g of the cluster the layer's state g: the first layer of TAIL_MAX
+// states is spread over TAIL_BLOCKS SMs, and a warp whose groups are all
+// past the layer's height skips it.  A block keeps its states' digests in
+// shared memory (two buffers, one a layer) and the next layer reads its
+// pairs from the owning blocks' buffers through distributed shared memory,
+// one cluster barrier a layer; every layer is also written out to the tree,
+// and injected row digests are compressed in at any height.
+// ---------------------------------------------------------------------------
+
+constexpr int TAIL_BLOCKS = 8;  // a portable cluster
+constexpr int TAIL_THREADS = 256;
+constexpr int TAIL_GROUPS = TAIL_THREADS / 4;  // states a block holds
+constexpr int TAIL_MAX = TAIL_BLOCKS * TAIL_GROUPS;  // merkle.py TAIL_MAX
+constexpr int TAIL_LAYERS = 10;
+
+// plonky3's BabyBear internal diagonal (poseidon2.py PLONKY3_DIAG) in
+// Montgomery form: diag * 2^32 mod p.
+constexpr uint64_t pow_p(uint64_t b, uint64_t e) {
+  uint64_t r = 1;
+  b %= bb::P;
+  while (e) {
+    if (e & 1) r = r * b % bb::P;
+    b = b * b % bb::P;
+    e >>= 1;
+  }
+  return r;
+}
+constexpr uint32_t monty(uint64_t x) { return (uint32_t)(((x % bb::P) << 32) % bb::P); }
+constexpr uint64_t inv2k(int k) { return pow_p(pow_p(2, k), bb::P - 2); }
+constexpr uint64_t negp(uint64_t x) { return (bb::P - x % bb::P) % bb::P; }
+__constant__ uint32_t c_diag_monty[WIDTH] = {
+    monty(negp(2)), monty(1), monty(2), monty(inv2k(1)),
+    monty(3), monty(4), monty(negp(inv2k(1))), monty(negp(3)),
+    monty(negp(4)), monty(inv2k(8)), monty(inv2k(2)), monty(inv2k(3)),
+    monty(inv2k(27)), monty(negp(inv2k(8))), monty(negp(inv2k(4))),
+    monty(negp(inv2k(27)))};
+
+struct TailArgs {
+  const uint32_t* inj[TAIL_LAYERS];  // row digests injected at each layer, or null
+  uint32_t* out[TAIL_LAYERS];        // each layer's digests
+};
+
+__device__ __forceinline__ uint32_t group_sum(uint32_t v) {
+  v = bb::add(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return bb::add(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ void external_quad(uint32_t* x) {
+  mat4(x);
 #pragma unroll
-  for (int k = 0; k < RATE; ++k) out[(uint64_t)i * RATE + k] = s[k];
+  for (int i = 0; i < 4; ++i) x[i] = bb::add(x[i], group_sum(x[i]));
+}
+
+// The permutation of the state whose lanes 4q..4q+3 this thread holds in x.
+__device__ __forceinline__ void permute_quad(uint32_t* x, int q, const uint32_t* rc,
+                                             const uint32_t* diag) {
+  external_quad(x);
+#pragma unroll 1
+  for (int r = 0; r < 2 * HALF_FULL_ROUNDS; ++r) {
+    // rc: the 4 beginning rounds, then the 4 ending rounds, 16 words each
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = sbox(bb::add(x[i], rc[r * WIDTH + 4 * q + i]));
+    external_quad(x);
+    if (r == HALF_FULL_ROUNDS - 1) {
+#pragma unroll 1
+      for (int p = 0; p < PARTIAL_ROUNDS; ++p) {
+        const uint32_t x0 = sbox(bb::add(x[0], c_partial_rc[p]));
+        if (q == 0) x[0] = x0;
+        const uint32_t sum = group_sum(reduce_sum((uint64_t)(x[0] + x[1]) + (x[2] + x[3])));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = bb::add(sum, bb::mul(x[i], diag[i]));
+      }
+    }
+  }
+}
+
+__global__ void __cluster_dims__(TAIL_BLOCKS, 1, 1) __launch_bounds__(TAIL_THREADS)
+poseidon2_compress_tail_kernel(const uint32_t* __restrict__ prev, TailArgs args,
+                               int n_layers, uint32_t h0) {
+  namespace cg = cooperative_groups;
+  __shared__ uint4 buf[2][TAIL_GROUPS * 2];  // this block's digests, by layer parity
+  __shared__ uint32_t rc[2 * HALF_FULL_ROUNDS * WIDTH];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  for (int i = threadIdx.x; i < HALF_FULL_ROUNDS * WIDTH; i += blockDim.x) {
+    rc[i] = c_begin_rc[i];
+    rc[HALF_FULL_ROUNDS * WIDTH + i] = c_end_rc[i];
+  }
+  const int q = threadIdx.x & 3;
+  const uint32_t g = rank * TAIL_GROUPS + (threadIdx.x >> 2);  // the cluster's group
+  const uint32_t warp0 = rank * TAIL_GROUPS + (threadIdx.x & ~31u) / 4;  // its warp's first group
+  uint32_t diag[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) diag[i] = c_diag_monty[4 * q + i];
+  __syncthreads();
+  for (int t = 0; t < n_layers; ++t) {
+    const uint32_t h = h0 >> t;
+    if (warp0 < h) {
+      const uint32_t s = g & (h - 1);  // groups past h (h < 8) repeat a state
+      uint4 v;
+      if (t == 0) {
+        v = reinterpret_cast<const uint4*>(prev)[s * 4 + q];
+      } else {  // digest 2s + (q >> 1) of the last layer, its half q & 1
+        const uint32_t dgt = 2 * s + (q >> 1);
+        const uint4* owner = cluster.map_shared_rank(&buf[(t - 1) & 1][0],
+                                                     (int)(dgt / TAIL_GROUPS));
+        v = owner[(dgt % TAIL_GROUPS) * 2 + (q & 1)];
+      }
+      uint32_t x[4] = {v.x, v.y, v.z, v.w};
+      permute_quad(x, q, rc, diag);
+      if (args.inj[t] != nullptr) {
+        if (q >= 2) {
+          const uint4 w = reinterpret_cast<const uint4*>(args.inj[t])[s * 2 + q - 2];
+          x[0] = w.x;
+          x[1] = w.y;
+          x[2] = w.z;
+          x[3] = w.w;
+        }
+        permute_quad(x, q, rc, diag);
+      }
+      if (q < 2 && g < h) {
+        const uint4 o = make_uint4(x[0], x[1], x[2], x[3]);
+        reinterpret_cast<uint4*>(args.out[t])[s * 2 + q] = o;
+        buf[t & 1][(g % TAIL_GROUPS) * 2 + q] = o;
+      }
+    }
+    cluster.sync();  // the layer's digests are visible to the whole cluster
+  }
 }
 
 }  // namespace
@@ -237,6 +402,24 @@ extern "C" int ovt_poseidon2_hash_rows(const void* mat, void* out, unsigned n,
   if (n == 0) return (int)cudaGetLastError();
   poseidon2_hash_rows_kernel<<<(n + ROWS - 1) / ROWS, ROWS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)mat, (uint32_t*)out, n, w);
+  return (int)cudaGetLastError();
+}
+
+// Layers t < n_layers of h0 >> t outputs from prev (2 h0 digests); inj and
+// out: host arrays of n_layers device pointers (inj entries may be null).
+extern "C" int ovt_poseidon2_compress_tail(const void* prev, const void* const* inj,
+                                           void* const* out, int n_layers,
+                                           unsigned h0, void* stream) {
+  if (n_layers < 1 || n_layers > TAIL_LAYERS || h0 > (unsigned)TAIL_MAX ||
+      h0 != (1u << (n_layers - 1)))
+    return (int)cudaErrorInvalidValue;
+  TailArgs args = {};
+  for (int t = 0; t < n_layers; ++t) {
+    args.inj[t] = (const uint32_t*)inj[t];
+    args.out[t] = (uint32_t*)out[t];
+  }
+  poseidon2_compress_tail_kernel<<<TAIL_BLOCKS, TAIL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)prev, args, n_layers, h0);
   return (int)cudaGetLastError();
 }
 

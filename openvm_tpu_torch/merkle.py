@@ -10,14 +10,17 @@ Port of openvm_tpu/merkle.py, plonky3 ``MerkleTreeMmcs`` semantics:
   * commitment = root digest (8 BabyBear elements)
 
 All matrix heights must be powers of two.  On CUDA the leaf and injected
-row hashes run kernel K4 (poseidon2.hash_rows) and every layer one launch of
-kernel K5 (``compress_layer``); the tree keeps every digest layer for
-opening proofs.  Verification is host numpy, copied from
+row hashes run kernel K4 (poseidon2.hash_rows), every layer of more than
+TAIL_MAX digests one launch of kernel K5 (``compress_layer``), and the
+layers from TAIL_MAX digests to the root one launch of K5's tail
+(``compress_tail``), as ``commit_plan`` lays out; the tree keeps every
+digest layer for opening proofs.  Verification is host numpy, copied from
 openvm_tpu/merkle.py:182-275.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,6 +31,10 @@ from . import poseidon2 as p2
 from .field import babybear as bb
 
 DIGEST_LEN = p2.OUT
+# Layers of at most TAIL_MAX output digests are compressed in one launch:
+# the most that csrc/poseidon2.cu's tail cluster holds (TAIL_BLOCKS *
+# TAIL_GROUPS states), and the fastest tail measured.
+TAIL_MAX = 512
 
 
 @dataclass
@@ -55,8 +62,8 @@ def compress_layer(prev: torch.Tensor, injected=None) -> torch.Tensor:
 
     Kernel K5 on CUDA (csrc/poseidon2.cu), replacing compress_pairs
     (openvm_tpu/poseidon2.py:230) as commit_layers (merkle.py:49) calls it:
-    one thread per output digest, both permutations in registers, bound by
-    integer operations."""
+    one thread per output digest, both permutations in registers, its
+    digests read as 16-byte vectors; bound by integer operations."""
     operands = (prev,) if injected is None else (prev, injected)
     dev = _build.kernel_device(*operands)
     if dev.type == "cpu":
@@ -71,6 +78,8 @@ def compress_layer(prev: torch.Tensor, injected=None) -> torch.Tensor:
             raise ValueError(f"injected digests must be ({h}, 8), got "
                              f"{tuple(injected.shape)}")
     out = torch.empty((h, DIGEST_LEN), dtype=torch.int32, device=dev)
+    if any(t.data_ptr() % 16 for t in operands):
+        raise ValueError("compress_layer operands must be 16-byte aligned")
     if h:
         p2.upload_constants(dev)
         _build.launch("poseidon2_compress_layer", "ovt_poseidon2_compress_layer",
@@ -80,7 +89,75 @@ def compress_layer(prev: torch.Tensor, injected=None) -> torch.Tensor:
     return out
 
 
-def _commit_layers(matrices, hash_rows, compress) -> list:
+def compress_tail_plain(prev: torch.Tensor, injected: list) -> list:
+    """Layers of 2H -> H -> ... -> 1 digests, plain PyTorch, layer by layer;
+    ``injected[t]`` the row digests compressed in at layer t, or None."""
+    layers = []
+    for inj in injected:
+        prev = compress_layer_plain(prev, inj)
+        layers.append(prev)
+    return layers
+
+
+def compress_tail(prev: torch.Tensor, injected: list) -> list:
+    """Every layer from ``prev`` (2H digests, H a power of two of at most
+    TAIL_MAX) to the root: H, H/2, ..., 1 digests, the row digests
+    ``injected[t]`` (H >> t, 8) compressed in at layer t where given.
+
+    K5's tail on CUDA (csrc/poseidon2.cu): one launch of one cluster of 8
+    blocks, four threads a state so that a permutation's dependent chain is
+    short, the layers passed on through distributed shared memory and all
+    written out.  Bound by the latency of its permutations' chains, not by
+    the card's rate."""
+    operands = (prev,) + tuple(i for i in injected if i is not None)
+    dev = _build.kernel_device(*operands)
+    if dev.type == "cpu":
+        return compress_tail_plain(prev, injected)
+    n = len(injected)
+    h0 = prev.shape[0] // 2
+    if (prev.dim() != 2 or prev.shape[1] != DIGEST_LEN or n < 1
+            or h0 != 1 << (n - 1) or h0 > TAIL_MAX):
+        raise ValueError(f"compress_tail takes (2^n, 8) with n layers of at most "
+                         f"{TAIL_MAX} digests, got {tuple(prev.shape)} and "
+                         f"{n} layers")
+    _build.check_words(prev, "compress_tail prev", dev)
+    outs = [torch.empty((h0 >> t, DIGEST_LEN), dtype=torch.int32, device=dev)
+            for t in range(n)]
+    for t, inj in enumerate(injected):
+        if inj is not None:
+            _build.check_words(inj, "compress_tail injected", dev)
+            if tuple(inj.shape) != (h0 >> t, DIGEST_LEN):
+                raise ValueError(f"injected digests at layer {t} must be "
+                                 f"({h0 >> t}, 8), got {tuple(inj.shape)}")
+    for t in operands + tuple(outs):
+        if t.data_ptr() % 16:
+            raise ValueError("compress_tail operands must be 16-byte aligned")
+    p2.upload_constants(dev)
+    inj_ptrs = (ctypes.c_void_p * n)(*[None if i is None else i.data_ptr()
+                                       for i in injected])
+    out_ptrs = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+    _build.launch("poseidon2_compress_tail", "ovt_poseidon2_compress_tail", dev,
+                  prev.data_ptr(), inj_ptrs, out_ptrs, n, h0)
+    return outs
+
+
+def commit_plan(max_h: int, tail_max: int) -> tuple:
+    """The compress launches of a tree whose leaf layer has ``max_h``
+    digests: (single, tail), the output heights of the layers compressed
+    one launch each, then those compressed in one tail launch (every layer
+    of at most ``tail_max`` digests)."""
+    if tail_max < 1 or tail_max & (tail_max - 1) or tail_max > TAIL_MAX:
+        raise ValueError(f"tail_max must be a power of two up to {TAIL_MAX}")
+    outs = []
+    h = max_h
+    while h > 1:
+        h //= 2
+        outs.append(h)
+    return [h for h in outs if h > tail_max], [h for h in outs if h <= tail_max]
+
+
+def _commit_layers(matrices, hash_rows, compress, tail=None,
+                   tail_max: int = TAIL_MAX) -> list:
     if not matrices:
         raise ValueError("cannot commit to zero matrices")
     by_height: dict[int, list] = {}
@@ -91,27 +168,35 @@ def _commit_layers(matrices, hash_rows, compress) -> list:
         by_height.setdefault(h, []).append(m)
 
     def hash_height(h):
+        if h not in by_height:
+            return None
         mats = by_height[h]
         joined = mats[0] if len(mats) == 1 else torch.cat(mats, dim=1)
         return hash_rows(joined.contiguous())
 
     max_h = max(by_height)
     layers = [hash_height(max_h)]
-    size = max_h
-    while size > 1:
-        size //= 2
-        injected = hash_height(size) if size in by_height else None
-        layers.append(compress(layers[-1], injected))
+    single, rest = commit_plan(max_h, tail_max)
+    if tail is None:
+        single, rest = single + rest, []
+    for h in single:
+        layers.append(compress(layers[-1], hash_height(h)))
+    if rest:
+        layers += tail(layers[-1], [hash_height(h) for h in rest])
     return layers
 
 
-def commit_layers(matrices) -> list:
-    """All digest layers of the tree over ``matrices`` (leaf layer first)."""
-    return _commit_layers(matrices, p2.hash_rows, compress_layer)
+def commit_layers(matrices, tail_max: int = TAIL_MAX) -> list:
+    """All digest layers of the tree over ``matrices`` (leaf layer first):
+    K4 for the leaves and the injected rows, K5 a launch for each layer of
+    more than ``tail_max`` digests, K5's tail for the rest."""
+    return _commit_layers(matrices, p2.hash_rows, compress_layer,
+                          compress_tail, tail_max)
 
 
 def commit_layers_plain(matrices) -> list:
-    """``commit_layers`` through the plain PyTorch versions, any device."""
+    """``commit_layers`` through the plain PyTorch versions, any device,
+    layer by layer."""
     return _commit_layers(matrices, p2.hash_rows_plain, compress_layer_plain)
 
 

@@ -260,6 +260,59 @@ def _permute64(s, consts, structured_diag: bool = False):
     return s
 
 
+def _permute_quad64(words: torch.Tensor) -> torch.Tensor:
+    """csrc/poseidon2.cu's four-thread permutation (K5's tail) on Montgomery
+    int64 words (..., 16), modelled: axis -2 is the thread q of a group,
+    axis -1 its lanes 4q..4q+3 (M4 block q).  Every step is the kernel's:
+    the external layer's block sums and a partial round's lane sum as the
+    two xor-shuffles form them (modular adds, a thread's four lanes summed
+    in 64 bits and reduced once), lane 0's S-box kept by thread 0, the
+    diagonal as Montgomery products by its entries' Montgomery forms."""
+    begin, partial, end = (torch.from_numpy(a.astype(np.int64)).to(words.device)
+                           for a in _monty_constants())
+    diag = torch.from_numpy(bb.to_monty_np(PLONKY3_DIAG).astype(np.int64)
+                            ).to(words.device).reshape(4, 4)
+
+    def add(a, b):
+        return (a + b) % P
+
+    def mul(a, b):
+        return a * b % P * bb.RINV_MOD_P % P
+
+    def sbox(v):
+        v3 = mul(mul(v, v), v)
+        return mul(mul(v3, v3), v)
+
+    def shfl_xor(v, m):  # thread q reads thread q ^ m's value
+        return v[..., [q ^ m for q in range(4)], :]
+
+    def group_sum(v):
+        v = add(v, shfl_xor(v, 1))
+        return add(v, shfl_xor(v, 2))
+
+    def external(x):
+        x0, x1, x2, x3 = x.unbind(-1)
+        t01, t23 = add(x0, x1), add(x2, x3)
+        t0123 = add(t01, t23)
+        t01123, t01233 = add(t0123, x1), add(t0123, x3)
+        x = torch.stack([add(t01123, t01), add(t01123, add(x2, x2)),
+                         add(t01233, t23), add(t01233, add(x0, x0))], dim=-1)
+        return add(x, group_sum(x))
+
+    x = external(words.reshape(words.shape[:-1] + (4, 4)))
+    for r in range(HALF_FULL_ROUNDS):
+        x = external(sbox(add(x, begin[r].reshape(4, 4))))
+    for r in range(PARTIAL_ROUNDS):
+        x0 = sbox(add(x[..., 0], partial[r]))  # every thread computes it
+        x = x.clone()
+        x[..., 0, 0] = x0[..., 0]  # thread 0 keeps it
+        part = _reduce_sum64((x[..., 0] + x[..., 1]) + (x[..., 2] + x[..., 3]))
+        x = add(group_sum(part[..., None]), mul(x, diag))
+    for r in range(HALF_FULL_ROUNDS):
+        x = external(sbox(add(x, end[r].reshape(4, 4))))
+    return x.reshape(words.shape)
+
+
 def _canonical64(words: torch.Tensor) -> torch.Tensor:
     return words.long() * bb.RINV_MOD_P % P
 

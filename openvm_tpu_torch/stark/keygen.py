@@ -91,6 +91,9 @@ class AirProvingKey:
 class MultiStarkProvingKey:
     vk: MultiStarkVerifyingKey
     per_air: list  # list[AirProvingKey]
+    # the prover's quotient programs and their code on the device, by the
+    # set of AIRs proved (stark/prover.py): the same in every prove
+    quotient_code: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 def _vk_pre_hash(per_air, config: StarkConfig, height_constraints) -> np.ndarray:

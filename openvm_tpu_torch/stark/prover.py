@@ -9,7 +9,7 @@ so ``codec.encode_proof`` gives equal bytes for equal inputs.  Host code
   Merkle commits             merkle.commit (K4, K5)
   interaction fields         stark.quotient.evaluate_columns (K7, columns)
   LogUp permutation trace    stark.logup.perm_cols, perm_scan (K9, K10)
-  quotient                   stark.quotient.evaluate (K7+K11)
+  quotient                   stark.quotient.evaluate_many (K7+K11)
   zeta power series          field.ext.powers (K2)
   out-of-domain openings     _open_dot (K12)
   reduced openings           reduced_open (K13)
@@ -257,7 +257,7 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     ``device``, CUDA unless the caller names another.  When ``stages`` is a
     dict, the seconds of each stage are written into it.  When ``record`` is
     a dict, the inputs of the quotient interpreter (``"quotient"``: per AIR
-    (program, sources, log_n, lqd, alpha)), of the LogUp kernels
+    (bound program, sources, log_n, lqd)), of the LogUp kernels
     (``"logup"``: per AIR with interactions, see ``logup.build_perm_trace``)
     and of the query gather (``"gather"``: (plan, indices)) are kept in it,
     so that a caller can run those kernels' plain versions at this prove's
@@ -372,30 +372,42 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     mark("logup")
 
     alpha_c = challenger.sample_ext()
-    alpha = ef.from_canonical(alpha_c, device=dev)
+    alpha_m = bb.to_monty_np(np.asarray(alpha_c, dtype=np.uint64))
 
-    # ---- quotient: one interpreter pass per AIR ------------------------
-    quotient_chunk_mats = []  # [(air_pos, chunk_idx, (N, 4) natural evals)]
+    # ---- quotient: every AIR in one interpreter launch -------------------
+    # The code depends on the AIRs only, so it is compiled and uploaded once
+    # per proving key and set of AIRs; each prove binds its own pool.
+    keys, airs_q = [], []
     for i, (c, vk) in enumerate(zip(ctxs, vks)):
-        apk = pk.per_air[c.air_id]
-        lqd = vk.log_quotient_degree
         mains = [lde for (j, lde) in cached_ldes if j == i] + (
             [common_ldes[i]] if common_ldes[i] is not None else [])
-        prep = apk.preprocessed_lde
+        prep = pk.per_air[c.air_id].preprocessed_lde
+        keys.append((c.air_id, len(mains), prep is not None, i in perm_ldes))
+        airs_q.append(mains + ([prep] if prep is not None else []) + (
+            [perm_ldes[i]] if i in perm_ldes else []))
+    code_key = (tuple(keys), str(dev))
+    if code_key not in pk.quotient_code:
+        progs = [qmod.compile_dag_code(pk.vk.per_air[a].dag, n_main=nm,
+                                       has_preprocessed=hp, has_perm=hq)
+                 for a, nm, hp, hq in keys]
+        pk.quotient_code[code_key] = (
+            progs, qmod.upload_code(progs, dev) if dev.type == "cuda" else None)
+    progs, code_dev = pk.quotient_code[code_key]
+    bound = []
+    for i, (c, prog) in enumerate(zip(ctxs, progs)):
         publics = [bb.to_monty_int(int(v) % P) for v in c.public_values]
         expo = (bb.to_monty_np(np.asarray(exposed[i], dtype=np.uint64))
                 if exposed[i] else np.zeros((1, 4), dtype=np.uint32))
-        prog = qmod.compile_dag(vk.dag, n_main=len(mains),
-                                has_preprocessed=prep is not None,
-                                has_perm=i in perm_ldes, publics=publics,
-                                challenges=challenges_m, exposed=expo)
-        sources = mains + ([prep] if prep is not None else []) + (
-            [perm_ldes[i]] if i in perm_ldes else [])
-        if record is not None:
-            record.setdefault("quotient", []).append(
-                (prog, sources, log_degrees[i], lqd, alpha))
-        q = qmod.evaluate(prog, sources, log_degrees[i], lqd, alpha)
-        step = 1 << lqd
+        bound.append(qmod.bind(prog, publics=publics, challenges=challenges_m,
+                               exposed=expo, alpha=alpha_m))
+    lqds = [vk.log_quotient_degree for vk in vks]
+    if record is not None:
+        record["quotient"] = [(prog, src, log_degrees[i], lqds[i])
+                              for i, (prog, src) in enumerate(zip(bound, airs_q))]
+    qs = qmod.evaluate_many(bound, airs_q, log_degrees, lqds, code=code_dev)
+    quotient_chunk_mats = []  # [(air_pos, chunk_idx, (N, 4) natural evals)]
+    for i, q in enumerate(qs):
+        step = 1 << lqds[i]
         quotient_chunk_mats.extend(
             (i, chunk_i, q[chunk_i::step].contiguous()) for chunk_i in range(step))
 

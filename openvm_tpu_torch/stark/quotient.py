@@ -7,19 +7,24 @@ evaluated over its quotient domain and Horner-folded by alpha) and :648 (the
 ``inv_zeroifier`` scale), which the JAX package fuses with XLA into one
 program per AIR and shape (kernels K7 and K11).
 
-Here a host compiler turns the DAG into bytecode once per AIR and prove, and
-one interpreter evaluates it:
-  * ``evaluate`` runs kernel K7+K11 (csrc/quotient.cu) on CUDA tensors: one
-    thread per quotient-domain row runs the whole program, folds each root
-    as acc = acc * alpha + v in root order, and writes acc / Z_H(x);
+Here a host compiler turns the DAG into bytecode once per AIR (the code
+does not depend on the prove's values, so a prover keeps it with its
+proving key), ``bind`` fills the program's constant pool with one prove's
+values, and one interpreter evaluates it:
+  * ``evaluate_many`` runs kernel K7+K11 (csrc/quotient.cu) on CUDA
+    tensors: one launch for every AIR of a prove, each thread evaluating
+    one quotient-domain row with its value slots in shared memory;
+    ``evaluate`` is the one-AIR case;
   * ``evaluate_plain`` runs the same bytecode with int64 torch operations
     over all rows at once (any device).
-All constraint roots are folded in one pass, the LogUp constraints that
-keygen appends included: the fold is exact, so the values equal the JAX
-package's group-and-shift recombination (prover.py:634-646) and its batched
-``logup.eval_logup_folded`` (logup.py:350).  The program's operations are
-typed by static tags (base or extension), so the interpreter never
-promotes at run time.
+Both fold root k of R as alpha^(R-1-k) v_k, with the powers of alpha in the
+pool: exact field arithmetic, so the words equal Horner's acc * alpha + v
+and the JAX package's group-and-shift recombination (prover.py:634-646)
+and batched ``logup.eval_logup_folded`` (logup.py:350).  All constraint
+roots are folded in one pass, the LogUp constraints that keygen appends
+included.  The program's operations are typed by static tags (base or
+extension), and base and extension values live in separate slot files, so
+the interpreter never promotes at run time and a base value takes one word.
 
 The quotient domain is the first 2^log_q rows of a bit-reversed LDE, put
 back in natural order (prover.py:528-531): natural row j is LDE row
@@ -38,7 +43,7 @@ counterpart of ``dag.eval(DeviceOps, ...)`` in the LogUp phase
 from __future__ import annotations
 
 import heapq
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -49,34 +54,71 @@ from ..field import ext as ef
 
 P = bb.P
 
-# Slots of four words each that the kernel holds per row (quotient.cu).
-MAX_SLOTS = 96
+# The kernel's plan (csrc/quotient.cu): each thread takes one row; a row's
+# slots take ``lane_words`` words of shared memory (one per base slot, four
+# per extension slot), and a block of T threads holds its job's code (16
+# bytes an instruction) and the slots of its T rows in the SM's 227 KB.
+SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
+THREADS = (128, 64, 32)
 
-# Opcodes; an instruction is (op, dst, a, b) int32.  B = base, E = extension.
-# STORE_B (columns mode) writes slot a to output row b.
+
+def max_lane_words(n_instr: int) -> int:
+    """The most slot words a row can take in a block of the fewest threads
+    beside ``n_instr`` instructions of code."""
+    return (SMEM_BYTES - 16 * n_instr) // (4 * THREADS[-1])
+
+
+# Opcodes; an instruction is (op, dst, a, b) int32.  B = base, E = extension;
+# slot operands index the base or the extension slot file as the opcode
+# types them.  FOLD_* read their power of alpha at pool word b; STORE_B
+# (columns mode) writes base slot a to output row b.  MADD_EB, MSUB_EB and
+# MRSUB_EB fuse an extension add or sub with a product it alone uses:
+# dst = dst + a*b, dst - a*b, a*b - dst (a extension, b base, dst the other
+# operand's slot, which the instruction takes over).  MULFOLD_BB and
+# SUBFOLD_EE fold a root computed only for its fold: acc += alpha^e * (a*b)
+# or (a - b), with alpha^e at pool word dst.
 (CONST_B, CONST_E, LOAD_B, LOAD_E, SEL, ADD_BB, SUB_BB, MUL_BB, NEG_B,
  ADD_EE, SUB_EE, MUL_EE, NEG_E, ADD_EB, SUB_EB, SUB_BE, MUL_EB, FOLD_B,
- FOLD_E, STORE_B) = range(20)
+ FOLD_E, STORE_B, MADD_EB, MSUB_EB, MRSUB_EB, MULFOLD_BB,
+ SUBFOLD_EE) = range(25)
 SELECTORS = ("is_first_row", "is_last_row", "is_transition")
 _EXT_ENTRIES = ("permutation", "challenge", "exposed")
+
+# The job table of one launch: JOB_WORDS int64 per AIR (csrc/quotient.cu).
+(J_CODE, J_NINSTR, J_POOL, J_SRC, J_NBASE, J_LOGQ, J_LQD, J_SEL, J_OUT,
+ J_FIRST, J_LAST, J_ZH, J_BLOCK0, J_GINV) = range(14)
+JOB_WORDS = 16
 
 
 @dataclass
 class Program:
     """Bytecode for one AIR's constraints, or for a list of roots.
 
-    code: (n, 4) int32 instructions; pool: uint32 Montgomery words that
-    CONST_B/CONST_E read; n_slots: slots the program needs; sel_mask: bit i
-    set when SELECTORS[i] is read; n_sources: matrices it loads from, in the
-    order main parts, preprocessed, permutation; n_roots: rows a columns
-    program writes (0 for a quotient program)."""
+    code: (n, 4) int32 instructions; n_base, n_ext: base and extension
+    slots; sel_mask: bit i set when SELECTORS[i] is read; n_sources:
+    matrices it loads from, in the order main parts, preprocessed,
+    permutation; n_roots: rows a columns program writes (0 for a quotient
+    program); n_folds: constraint roots a quotient program folds;
+    pool_spec: what each constant-pool entry holds ("word", w),
+    ("public", i), ("challenge", i), ("exposed", i) or ("alpha", e)
+    (alpha^e); pool: the uint32 Montgomery words ``bind`` filled in, None
+    until then."""
 
     code: np.ndarray
-    pool: np.ndarray
-    n_slots: int
+    n_base: int
+    n_ext: int
     sel_mask: int
     n_sources: int
     n_roots: int = 0
+    n_folds: int = 0
+    pool_spec: tuple = ()
+    pool: np.ndarray | None = None
+
+    @property
+    def lane_words(self) -> int:
+        """Shared-memory words one row's slots take in the kernel."""
+        return self.n_base + 4 * self.n_ext
 
 
 def _tags(dag, nodes) -> dict:
@@ -95,10 +137,63 @@ def _tags(dag, nodes) -> dict:
     return tags
 
 
-def _schedule(dag, roots) -> list:
+def _kids(node) -> tuple:
+    if node[0] in ("add", "sub", "mul"):
+        return node[1], node[2]
+    return (node[1],) if node[0] == "neg" else ()
+
+
+def _fusions(dag, tags: dict, roots) -> dict:
+    """Extension adds and subs that take over a product only they use:
+    {node: (product, other operand, opcode)}, the product (extension times
+    base) then never evaluated on its own."""
+    uses: dict = {}
+    for i in tags:
+        for k in _kids(dag.nodes[i]):
+            uses[k] = uses.get(k, 0) + 1
+    for r in roots:
+        uses[r] = uses.get(r, 0) + 1
+    fused = {}
+    for i in tags:
+        n = dag.nodes[i]
+        if n[0] not in ("add", "sub") or tags[i] != "e":
+            continue
+        for pos in (2, 1):
+            m, other = n[pos], n[3 - pos]
+            mn = dag.nodes[m]
+            if (mn[0] == "mul" and uses[m] == 1 and m != other
+                    and tags[other] == "e"
+                    and sorted((tags[mn[1]], tags[mn[2]])) == ["b", "e"]):
+                opc = MADD_EB if n[0] == "add" else (MSUB_EB if pos == 2 else MRSUB_EB)
+                fused[i] = (m, other, opc)
+                break
+    return fused
+
+
+def _need(dag, upto: int, tags: dict, kids_of) -> list:
+    """Sethi-Ullman numbers in words: the slot words a node's tree needs
+    when its larger child is evaluated first (sharing ignored).  Nodes are
+    topologically ordered, so one forward pass suffices."""
+    need = [0] * (upto + 1)
+    for i in range(upto + 1):
+        w = 4 if tags.get(i) == "e" else 1
+        kids = kids_of(i)
+        if not kids:
+            need[i] = w
+            continue
+        first, *rest = sorted(kids, key=lambda k: -need[k])
+        wf = 4 if tags.get(first) == "e" else 1
+        need[i] = max(need[first], wf + (need[rest[0]] if rest else 0), w)
+    return need
+
+
+def _schedule(dag, roots, tags: dict, kids_of) -> list:
     """Steps ('node', i) and ('root', k): for each root in order, the nodes
-    it needs that are not computed yet (operands first), then the root's own
-    step (its fold, or its store as output row k)."""
+    it needs that are not computed yet (operands first, the operand with the
+    larger Sethi-Ullman number first, so that fewer slots are live), then
+    the root's own step (its fold, or its store as output row k).
+    ``kids_of(i)``: the operands node i is evaluated from."""
+    need = _need(dag, max(roots, default=0), tags, kids_of)
     done: set = set()
     steps = []
     for r, root in enumerate(roots):
@@ -107,105 +202,213 @@ def _schedule(dag, roots) -> list:
             i, expanded = stack.pop()
             if i in done:
                 continue
-            n = dag.nodes[i]
-            kids = (n[1], n[2]) if n[0] in ("add", "sub", "mul") else (
-                (n[1],) if n[0] == "neg" else ())
+            kids = kids_of(i)
             if expanded or not kids:
                 done.add(i)
                 steps.append(("node", i))
                 continue
             stack.append((i, True))
-            for k in reversed(kids):
+            # the larger need on top of the stack; ties keep operand order
+            for k in sorted(reversed(kids), key=lambda k: need[k]):
                 if k not in done:
                     stack.append((k, False))
         steps.append(("root", r))
     return steps
 
 
+def _cone(dag, root) -> set:
+    seen, stack = set(), [root]
+    while stack:
+        i = stack.pop()
+        if i not in seen:
+            seen.add(i)
+            stack.extend(_kids(dag.nodes[i]))
+    return seen
+
+
+def _root_order(dag, roots) -> list:
+    """A fold order for the roots (any order folds to the same words, since
+    root k is scaled by its own power of alpha): greedily the root whose
+    cone needs the fewest nodes not computed yet, ties to the one that
+    retires the most nodes no other remaining root uses, so that fewer
+    values are live at once."""
+    cones = [_cone(dag, r) for r in roots]
+    uses: dict = {}
+    for c in cones:
+        for n in c:
+            uses[n] = uses.get(n, 0) + 1
+    done: set = set()
+    order, left = [], list(range(len(roots)))
+    while left:
+        k = min(left, key=lambda k: (len(cones[k] - done),
+                                     -sum(1 for n in cones[k] if uses[n] == 1)))
+        order.append(k)
+        left.remove(k)
+        done |= cones[k]
+        for n in cones[k]:
+            uses[n] -= 1
+    return order
+
+
+def _reachable_tags(dag, roots) -> dict:
+    seen, stack = set(), list(roots)
+    while stack:
+        i = stack.pop()
+        if i in seen:
+            continue
+        seen.add(i)
+        stack.extend(_kids(dag.nodes[i]))
+    return _tags(dag, sorted(seen))
+
+
 def compile_dag(dag, *, n_main: int, has_preprocessed: bool, has_perm: bool,
-                publics=(), challenges=None, exposed=None) -> Program:
+                publics=(), challenges=None, exposed=None, alpha=None) -> Program:
     """Compile the nodes reachable from the constraint roots to bytecode
-    that folds them in root order.  ``publics`` are base Montgomery words,
-    ``challenges`` and ``exposed`` (k, 4) extension Montgomery words; the
-    program carries them in its constant pool.  Raises when the program
-    needs more than MAX_SLOTS."""
-    return _compile(dag, dag.constraint_roots, False, n_main=n_main,
-                    has_preprocessed=has_preprocessed, has_perm=has_perm,
-                    publics=publics, challenges=challenges, exposed=exposed)
+    that folds them by powers of ``alpha``, and bind the pool.  ``publics``
+    are base Montgomery words, ``challenges`` and ``exposed`` (k, 4) and
+    ``alpha`` (4,) extension Montgomery words.  Raises when one row's slots
+    need more words than ``max_lane_words`` allows beside the code."""
+    return bind(compile_dag_code(dag, n_main=n_main,
+                                 has_preprocessed=has_preprocessed,
+                                 has_perm=has_perm),
+                publics=publics, challenges=challenges, exposed=exposed,
+                alpha=alpha)
+
+
+def compile_dag_code(dag, *, n_main: int, has_preprocessed: bool,
+                     has_perm: bool) -> Program:
+    """``compile_dag`` without the values: the same code for every prove."""
+    return _compile(dag, list(dag.constraint_roots), False, n_main=n_main,
+                    has_preprocessed=has_preprocessed, has_perm=has_perm)
 
 
 def compile_columns(dag, roots, *, n_main: int, has_preprocessed: bool,
                     publics=()) -> Program:
     """Compile ``roots`` (base-valued node ids, repeats allowed) to bytecode
     that writes root k's value as output row k (``evaluate_columns``)."""
-    return _compile(dag, list(roots), True, n_main=n_main,
-                    has_preprocessed=has_preprocessed, has_perm=False,
-                    publics=publics)
+    return bind(_compile(dag, list(roots), True, n_main=n_main,
+                         has_preprocessed=has_preprocessed, has_perm=False),
+                publics=publics)
 
 
 def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
-             has_perm: bool, publics=(), challenges=None,
-             exposed=None) -> Program:
-    steps = _schedule(dag, roots)
-    tags = _tags(dag, [i for kind, i in steps if kind == "node"])
+             has_perm: bool) -> Program:
+    tags = _reachable_tags(dag, roots)
     if columns and any(tags[r] != "b" for r in roots):
         raise ValueError("a columns program takes base-valued roots only")
+    fused = _fusions(dag, tags, roots)
+
+    def factors(m) -> tuple:  # (extension, base) operands of a product
+        a, b = dag.nodes[m][1], dag.nodes[m][2]
+        return (a, b) if tags[a] == "e" else (b, a)
+
+    def kids_of(i) -> tuple:
+        if i in fused:
+            m, other, _ = fused[i]
+            return (other,) + factors(m)
+        return _kids(dag.nodes[i])
+
+    if columns:
+        steps = _schedule(dag, roots, tags, kids_of)
+    else:
+        order = _root_order(dag, roots)
+        steps = [(kind, order[i] if kind == "root" else i) for kind, i in
+                 _schedule(dag, [roots[k] for k in order], tags, kids_of)]
     last_use: dict = {}
     for s, (kind, i) in enumerate(steps):
-        if kind == "root":
-            last_use[roots[i]] = s
-            continue
-        n = dag.nodes[i]
-        if n[0] in ("add", "sub", "mul"):
-            last_use[n[1]] = last_use[n[2]] = s
-        elif n[0] == "neg":
-            last_use[n[1]] = s
+        for k in ((roots[i],) if kind == "root" else kids_of(i)):
+            last_use[k] = s
 
     sources = {("main", k): k for k in range(n_main)}
     if has_preprocessed:
         sources[("preprocessed", 0)] = len(sources)
     if has_perm:
         sources[("permutation", 0)] = len(sources)
-    pool: list = []
-    pool_index: dict = {}
+    spec: list = []
+    spec_at: dict = {}
+    n_words = [0]
 
-    def pool_words(words) -> int:
-        key = tuple(int(w) for w in words)
-        if key not in pool_index:
-            pool_index[key] = len(pool)
-            pool.extend(key)
-        return pool_index[key]
+    def pool_entry(key, width: int) -> int:
+        if key not in spec_at:
+            spec_at[key] = n_words[0]
+            spec.append(key)
+            n_words[0] += width
+        return spec_at[key]
 
-    free: list = []
-    n_slots = 0
+    free = {"b": [], "e": []}
+    count = {"b": 0, "e": 0}
     slot: dict = {}
     sel_mask = 0
     code = []
 
     def release(i, s):
         if last_use[i] == s and i in slot:
-            heapq.heappush(free, slot.pop(i))
+            heapq.heappush(free[tags[i]], slot.pop(i))
 
     def alloc(i) -> int:
-        nonlocal n_slots
-        if free:
-            slot[i] = heapq.heappop(free)
+        t = tags[i]
+        if free[t]:
+            slot[i] = heapq.heappop(free[t])
         else:
-            slot[i] = n_slots
-            n_slots += 1
+            slot[i] = count[t]
+            count[t] += 1
         return slot[i]
 
+    n_roots = len(roots)
+    folded: set = set()  # root steps a fused instruction already folded
     for s, (kind, i) in enumerate(steps):
         if kind == "root":
+            if s in folded:
+                continue
             k, i = i, roots[i]
             if columns:
                 code.append((STORE_B, 0, slot[i], k))
             else:
-                code.append((FOLD_E if tags[i] == "e" else FOLD_B, 0, slot[i], 0))
+                apow = pool_entry(("alpha", n_roots - 1 - k), 4)
+                code.append((FOLD_E if tags[i] == "e" else FOLD_B, 0, slot[i],
+                             apow))
             release(i, s)
             continue
         n = dag.nodes[i]
         op = n[0]
+        nxt = steps[s + 1] if s + 1 < len(steps) else None
+        if (not columns and i not in fused and nxt is not None
+                and nxt[0] == "root" and roots[nxt[1]] == i
+                and last_use[i] == s + 1 and op in ("mul", "sub")
+                and tags[n[1]] == tags[n[2]]
+                and (op, tags[n[1]]) in (("mul", "b"), ("sub", "e"))):
+            # a root computed only for its fold: fold it as it is computed
+            sa, sb = slot[n[1]], slot[n[2]]
+            release(n[1], s)
+            if n[2] != n[1]:
+                release(n[2], s)
+            apow = pool_entry(("alpha", n_roots - 1 - nxt[1]), 4)
+            code.append((MULFOLD_BB if op == "mul" else SUBFOLD_EE, apow, sa, sb))
+            folded.add(s + 1)
+            continue
+        if i in fused:
+            m, c, opc = fused[i]
+            ea, eb = factors(m)
+            sa, sb = slot[ea], slot[eb]
+            if last_use[c] == s:  # the fused op takes over c's slot
+                for k in {ea, eb} - {c}:
+                    release(k, s)
+                slot[i] = slot.pop(c)
+                code.append((opc, slot[i], sa, sb))
+                continue
+            # c lives on: the product into a temporary, then the add or sub
+            for k in {ea, eb}:
+                release(k, s)
+            tmp = ("product", i)
+            tags[tmp] = "e"
+            t = alloc(tmp)
+            code.append((MUL_EB, t, sa, sb))
+            heapq.heappush(free["e"], slot.pop(tmp))
+            d = alloc(i)
+            code.append((ADD_EE, d, slot[c], t) if opc == MADD_EB else
+                        (SUB_EE, d, slot[c], t) if opc == MSUB_EB else
+                        (SUB_EE, d, t, slot[c]))
+            continue
         if op in ("add", "sub", "mul", "neg"):
             a = n[1]
             b = n[2] if op != "neg" else None
@@ -232,7 +435,7 @@ def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
             continue
         d = alloc(i)
         if op == "const":
-            code.append((CONST_B, d, pool_words([bb.to_monty_int(n[1])]), 0))
+            code.append((CONST_B, d, pool_entry(("word", bb.to_monty_int(n[1])), 1), 0))
         elif op == "sel":
             which = SELECTORS.index(n[1])
             sel_mask |= 1 << which
@@ -245,34 +448,132 @@ def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
                              2 * src + offset,
                              4 * index if entry == "permutation" else index))
             elif entry == "public":
-                code.append((CONST_B, d, pool_words([publics[index]]), 0))
+                code.append((CONST_B, d, pool_entry(("public", index), 1), 0))
             elif entry in ("challenge", "exposed"):
-                vals = challenges if entry == "challenge" else exposed
-                code.append((CONST_E, d, pool_words(vals[index]), 0))
+                code.append((CONST_E, d, pool_entry((entry, index), 4), 0))
             else:
                 raise KeyError(entry)
-    if n_slots > MAX_SLOTS:
-        raise ValueError(f"the constraint program needs {n_slots} slots; the "
-                         f"quotient kernel holds {MAX_SLOTS}")
-    return Program(code=np.asarray(code, dtype=np.int32).reshape(-1, 4),
-                   pool=np.asarray(pool, dtype=np.uint32),
-                   n_slots=n_slots, sel_mask=0 if columns else sel_mask,
-                   n_sources=len(sources), n_roots=len(roots) if columns else 0)
+    prog = Program(code=np.asarray(code, dtype=np.int32).reshape(-1, 4),
+                   n_base=count["b"], n_ext=count["e"],
+                   sel_mask=0 if columns else sel_mask,
+                   n_sources=len(sources), n_roots=n_roots if columns else 0,
+                   n_folds=0 if columns else n_roots, pool_spec=tuple(spec))
+    limit = max_lane_words(int(prog.code.shape[0]))
+    if prog.lane_words > limit:
+        raise ValueError(
+            f"the constraint program needs {prog.lane_words} slot words a row "
+            f"({prog.n_base} base and {prog.n_ext} extension slots); beside its "
+            f"{prog.code.shape[0]} instructions the quotient kernel holds {limit}")
+    return prog
+
+
+def _ext_mul_int(a, b) -> tuple:
+    """Canonical extension product with x^4 = 11 (ext.py:72), Python ints."""
+    d = [0] * 7
+    for i in range(4):
+        for j in range(4):
+            d[i + j] += a[i] * b[j]
+    return tuple((d[i] + 11 * (d[i + 4] if i < 3 else 0)) % P for i in range(4))
+
+
+def alpha_powers(alpha, n: int) -> np.ndarray:
+    """(n, 4) uint32 Montgomery words of alpha^0 .. alpha^(n-1); ``alpha``
+    (4,) Montgomery words."""
+    a = tuple(bb.from_monty_int(int(w)) for w in np.asarray(alpha).reshape(4))
+    out, cur = [], (1, 0, 0, 0)
+    for _ in range(n):
+        out.append(cur)
+        cur = _ext_mul_int(cur, a)
+    return bb.to_monty_np(np.asarray(out, dtype=np.uint64).reshape(n, 4))
+
+
+def bind(prog: Program, publics=(), challenges=None, exposed=None,
+         alpha=None) -> Program:
+    """``prog`` with its pool filled from one prove's values (Montgomery
+    words, as ``compile_dag`` takes them)."""
+    apows = None
+    words: list = []
+    for kind, x in prog.pool_spec:
+        if kind == "word":
+            words.append(x)
+        elif kind == "public":
+            words.append(int(publics[x]))
+        elif kind in ("challenge", "exposed"):
+            vals = challenges if kind == "challenge" else exposed
+            if vals is None:
+                raise ValueError(f"the program reads {kind} {x}; none given")
+            words.extend(int(w) for w in np.asarray(vals[x]).reshape(4))
+        else:  # alpha
+            if alpha is None:
+                raise ValueError("a quotient program folds by powers of "
+                                 "alpha; give alpha")
+            if apows is None:
+                apows = alpha_powers(alpha, prog.n_folds)
+            words.extend(int(w) for w in apows[x])
+    return replace(prog, pool=np.asarray(words, dtype=np.uint32))
 
 
 # ---------------------------------------------------------------------------
 # Selectors and the zerofier on the quotient domain
 # ---------------------------------------------------------------------------
 
-def _zh_table(log_n: int, lqd: int) -> np.ndarray:
+def _zh_values(log_n: int, lqd: int) -> list:
     """Z_H(x) = x^n - 1 on the coset g*<w_q> takes 2^lqd values:
-    x_j^n = g^n * w_{2^lqd}^(j mod 2^lqd).  Returns Montgomery words
-    [Z_H(k) for k < 2^lqd] + [1/Z_H(k) for k < 2^lqd]."""
+    x_j^n = g^n * w_{2^lqd}^(j mod 2^lqd); canonical, k < 2^lqd."""
     gn = pow(bb.GENERATOR, 1 << log_n, P)
     w = bb.two_adic_generator_int(lqd)
-    zh = [(gn * pow(w, k, P) - 1) % P for k in range(1 << lqd)]
+    return [(gn * pow(w, k, P) - 1) % P for k in range(1 << lqd)]
+
+
+def _zh_table(log_n: int, lqd: int) -> np.ndarray:
+    """Montgomery words [Z_H(k) for k < 2^lqd] + [1/Z_H(k) for k < 2^lqd]."""
+    zh = _zh_values(log_n, lqd)
     inv = [pow(z, P - 2, P) for z in zh]
     return bb.to_monty_np(np.asarray(zh + inv, dtype=np.uint64))
+
+
+def batch_inv64(x: torch.Tensor) -> torch.Tensor:
+    """Inverses of nonzero canonical int64 values (a power-of-two count) on
+    their device by a product tree: pairwise products up to one Fermat
+    inverse, then back down, two products an element per level."""
+    levels = [x]
+    while levels[-1].shape[0] > 1:
+        a = levels[-1]
+        levels.append(a[0::2] * a[1::2] % P)
+    inv = torch.full((1,), pow(int(levels[-1][0]), P - 2, P), dtype=torch.int64,
+                     device=x.device)
+    for lvl in reversed(levels[:-1]):
+        out = torch.empty_like(lvl)
+        out[0::2] = inv * lvl[1::2] % P
+        out[1::2] = inv * lvl[0::2] % P
+        inv = out
+    return inv
+
+
+_SELECTOR_TABLES: dict = {}
+
+
+def selector_table(log_n: int, lqd: int, device) -> torch.Tensor:
+    """(2, 2^log_q) int32 Montgomery words of is_first_row and is_last_row
+    over the quotient domain in LDE (bit-reversed) row order, built once per
+    (log_n, lqd) on ``device``: row r is the point x_r = g w_q^rev(r), with
+    Z_H(x_r) / (x_r - 1) and Z_H(x_r) / (x_r - w_n^-1), both denominators
+    inverted in one batch (``batch_inv64``)."""
+    key = (log_n, lqd, torch.device(device))
+    if key in _SELECTOR_TABLES:
+        return _SELECTOR_TABLES[key]
+    log_q = log_n + lqd
+    x = ntt.lde_points(log_q, device).long() * bb.RINV_MOD_P % P
+    # Z_H(x_r) depends on rev(r) mod 2^lqd, the top lqd bits of r reversed
+    top = torch.arange(1 << lqd, device=x.device).repeat_interleave(1 << log_n)
+    rev_top = torch.from_numpy(ntt.bitrev_perm(lqd)).to(x.device)[top]
+    zh = torch.tensor(_zh_values(log_n, lqd), dtype=torch.int64, device=x.device)[rev_top]
+    g_inv = pow(bb.two_adic_generator_int(log_n), -1, P)
+    inv = batch_inv64(torch.cat([(x + P - 1) % P, (x + P - g_inv) % P]))
+    nq = 1 << log_q
+    tab = torch.stack([zh * inv[:nq] % P, zh * inv[nq:] % P])
+    _SELECTOR_TABLES[key] = (tab * bb.R_MOD_P % P).int()
+    return _SELECTOR_TABLES[key]
 
 
 def selectors_on_domain(log_n: int, log_domain: int, shift: int,
@@ -304,74 +605,147 @@ def selectors_on_domain(log_n: int, log_domain: int, shift: int,
 # ---------------------------------------------------------------------------
 
 def _run_plain(prog: Program, sources: list, rows: tuple, sel_vals: list,
-               n: int, alpha64=None, out=None):
+               n: int, out=None):
     """The bytecode over n rows with int64 torch operations.  ``rows``:
-    (local, next) row indices into the sources; FOLD_* fold into the
-    returned (n, 4) accumulator by ``alpha64``; STORE_B writes into
-    ``out`` (R, n)."""
+    (local, next) row indices into the sources; FOLD_* add alpha^e v into
+    the returned (n, 4) accumulator, alpha^e from the pool; STORE_B writes
+    into ``out`` (R, n)."""
+    if prog.pool is None:
+        raise ValueError("the program's pool is not bound")
     dev = rows[0].device
     pool = torch.from_numpy(prog.pool.astype(np.int64)).to(dev)
-    slots: list = [None] * max(prog.n_slots, 1)
+    bs: list = [None] * max(prog.n_base, 1)
+    es: list = [None] * max(prog.n_ext, 1)
     acc = torch.zeros((n, 4), dtype=torch.int64, device=dev)
     for op, d, a, b in prog.code.tolist():
         if op == CONST_B:
-            slots[d] = pool[a].expand(n)
+            bs[d] = pool[a].expand(n)
         elif op == CONST_E:
-            slots[d] = pool[a:a + 4].expand(n, 4)
+            es[d] = pool[a:a + 4].expand(n, 4)
         elif op == LOAD_B:
-            slots[d] = sources[a >> 1][rows[a & 1], b].long()
+            bs[d] = sources[a >> 1][rows[a & 1], b].long()
         elif op == LOAD_E:
-            slots[d] = sources[a >> 1][rows[a & 1], b:b + 4].long()
+            es[d] = sources[a >> 1][rows[a & 1], b:b + 4].long()
         elif op == SEL:
-            slots[d] = sel_vals[a]
-        elif op == ADD_BB or op == ADD_EE:
-            slots[d] = bb.add64(slots[a], slots[b])
-        elif op == SUB_BB or op == SUB_EE:
-            slots[d] = bb.sub64(slots[a], slots[b])
+            bs[d] = sel_vals[a]
+        elif op == ADD_BB:
+            bs[d] = bb.add64(bs[a], bs[b])
+        elif op == SUB_BB:
+            bs[d] = bb.sub64(bs[a], bs[b])
         elif op == MUL_BB:
-            slots[d] = bb.mul64(slots[a], slots[b])
+            bs[d] = bb.mul64(bs[a], bs[b])
+        elif op == NEG_B:
+            bs[d] = bb.sub64(torch.zeros_like(bs[a]), bs[a])
+        elif op == ADD_EE:
+            es[d] = bb.add64(es[a], es[b])
+        elif op == SUB_EE:
+            es[d] = bb.sub64(es[a], es[b])
         elif op == MUL_EE:
-            slots[d] = ef.mul64(slots[a], slots[b])
-        elif op == NEG_B or op == NEG_E:
-            slots[d] = bb.sub64(torch.zeros_like(slots[a]), slots[a])
+            es[d] = ef.mul64(es[a], es[b])
+        elif op == NEG_E:
+            es[d] = bb.sub64(torch.zeros_like(es[a]), es[a])
         elif op == ADD_EB or op == SUB_EB:
-            e = slots[a].clone()
+            e = es[a].clone()
             f = bb.add64 if op == ADD_EB else bb.sub64
-            e[:, 0] = f(e[:, 0], slots[b])
-            slots[d] = e
+            e[:, 0] = f(e[:, 0], bs[b])
+            es[d] = e
         elif op == SUB_BE:
-            e = bb.sub64(torch.zeros_like(slots[b]), slots[b])
-            e[:, 0] = bb.add64(e[:, 0], slots[a])
-            slots[d] = e
+            e = bb.sub64(torch.zeros_like(es[b]), es[b])
+            e[:, 0] = bb.add64(e[:, 0], bs[a])
+            es[d] = e
         elif op == MUL_EB:
-            slots[d] = ef.scale64(slots[a], slots[b])
+            es[d] = ef.scale64(es[a], bs[b])
+        elif op == MADD_EB:
+            es[d] = bb.add64(es[d], ef.scale64(es[a], bs[b]))
+        elif op == MSUB_EB:
+            es[d] = bb.sub64(es[d], ef.scale64(es[a], bs[b]))
+        elif op == MRSUB_EB:
+            es[d] = bb.sub64(ef.scale64(es[a], bs[b]), es[d])
+        elif op == MULFOLD_BB:
+            acc = bb.add64(acc, ef.scale64(pool[d:d + 4].expand(n, 4),
+                                           bb.mul64(bs[a], bs[b])))
+        elif op == SUBFOLD_EE:
+            acc = bb.add64(acc, ef.mul64(bb.sub64(es[a], es[b]),
+                                         pool[d:d + 4].expand(n, 4)))
         elif op == FOLD_B:
-            acc = ef.mul64(acc, alpha64)
-            acc[:, 0] = bb.add64(acc[:, 0], slots[a])
+            acc = bb.add64(acc, ef.scale64(pool[b:b + 4].expand(n, 4), bs[a]))
         elif op == FOLD_E:
-            acc = bb.add64(ef.mul64(acc, alpha64), slots[a])
+            acc = bb.add64(acc, ef.mul64(es[a], pool[b:b + 4].expand(n, 4)))
         elif op == STORE_B:
-            out[b] = slots[a]
+            out[b] = bs[a]
         else:
             raise ValueError(f"bad opcode {op}")
     return acc
 
 
-def evaluate_plain(prog: Program, sources: list, log_n: int, lqd: int,
-                   alpha: torch.Tensor) -> torch.Tensor:
-    """The program over every row of the quotient domain with int64 torch
-    operations.  ``sources``: bit-reversed LDE matrices (at least 2^log_q
-    rows) in the program's source order; ``alpha`` (4,) Montgomery words.
-    Returns (2^log_q, 4) int32: the alpha-folded constraints over Z_H."""
+def evaluate_plain(prog: Program, sources: list, log_n: int,
+                   lqd: int) -> torch.Tensor:
+    """The bound program over every row of the quotient domain with int64
+    torch operations.  ``sources``: bit-reversed LDE matrices (at least
+    2^log_q rows) in the program's source order.  Returns (2^log_q, 4)
+    int32: the alpha-folded constraints over Z_H, in natural row order."""
     log_q = log_n + lqd
     nq = 1 << log_q
-    dev = alpha.device
+    dev = sources[0].device
     rev = torch.from_numpy(ntt.bitrev_perm(log_q)).to(dev)
     rows = (rev, torch.roll(rev, -(1 << lqd), 0))  # local, next
     sels = selectors_on_domain(log_n, log_q, bb.GENERATOR, dev)
     sel_vals = [sels[name].long() for name in SELECTORS]
-    acc = _run_plain(prog, sources, rows, sel_vals, nq, alpha64=alpha.long())
+    acc = _run_plain(prog, sources, rows, sel_vals, nq)
     return ef.scale64(acc, sels["inv_zeroifier"].long()).int()
+
+
+def evaluate_many_plain(progs: list, sources: list, log_ns: list,
+                        lqds: list) -> list:
+    """``evaluate_plain`` for each AIR: the plain counterpart of
+    ``evaluate_many``."""
+    return [evaluate_plain(p, s, n, q)
+            for p, s, n, q in zip(progs, sources, log_ns, lqds)]
+
+
+def block_threads(lane_words: int, n_instr: int) -> int:
+    """Threads of a kernel block: of THREADS, the one that keeps the most
+    threads resident on an SM (its 228 KB of shared memory, 1 KB reserved
+    a block, at most 32 blocks), the larger on a tie; a block's code and its
+    rows' slots must fit its 227 KB."""
+    best, best_resident = 0, 0
+    for t in THREADS:
+        per_block = lane_words * 4 * t + 16 * n_instr
+        if per_block > SMEM_BYTES:
+            continue
+        resident = min(SM_SMEM_BYTES // (per_block + 1024), 32) * t
+        if resident > best_resident:
+            best, best_resident = t, resident
+    if not best:
+        raise ValueError(f"{lane_words} slot words a row and {n_instr} "
+                         "instructions do not fit the kernel's shared memory")
+    return best
+
+
+def block_plan(heights: list, lanes: int) -> tuple:
+    """The kernel's map of blocks to jobs: (order, first, total).  Jobs
+    run largest first (ties in input order); job order[k] takes
+    ceil(height / lanes) blocks from block first[k] on; ``total`` blocks in
+    all.  Block b belongs to the last k with first[k] <= b and evaluates
+    rows (b - first[k]) * lanes + l for l < lanes that lie below the
+    height (``block_rows``)."""
+    order = sorted(range(len(heights)), key=lambda k: -heights[k])
+    first, total = [], 0
+    for k in order:
+        first.append(total)
+        total += -(-heights[k] // lanes)
+    return order, first, total
+
+
+def block_rows(first: list, heights_in_order: list, b: int, lanes: int):
+    """(position in the plan, rows) of block b, as the kernel finds them: a
+    scan over the job table's first blocks, then the block's lanes below
+    the job's height."""
+    k = 0
+    while k + 1 < len(first) and b >= first[k + 1]:
+        k += 1
+    row0 = (b - first[k]) * lanes
+    return k, [row0 + l for l in range(lanes) if row0 + l < heights_in_order[k]]
 
 
 def _check_sources(sources: list, rows: int) -> None:
@@ -383,49 +757,130 @@ def _check_sources(sources: list, rows: int) -> None:
             raise ValueError(f"source {k} has {m.shape[0]} rows < {rows}")
 
 
-def _source_tables(sources: list, dev) -> tuple:
-    """Device tables of the sources' base pointers and row strides."""
-    ptrs = torch.tensor([m.data_ptr() for m in sources] or [0],
-                        dtype=torch.int64, device=dev)
-    strides = torch.tensor([m.stride(0) for m in sources] or [0],
-                           dtype=torch.int64, device=dev)
-    return ptrs, strides
+def upload_code(progs: list, device) -> torch.Tensor:
+    """Every program's code, concatenated in order, on ``device``: the
+    part of ``evaluate_many``'s tables that is the same in every prove."""
+    code = np.concatenate([p.code for p in progs]) if progs else \
+        np.zeros((0, 4), np.int32)
+    return torch.from_numpy(np.ascontiguousarray(code)).to(device)
 
 
-def evaluate(prog: Program, sources: list, log_n: int, lqd: int,
-             alpha: torch.Tensor) -> torch.Tensor:
-    """Kernel K7+K11 (csrc/quotient.cu) on CUDA tensors, ``evaluate_plain``
-    on CPU tensors; same arguments and result as ``evaluate_plain``.
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
 
-    One thread per quotient-domain row, taken in the LDE's bit-reversed
-    order so the local loads of neighbouring threads are neighbouring rows.
-    Bound by operations for a constraint-heavy AIR (every node is a
-    Montgomery product or add per row; selector and zerofier inverses are
-    two Fermat inverses per row) and by bytes for a narrow one (each row
-    reads its local and next cells and writes 16 bytes)."""
-    dev = _build.kernel_device(alpha, *sources)
-    if len(sources) != prog.n_sources:
-        raise ValueError(f"program reads {prog.n_sources} matrices, "
-                         f"{len(sources)} given")
+
+def _launch(kernel: str, fn_name: str, progs: list, sources: list,
+            log_qs: list, lqds: list, quotient: bool, code, dev):
+    """Build the job table, pool and source tables of one launch, copy them
+    to the card in one non-blocking copy from pinned memory, and launch.
+    Returns the output of each job, in the order given."""
+    for p, src, log_q in zip(progs, sources, log_qs):
+        if len(src) != p.n_sources:
+            raise ValueError(f"program reads {p.n_sources} matrices, "
+                             f"{len(src)} given")
+        if p.pool is None:
+            raise ValueError("the program's pool is not bound")
+        _check_sources(src, 1 << log_q)
+    lane_words = max(max(p.lane_words for p in progs), 1)
+    code_cap = max(int(p.code.shape[0]) for p in progs)
+    threads = block_threads(lane_words, code_cap)
+    heights = [1 << q for q in log_qs]
+    order, first, total = block_plan(heights, threads)
+
+    code_off = np.cumsum([0] + [int(p.code.shape[0]) for p in progs])
+    pool_parts, pool_off, n_pool = [], [], 0
+    src_words, src_off = [], []
+    if quotient:
+        out = torch.empty((sum(heights), 4), dtype=torch.int32, device=dev)
+    outs, out_ptr, row = [], [], 0
+    for k, p in enumerate(progs):
+        pool_off.append(n_pool)
+        pool_parts.append(p.pool)
+        n_pool += int(p.pool.shape[0])
+        if quotient:
+            zh = _zh_table(log_qs[k] - lqds[k], lqds[k])[1 << lqds[k]:]
+            pool_parts.append(zh)
+            n_pool += int(zh.shape[0])
+            outs.append(out[row:row + heights[k]])
+            row += heights[k]
+        else:
+            outs.append(torch.empty((p.n_roots, heights[k]), dtype=torch.int32,
+                                    device=dev))
+        out_ptr.append(outs[-1].data_ptr())
+        src_off.append(len(src_words) // 2)
+        for m in sources[k]:
+            src_words += [m.data_ptr(), m.stride(0)]
+    jobs = np.zeros((len(progs), JOB_WORDS), dtype=np.int64)
+    for pos, k in enumerate(order):
+        p, j = progs[k], jobs[pos]
+        j[J_CODE], j[J_NINSTR] = code_off[k], p.code.shape[0]
+        j[J_POOL], j[J_SRC], j[J_NBASE] = pool_off[k], src_off[k], p.n_base
+        j[J_LOGQ], j[J_LQD], j[J_SEL] = log_qs[k], lqds[k], p.sel_mask
+        j[J_OUT], j[J_BLOCK0] = out_ptr[k], first[pos]
+        if quotient:
+            log_n = log_qs[k] - lqds[k]
+            j[J_ZH] = pool_off[k] + int(p.pool.shape[0])
+            j[J_GINV] = bb.to_monty_int(pow(bb.two_adic_generator_int(log_n), -1, P))
+            if p.sel_mask & 3:
+                tab = selector_table(log_n, lqds[k], dev)
+                j[J_FIRST], j[J_LAST] = tab[0].data_ptr(), tab[1].data_ptr()
+
+    sections = [jobs.view(np.uint8).ravel(),
+                np.asarray(src_words or [0, 0], dtype=np.int64).view(np.uint8),
+                np.concatenate(pool_parts + [np.zeros(1, np.uint32)])
+                .astype(np.uint32).view(np.uint8)]
+    if code is None:
+        code_np = np.concatenate([p.code for p in progs]).astype(np.int32)
+        sections.append(code_np.view(np.uint8).ravel())
+    offs, size = [], 0
+    for s in sections:
+        offs.append(size)
+        size = _align16(size + s.nbytes)
+    host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+    host_np = host.numpy()
+    for s, o in zip(sections, offs):
+        host_np[o:o + s.nbytes] = s
+    tables = host.to(dev, non_blocking=True)
+    base = tables.data_ptr()
+    code_ptr = base + offs[3] if code is None else code.data_ptr()
+    xs = ntt.lde_points(max(log_qs), dev) if quotient else tables
+    _build.launch(kernel, fn_name, dev, base + offs[0], len(progs), code_ptr,
+                  base + offs[2], base + offs[1], xs.data_ptr(), threads,
+                  total, lane_words * 4 * threads + 16 * code_cap, code_cap)
+    # the tables must outlive the launch: PyTorch's caching allocator holds
+    # a freed block for the stream's later work, and the kernel runs first
+    return outs
+
+
+def evaluate_many(progs: list, sources: list, log_ns: list, lqds: list,
+                  code: torch.Tensor | None = None) -> list:
+    """Kernel K7+K11 (csrc/quotient.cu) over every AIR of a prove in one
+    launch on CUDA tensors, ``evaluate_many_plain`` on CPU tensors.
+    ``progs`` bound programs, ``sources`` their matrices (as
+    ``evaluate_plain`` takes them); ``code``, when given, is
+    ``upload_code(progs)`` kept from an earlier prove.  Returns one
+    (2^log_q, 4) int32 tensor per AIR, in the order given.
+
+    Blocks map to (AIR, row range) through a job table (``block_plan``);
+    each thread evaluates one row, in LDE order, so neighbouring threads
+    load neighbouring rows.  Bound by operations for a constraint-heavy AIR
+    (every node a Montgomery product or add a row; the fold a scale or an
+    extension product by a power of alpha) and by bytes for a narrow one
+    (each row reads its local and next cells and writes 16 bytes)."""
+    if not progs:
+        return []
+    dev = _build.kernel_device(*(m for s in sources for m in s))
     if dev.type == "cpu":
-        return evaluate_plain(prog, sources, log_n, lqd, alpha)
-    log_q = log_n + lqd
-    nq = 1 << log_q
-    _check_sources(sources, nq)
-    alpha = alpha.contiguous()
-    _build.check_words(alpha, "alpha", dev)
-    code = torch.from_numpy(prog.code).to(dev)
-    pool = torch.from_numpy(prog.pool.view(np.int32)).to(dev)
-    ptrs, strides = _source_tables(sources, dev)
-    xs = ntt.lde_points(log_q, dev)
-    zh = bb.from_numpy(_zh_table(log_n, lqd), device=dev)
-    g_inv = bb.to_monty_int(pow(bb.two_adic_generator_int(log_n), -1, P))
-    out = torch.empty((nq, 4), dtype=torch.int32, device=dev)
-    _build.launch("quotient", "ovt_quotient", dev, code.data_ptr(),
-                  code.shape[0], pool.data_ptr(), ptrs.data_ptr(),
-                  strides.data_ptr(), xs.data_ptr(), zh.data_ptr(), g_inv,
-                  alpha.data_ptr(), log_q, lqd, prog.sel_mask, out.data_ptr())
-    return out
+        return evaluate_many_plain(progs, sources, log_ns, lqds)
+    log_qs = [n + q for n, q in zip(log_ns, lqds)]
+    return _launch("quotient", "ovt_quotient", progs, sources, log_qs,
+                   list(lqds), True, code, dev)
+
+
+def evaluate(prog: Program, sources: list, log_n: int, lqd: int) -> torch.Tensor:
+    """``evaluate_many`` of one AIR: kernel K7+K11 on CUDA tensors,
+    ``evaluate_plain`` on CPU tensors."""
+    return evaluate_many([prog], [sources], [log_n], [lqd])[0]
 
 
 def evaluate_columns_plain(prog: Program, sources: list,
@@ -447,11 +902,11 @@ def evaluate_columns(prog: Program, sources: list, log_n: int) -> torch.Tensor:
     """Kernel K7 in its columns mode (csrc/quotient.cu) on CUDA tensors,
     ``evaluate_columns_plain`` on CPU tensors; same arguments and result.
 
-    One thread per trace row runs the whole program and stores each root's
-    value in its output row, so neighbouring threads write neighbouring
-    words.  Bound by bytes when the roots are columns and small
-    expressions, as interaction fields are: each row reads its cells and
-    writes 4 bytes per root."""
+    The quotient kernel's interpreter with one job over the natural rows:
+    each thread stores its rows' root values in their output rows, so
+    neighbouring threads write neighbouring words.  Bound by bytes when the
+    roots are columns and small expressions, as interaction fields are:
+    each row reads its cells and writes 4 bytes per root."""
     if not sources:
         raise ValueError("a columns program reads at least one matrix")
     dev = _build.kernel_device(*sources)
@@ -459,13 +914,5 @@ def evaluate_columns(prog: Program, sources: list, log_n: int) -> torch.Tensor:
         raise ValueError(f"not a columns program over {len(sources)} matrices")
     if dev.type == "cpu":
         return evaluate_columns_plain(prog, sources, log_n)
-    n = 1 << log_n
-    _check_sources(sources, n)
-    code = torch.from_numpy(prog.code).to(dev)
-    pool = torch.from_numpy(prog.pool.view(np.int32)).to(dev)
-    ptrs, strides = _source_tables(sources, dev)
-    out = torch.empty((prog.n_roots, n), dtype=torch.int32, device=dev)
-    _build.launch("quotient_columns", "ovt_quotient_columns", dev,
-                  code.data_ptr(), code.shape[0], pool.data_ptr(),
-                  ptrs.data_ptr(), strides.data_ptr(), log_n, out.data_ptr())
-    return out
+    return _launch("quotient_columns", "ovt_quotient_columns", [prog],
+                   [sources], [log_n], [0], False, None, dev)[0]

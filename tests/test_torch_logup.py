@@ -164,10 +164,11 @@ def test_logup_fold_equal_eval_logup_folded():
         chs_m = bb.to_monty_np(np.asarray(case["chs"], dtype=np.uint64))
         expo = bb.to_monty_np(bb.from_monty_plain(torch.from_numpy(
             case["port"][1].astype(np.int64))).numpy().astype(np.uint64)[None])
-        prog = qmod.compile_dag(tail, n_main=1, has_preprocessed=False,
-                                has_perm=True, challenges=chs_m, exposed=expo)
         alpha = bb.from_numpy(bb.to_monty_np(rng.integers(0, P, 4)), device="cpu")
-        got = qmod.evaluate_plain(prog, [main_lde, perm_lde], log_n, lqd, alpha)
+        prog = qmod.compile_dag(tail, n_main=1, has_preprocessed=False,
+                                has_perm=True, challenges=chs_m, exposed=expo,
+                                alpha=bb.to_numpy(alpha))
+        got = qmod.evaluate_plain(prog, [main_lde, perm_lde], log_n, lqd)
 
         def q_slice(lde):
             rows = ntt.bitrev_perm(log_q)

@@ -100,3 +100,42 @@ def test_commit_rejects_bad_heights():
         merkle.commit_layers([torch.zeros((6, 2), dtype=torch.int32)])
     with pytest.raises(ValueError):
         merkle.commit_layers([])
+
+
+def test_commit_plan():
+    """Layers of more than tail_max digests one launch each, the rest in
+    one tail launch; path 3's trees at the default TAIL_MAX take at most
+    120 compress launches."""
+    assert merkle.commit_plan(32, 4) == ([16, 8], [4, 2, 1])
+    assert merkle.commit_plan(2, 8) == ([], [1])
+    assert merkle.commit_plan(1, 8) == ([], [])
+    assert merkle.commit_plan(8, 512) == ([], [4, 2, 1])
+    with pytest.raises(ValueError):
+        merkle.commit_plan(8, 3)
+    # main, permutation and quotient trees of 2^21 leaves, FRI trees of
+    # 2^20 down to 2^1 leaves
+    trees = [1 << 21] * 3 + [1 << k for k in range(1, 21)]
+    launches = 0
+    for h in trees:
+        single, tail = merkle.commit_plan(h, merkle.TAIL_MAX)
+        launches += len(single) + (1 if tail else 0)
+    assert launches <= 120
+
+
+@pytest.mark.parametrize("tail_max", [2, 4, 8])
+def test_commit_with_tail_equals_plain_and_jax(tail_max):
+    """Injections at heights inside and above the tail: the planned commit
+    (layers one by one, then the tail) equals the layer-by-layer plain
+    commit and JAX's commit_layers."""
+    shapes = [(32, 3), (8, 2), (16, 1), (4, 5), (2, 1), (1, 4), (8, 3)]
+    jmats, tmats = _mats(shapes, 5 + tail_max)
+    want = jm.commit_layers(jmats)
+    got = merkle.commit_layers(tmats, tail_max=tail_max)
+    plain = merkle.commit_layers_plain(tmats)
+    assert len(got) == len(want) == len(plain) == 6
+    for a, b, c in zip(want, got, plain):
+        np.testing.assert_array_equal(np.asarray(a), bb.to_numpy(b))
+        np.testing.assert_array_equal(bb.to_numpy(c), bb.to_numpy(b))
+    tail = merkle.compress_tail(got[-tail_max.bit_length() - 1],
+                                [None] * tail_max.bit_length())
+    assert [t.shape[0] for t in tail] == [tail_max >> k for k in range(tail_max.bit_length())]

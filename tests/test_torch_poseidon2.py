@@ -153,3 +153,14 @@ def test_upload_refuses_another_diagonal():
             p2.upload_constants(torch.device("cpu"))
     finally:
         p2.INTERNAL_DIAG = saved
+
+
+def test_four_thread_permutation_model_matches_jax():
+    """K5's tail permutation, modelled thread by thread (``_permute_quad64``:
+    M4 blocks per thread, block and lane sums by xor-shuffles, diagonal by
+    Montgomery products), equals JAX's permute and the pinned vector."""
+    js, ts = _inputs((7, 16), 23)
+    got = p2._permute_quad64(ts.long()).int()
+    _same(jp2.permute(js), got)
+    st = bb.monty(np.arange(16), device="cpu")
+    assert bb.canonical_np(p2._permute_quad64(st.long()).int()).tolist() == PERM_0_15
