@@ -19,10 +19,15 @@ Phases, each printing one JSON line:
             plain, mid-size; K3 at heights around its 2^11-row tile (2^10 to
             2^12, 2^21, 2^22) and widths 1 to 257, K4 at widths 0 to 101 on
             row counts that are not a multiple of its block; K7 on random
-            DAGs up to its slot limit (the next one refused) and on one
-            launch over a job table of heights 2^1 to 2^12, lqd 0 and 1;
-            K5's tail on trees of 2^1 to 2^14 leaves with injections at
-            every height, at tails of 2, 64 and 512 digests
+            DAGs up to its slot limit, past it and past its code limit (the
+            global-memory mode, each in its own launch, in the quotient and
+            the columns mode), on one launch over a job table of heights
+            2^1 to 2^12, lqd 0 and 1, and on a table mixing both modes (two
+            launches); K5's tail on trees of 2^1 to 2^14 leaves with
+            injections at every height, at tails of 2, 64 and 512 digests;
+            K12 on one table of widths 1 to 380, heights 2^1 to 2^22, one
+            and two points and column slices; K10 at m = 1 to 12 chunks,
+            heights off its 256-row tile and 16,385 tiles
   main      path 1, one RV32IM segment's common-main commit at full size:
             the matrix widths of the VM's AIRs, heights at the fib_e2e
             segment cap (1,048,476 rows) padded to 2^20; to_monty -> coset
@@ -44,19 +49,25 @@ Phases, each printing one JSON line:
             with FIB_EXECUTORS and the production profile (84 queries, 16
             PoW bits, log_blowup 1); stage seconds, insn/s, trace cells/s;
             the proof's SHA-256 pinned (VM_PROOF_SHA256); then K8 on every
-            AIR's sends, K9 and K10 on every AIR's permutation trace and K7
+            AIR's sends, K9 and K10 on every AIR's permutation trace, K7
             on all 15 AIRs' quotient in one launch (LogUp roots included)
-            against their plain versions, on the prove's own inputs
+            and K12 on every matrix's openings in one table against their
+            plain versions, on the prove's own inputs
   vm_profile one more warm prove of path 3 under torch.profiler: each
             kernel's summed device ms and launches, the device's busy and
-            idle share of the prove
+            idle share of the prove, and each kernel's path-3 bound: the
+            sum of its launches' bounds at their own shapes
   timing    each kernel and its plain version at the paths' shapes; K3 also
             in the prove's form (return_coeffs), K4 and K5 also against the
             issue rate of the SASS they run (cuobjdump); K5 over the whole
             compress phase of path 1's main tree and of a 2^20-leaf FRI tree
             at tail thresholds of 64 to 512 digests and layer by layer; K7
             on path 3's own rv32_base_alu quotient input and on the prove's
-            one launch over all 15 AIRs; each device time with the card
+            one launch over all 15 AIRs, and in its global-memory mode at
+            2^16 rows; K12 on path 3's own openings table; K10's yardstick
+            torch.cumsum on the inner dimension of the (4, N) row sums (and
+            on the outer dimension of (N, 4), the earlier reading); each
+            device time with the card
             kept busy while the host enqueues, and beside it the reading
             whose events span the host's enqueue (ms_host)
 
@@ -140,6 +151,9 @@ TEST_STARK = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=2,
 
 # Path 3: the fibonacci guest's loop count; 5 instructions an iteration.
 VM_FIB_N = 200_000
+# The variants' tallest heights: K3 at 2^22, K12's table up to 2^22 rows,
+# K10's longest look-back chain over 2^22 + 37 rows, K9 at 2^21.
+VARIANT_LOG_H = 22
 # K5's compress phase is timed on a FRI tree of 2^20 leaves, path 3's largest.
 FRI_TREE_LOG = 20
 # Path 2 has no interactions: it runs every kernel but K8, K9, K10 and the
@@ -379,14 +393,13 @@ def fixture_contexts(on=None, last_pv_delta=0) -> list:
 def near_limit_dag(fits: bool) -> tuple:
     """The first random DAG (widening operand windows) whose program takes
     over 90% of the kernel's slot words beside its code and still fits
-    (``fits``), or the first one past the limit."""
+    shared memory (``fits``), or the first one past the limit, which runs
+    in the kernel's global-memory mode."""
     for window in range(500, 40000, 250):
         nodes, roots = random_dag(np.random.default_rng(window), 2 * window, window)
         dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
-        try:
-            prog = qmod.compile_dag_code(dag, n_main=2, has_preprocessed=True,
-                                         has_perm=True)
-        except ValueError:
+        prog = qmod.compile_dag_code(dag, n_main=2, has_preprocessed=True, has_perm=True)
+        if prog.global_memory:
             if not fits:
                 return nodes, roots
             continue
@@ -395,21 +408,43 @@ def near_limit_dag(fits: bool) -> tuple:
     raise AssertionError("no random DAG reached the slot limit")
 
 
-def random_dag(rng, n_ops: int, window: int = 16) -> tuple:
+def code_limit_dag() -> tuple:
+    """A random DAG whose code alone overruns the kernel's shared memory
+    (over 14,528 instructions of 16 bytes): 40,000 operations on a window of
+    16."""
+    return random_dag(np.random.default_rng(40000), 40000, 16)
+
+
+def columns_limit_dags() -> dict:
+    """Base-valued random DAGs for the columns mode, every node a root: one
+    past the slot limit (a window of 2,000 keeps about 2,000 values live)
+    and one past the code limit (8,000 operations, each computed and
+    stored)."""
+    out = {}
+    for name, n_ops, window in (("past_slots", 4000, 2000), ("past_code", 8000, 16)):
+        nodes, _ = random_dag(np.random.default_rng(n_ops), n_ops, window, base_only=True)
+        out[name] = (nodes, [r for r in range(len(nodes)) if nodes[r][0] != "const"])
+    return out
+
+
+def random_dag(rng, n_ops: int, window: int = 16, base_only: bool = False) -> tuple:
     """A random constraint DAG over two main parts (3 and 2 columns), a
     preprocessed matrix (2), a permutation matrix (2 ext columns), 3
-    publics, 2 challenges, 1 exposed value and the selectors; operands come
-    from the last ``window`` nodes or from the leaves, so the window bounds
-    the program's live slots.  Returns (nodes, roots)."""
+    publics, 2 challenges, 1 exposed value and the selectors (with
+    ``base_only``, the constants, main and preprocessed cells and publics
+    alone); operands come from the last ``window`` nodes or from the leaves,
+    so the window bounds the program's live slots.  Returns (nodes, roots)."""
     nodes = [("const", 0), ("const", 1), ("const", P - 1), ("const", 12345)]
     nodes += [("var", "main", part, off, c) for part, w in enumerate((3, 2))
               for c in range(w) for off in (0, 1)]
     nodes += [("var", "preprocessed", 0, off, c) for c in range(2) for off in (0, 1)]
-    nodes += [("var", "permutation", 0, off, c) for c in range(2) for off in (0, 1)]
+    if not base_only:
+        nodes += [("var", "permutation", 0, off, c) for c in range(2) for off in (0, 1)]
     nodes += [("var", "public", 0, 0, k) for k in range(3)]
-    nodes += [("var", "challenge", 0, 0, k) for k in range(2)]
-    nodes += [("var", "exposed", 0, 0, 0)]
-    nodes += [("sel", s) for s in qmod.SELECTORS]
+    if not base_only:
+        nodes += [("var", "challenge", 0, 0, k) for k in range(2)]
+        nodes += [("var", "exposed", 0, 0, 0)]
+        nodes += [("sel", s) for s in qmod.SELECTORS]
     n_leaves = len(nodes)
     for _ in range(n_ops):
         k = len(nodes)
@@ -548,8 +583,9 @@ def phase_pinned(dev) -> None:
           "fib10_instret": pre.instret, "tampered_vm_public_value_fails": True})
 
 
-def phase_variants(dev, rng) -> None:
-    """Every kernel against its plain version at mid sizes."""
+def phase_variants(dev, rng) -> dict:
+    """Every kernel against its plain version at mid sizes; returns K7's
+    programs by name (``global_timing`` times the global-memory ones)."""
     errs = {}
     # K3 around its tile of 2^11 rows: heights 2^10, 2^11, 2^12 (one and
     # two passes) at every width and every argument set; 2^21 (11 + 10
@@ -557,7 +593,7 @@ def phase_variants(dev, rng) -> None:
     tk = ntt.K_MAX
     shapes = [(0, 5), (1, 3)] + [(lh, w) for lh in (tk - 1, tk, tk + 1)
                                  for w in (1, 7, 8, 9, 45, 101, 257)]
-    shapes += [(2 * tk - 1, w) for w in (1, 8, 9, 45)] + [(22, w) for w in (1, 7)]
+    shapes += [(2 * tk - 1, w) for w in (1, 8, 9, 45)] + [(VARIANT_LOG_H, w) for w in (1, 7)]
     for log_n, w in shapes:
         x = bb.monty(rng.integers(0, bb.P, size=(1 << log_n, w)), device=dev)
         errs[f"ntt/{log_n}x{w}"] = max_abs_err(ntt.ntt(x), ntt.ntt_plain(x))
@@ -603,8 +639,11 @@ def phase_variants(dev, rng) -> None:
 
     # K7+K11: random DAGs at 2^12 rows, next_step 2: ~2,000 nodes, and one
     # whose slots come within 10% of the kernel's limit beside its code (a
-    # block of 32 threads); the next larger one is refused.  Then one launch over a job
-    # table of heights 2^1 to 2^12, lqd 0 and 1, and FibonacciAir at 2^12.
+    # block of 32 threads); then past the limit in the kernel's global-memory
+    # mode, each in its own launch: the next larger one (past the slot
+    # limit) and one whose code alone overruns shared memory.  Then one
+    # launch over a job table of heights 2^1 to 2^12, lqd 0 and 1, one
+    # table that mixes both modes (two launches), and FibonacciAir at 2^12.
     vals = dict(publics=bb.to_monty_np(rng.integers(0, P, size=3)),
                 challenges=bb.to_monty_np(rng.integers(0, P, size=(2, 4))),
                 exposed=bb.to_monty_np(rng.integers(0, P, size=(1, 4))),
@@ -612,28 +651,29 @@ def phase_variants(dev, rng) -> None:
     log_n, lqd = 11, 1
     srcs = [words(rng, dev, 1 << (log_n + 1), w) for w in (3, 2, 2, 8)]
     srcs[1] = torch.cat([srcs[1], srcs[2]], dim=1)[:, :2]  # a column slice
-    big = {}
+    big, qprogs = {}, {}
     for name, (nodes, roots) in (("dag2k", random_dag(np.random.default_rng(1960), 1960)),
-                                 ("near_limit", near_limit_dag(True))):
+                                 ("near_limit", near_limit_dag(True)),
+                                 ("past_slots", near_limit_dag(False)),
+                                 ("past_code", code_limit_dag())):
         dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
         prog = qmod.compile_dag(dag, n_main=2, has_preprocessed=True,
                                 has_perm=True, **vals)
+        qprogs[name] = prog
         n_instr = int(prog.code.shape[0])
+        require(prog.global_memory == name.startswith("past"),
+                f"{name}: global_memory {prog.global_memory}")
         big[name] = {"nodes": len(nodes), "instructions": n_instr,
-                     "lane_words": prog.lane_words,
+                     "lane_words": prog.lane_words, "global_memory": prog.global_memory,
                      "limit": qmod.max_lane_words(n_instr),
-                     "threads": qmod.block_threads(prog.lane_words, n_instr)}
+                     "threads": qmod.block_threads(prog.lane_words, n_instr,
+                                                   prog.global_memory)}
+        before = _build.LAUNCHES["quotient"]
         errs[f"quotient/{name}"] = max_abs_err(
             qmod.evaluate(prog, srcs, log_n, lqd),
             qmod.evaluate_plain(prog, srcs, log_n, lqd))
-    nodes, roots = near_limit_dag(False)
-    too_big = SymbolicDag(nodes=nodes, constraint_roots=roots)
-    try:
-        qmod.compile_dag_code(too_big, n_main=2, has_preprocessed=True, has_perm=True)
-        refused = False
-    except ValueError:
-        refused = True
-    require(refused, "a program over the slot limit was accepted")
+        require(_build.LAUNCHES["quotient"] == before + 1, f"quotient/{name}: one launch")
+    require(big["past_code"]["limit"] < 0, "the code-limit program's code fits shared memory")
     nodes, roots = random_dag(np.random.default_rng(400), 400)
     dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
     jprog = qmod.compile_dag(dag, n_main=2, has_preprocessed=True, has_perm=True,
@@ -646,6 +686,19 @@ def phase_variants(dev, rng) -> None:
     errs["quotient/jobs"] = max(
         max_abs_err(g, qmod.evaluate_plain(jprog, s_, ln, q))
         for g, s_, (ln, q) in zip(got, jsrcs, jobs))
+    # both modes in one table: the shared-memory jobs in one launch, the
+    # global-memory ones in a second
+    mixed = [(jprog, 3, 1), (qprogs["past_slots"], 6, 1), (qprogs["near_limit"], 1, 0),
+             (qprogs["past_code"], 2, 0), (jprog, 11, 0)]
+    msrcs = [[words(rng, dev, 1 << (ln + q + 1), w) for w in (3, 2, 2, 8)]
+             for _, ln, q in mixed]
+    before = _build.LAUNCHES["quotient"]
+    got = qmod.evaluate_many([m[0] for m in mixed], msrcs, [m[1] for m in mixed],
+                             [m[2] for m in mixed])
+    require(_build.LAUNCHES["quotient"] == before + 2, "a mixed table takes two launches")
+    errs["quotient/mixed_modes"] = max(
+        max_abs_err(g, qmod.evaluate_plain(pr, s_, ln, q))
+        for g, s_, (pr, ln, q) in zip(got, msrcs, mixed))
     fib_dag = stark.keygen([FibonacciAir()], StarkConfig(), device=dev).vk.per_air[0].dag
     fprog = qmod.compile_dag(fib_dag, n_main=1, has_preprocessed=False,
                              has_perm=False, publics=[1, 2, 3], alpha=vals["alpha"])
@@ -664,12 +717,29 @@ def phase_variants(dev, rng) -> None:
             errs[f"compress_tail/2^{log_h}/{tail_max}"] = max(
                 max_abs_err(a, b) for a, b in zip(got, want))
 
-    # K12, K13, K14 at 2^12; K12 on a column slice
-    coeffs = words(rng, dev, 4096, 9)[:, 2:7]
-    zp, geos = words(rng, dev, 4096, 4), words(rng, dev, 2, 4096)
-    for npts in (1, 2):
-        errs[f"open_dot/{npts}"] = max_abs_err(pv._open_dot(coeffs, zp, geos[:npts]),
-                                               pv._open_dot_plain(coeffs, zp, geos[:npts]))
+    # K12: one job table of widths 1, 2, 4, 5, 33 and 380 at heights 2^1 to
+    # 2^22, one and two points, column slices (a row stride above the
+    # width); then K13 and K14 at 2^12
+    zp = words(rng, dev, 1 << VARIANT_LOG_H, 4)
+    widths = (1, 2, 4, 5, 33, 380)
+    ojobs = []
+    for log_h in range(1, VARIANT_LOG_H + 1):
+        w = widths[log_h % len(widths)]
+        while (w << log_h) > 1 << 24:  # the plain version's int64 (N, W, 4) product
+            w = widths[widths.index(w) - 1]
+        base = words(rng, dev, 1 << log_h, w + 3)
+        coeffs = base[:, 1:1 + w] if log_h % 2 else base[:, :w].contiguous()
+        mults = [int(x) for x in rng.integers(1, P, size=1 + log_h % 2)]
+        ojobs.append((coeffs, mults))
+    ojobs.append((words(rng, dev, 1 << 9, 380), [1, 7]))
+    before = _build.LAUNCHES["open_dot"]
+    got = pv.open_many(ojobs, zp)
+    require(_build.LAUNCHES["open_dot"] == before + 2, "K12: two launches a table")
+    want = pv.open_many_plain(ojobs, zp)
+    errs["open_dot/table"] = max(max_abs_err(a, b) for a, b in zip(got, want))
+    open_table = [[int(c.shape[0]), int(c.shape[1]), int(c.stride(0)), len(m)]
+                  for c, m in ojobs]
+    del ojobs, got, want, zp
     mat, apows = words(rng, dev, 4096, 7)[:, 1:6], words(rng, dev, 6, 4)
     for npts in (1, 2):
         pts = [tuple(words(rng, dev, 4) for _ in range(3)) for _ in range(npts)]
@@ -694,7 +764,9 @@ def phase_variants(dev, rng) -> None:
     idx = rng.integers(0, 4096, size=84).tolist()
     errs["gather"] = max_abs_err(plan.run_device(idx), plan.run_plain(idx))
 
-    # K7 columns mode: a random DAG's base roots over 2^12 natural rows
+    # K7 columns mode: a random DAG's base roots over 2^12 natural rows;
+    # base-valued DAGs past the slot limit and past the code limit, each in
+    # its own launch in global-memory mode
     nodes, roots = random_dag(np.random.default_rng(1960), 1960)
     dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
     tags = qmod._tags(dag, range(len(nodes)))
@@ -705,11 +777,28 @@ def phase_variants(dev, rng) -> None:
     csrc = [s[:1 << 12] for s in srcs[:3]]
     cols = qmod.evaluate_columns(cprog, csrc, 12)
     errs["quotient_columns"] = max_abs_err(cols, qmod.evaluate_columns_plain(cprog, csrc, 12))
+    for name, (nodes, roots) in columns_limit_dags().items():
+        cprog = qmod.compile_columns(SymbolicDag(nodes=nodes, constraint_roots=[]), roots,
+                                     n_main=2, has_preprocessed=True,
+                                     publics=bb.to_monty_np(rng.integers(0, P, size=3)))
+        require(cprog.global_memory, f"columns/{name} fits shared memory")
+        big[f"columns/{name}"] = {"roots": len(roots),
+                                  "instructions": int(cprog.code.shape[0]),
+                                  "lane_words": cprog.lane_words, "global_memory": True,
+                                  "limit": qmod.max_lane_words(int(cprog.code.shape[0]))}
+        before = _build.LAUNCHES["quotient_columns"]
+        cols = qmod.evaluate_columns(cprog, csrc, 12)
+        require(_build.LAUNCHES["quotient_columns"] == before + 1,
+                f"columns/{name}: one launch")
+        errs[f"quotient_columns/{name}"] = max_abs_err(
+            cols, qmod.evaluate_columns_plain(cprog, csrc, 12))
+        del cols
 
     # K9 and K10: a layout of 5 interactions in 3 chunks (0 to 4 fields, a
-    # zero denominator), heights 1, 1000 (a partial block) and 2^21 (more
-    # block totals than one scan pass)
-    for n in (1, 1000, 1 << 21):
+    # zero denominator), heights 1, 1000 (a partial tile) and 2^21; then
+    # K10 alone over m = 1 to 12 chunks at heights that are not a multiple
+    # of its tile, and 2^22 + 37 rows (16,385 tiles: a long look-back chain)
+    for n in (1, 1000, 1 << (VARIANT_LOG_H - 1)):
         table = np.asarray([(0, 2, 0, 1), (3, 0, 0, 0), (4, 4, 1, 1),
                             (9, 1, 2, 0), (11, 3, 2, 1)], dtype=np.int32)
         layout = logup.InteractionLayout(
@@ -723,8 +812,20 @@ def phase_variants(dev, rng) -> None:
         alpha[0] = P - int(layout.bus_m[0])  # interaction 0, row 0: d = 0
         perm = logup.perm_cols(cols, layout, alpha, bpows)
         errs[f"perm_cols/{n}"] = max_abs_err(perm, logup.perm_cols_plain(cols, layout, alpha, bpows))
-        got, want = logup.perm_scan(perm), logup.perm_scan_plain(perm)
+        want = logup.perm_scan_plain(perm)
+        got = logup.perm_scan(perm)
         errs[f"perm_scan/{n}"] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    scan_shapes = [(n, m) for m in range(1, 13)
+                   for n in (1, 255, 257, 1000 + 37 * m, (1 << 14) + m)]
+    scan_shapes += [((1 << VARIANT_LOG_H) + 37, 1), ((1 << VARIANT_LOG_H) + 1, 2)]
+    for n, m in scan_shapes:
+        perm = logup.perm_buffer(n, m, dev)
+        perm.copy_(words(rng, dev, n, 4 * m))
+        want = logup.perm_scan_plain(perm)
+        got = logup.perm_scan(perm)
+        errs[f"perm_scan/{n}x{m}"] = max(max_abs_err(got[0], want[0]),
+                                         max_abs_err(got[1], want[1]))
+        del perm, want, got
 
     # K8: random sends of all three kinds, canonical values small and large
     sends_tab = np.asarray([(lookup.RANGE, 0, 1, 1, 2), (lookup.BITWISE, 3, 4, 5, 2),
@@ -744,8 +845,12 @@ def phase_variants(dev, rng) -> None:
     errs["lookup_hist"] = max(max_abs_err(a, b) for a, b in zip(k_tabs, p_tabs))
     bad = {k: v for k, v in errs.items() if v}
     emit({"phase": "variants", "cases": len(errs), "mismatched": bad,
-          "quotient_dags": big, "quotient_jobs": jobs})
+          "quotient_dags": big, "quotient_jobs": jobs,
+          "quotient_mixed": [(int(m[0].code.shape[0]), m[1], m[2], m[0].global_memory)
+                             for m in mixed],
+          "open_table": open_table, "perm_scan_shapes": scan_shapes})
     require(not bad, f"kernel and plain disagree: {bad}")
+    return qprogs
 
 
 def run_main(traces: list, cfg: StarkConfig) -> dict:
@@ -825,9 +930,10 @@ def run_vm(dev, cfg: StarkConfig) -> dict:
 
 
 def check_vm_kernels(vm, record: dict) -> dict:
-    """K7 (columns mode), K8, K9, K10 and K7 (quotient) of path 3 against
-    their plain versions on the prove's own inputs: every AIR's sends and
-    permutation trace, and every AIR's quotient from one launch."""
+    """K7 (columns mode), K8, K9, K10, K7 (quotient) and K12 of path 3
+    against their plain versions on the prove's own inputs: every AIR's
+    sends and permutation trace, every AIR's quotient from one launch, and
+    every matrix's openings from one table."""
     lk = record["lookup"]
     range_h, tuple_total, sizes1 = lk["sizes"]
     p_tabs = lookup.new_tables(range_h, tuple_total, lk["tables"][0].device)
@@ -854,13 +960,18 @@ def check_vm_kernels(vm, record: dict) -> dict:
     got = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))
     q_err = {vm.airs[i].name: max_abs_err(g, qmod.evaluate_plain(*qrec[i]))
              for i, g in enumerate(got)}
+    # K12 on every matrix of the openings in one table, as the prove ran it
+    ojobs, zpows = record["openings"]
+    open_err = max(max_abs_err(a, b) for a, b in
+                   zip(pv.open_many(ojobs, zpows), pv.open_many_plain(ojobs, zpows)))
     errs = {"quotient_columns": max(cols_err.values()), "lookup_hist": hist_err,
             "perm_cols": max(perm_err.values()), "perm_scan": max(scan_err.values()),
-            "quotient": max(q_err.values())}
+            "quotient": max(q_err.values()), "open_dot": open_err}
     require(all(v == 0 for v in errs.values()),
             f"kernel and plain differ on the VM prove's inputs: {cols_err} "
             f"{perm_err} {scan_err} {q_err} {errs}")
     return {"max": errs, "columns_airs": len(cols_err), "perm_airs": len(perm_err),
+            "open_jobs": len(ojobs),
             "quotient_airs": {vm.airs[i].name: {"log_n": r[2], "lqd": r[3],
                                                 "lane_words": r[0].lane_words}
                               for i, r in enumerate(qrec)}}
@@ -875,21 +986,50 @@ def kernel_names() -> list:
     return names
 
 
+# Each kernel's __global__ functions (csrc/), by its _build.LAUNCHES name.
+GLOBALS = {"bb_elementwise": ("bb_elementwise_kernel",), "ntt": ("ntt_pass_kernel",),
+           "poseidon2_hash_rows": ("poseidon2_hash_rows_kernel",),
+           "poseidon2_compress_layer": ("poseidon2_compress_layer_kernel",),
+           "poseidon2_compress_tail": ("poseidon2_compress_tail_kernel",),
+           "ext_elementwise": ("ext_elementwise_kernel",), "gather": ("gather_kernel",),
+           "quotient": ("quotient_kernel", "quotient_global_kernel"),
+           "open_dot": ("open_partial_kernel", "open_reduce_kernel"),
+           "fri_reduced_open": ("reduced_open_kernel",), "fri_fold": ("fri_fold_kernel",),
+           "quotient_columns": ("columns_kernel", "columns_global_kernel"),
+           "perm_cols": ("perm_cols_kernel",), "perm_scan": ("perm_scan_kernel",),
+           "lookup_hist": ("lookup_hist_kernel",)}
+
+
 def profile_prove(vm, exe) -> dict:
     """One more warm VirtualMachine.prove under torch.profiler (CPU and CUDA
     activities): each kernel's summed device ms and launches by its
-    __global__ name, the other device work, and the device's busy and idle
-    share of the prove's wall time (the union of device intervals over the
-    host clock around the prove, profiler on).  If the profiler sees no
-    device time, CUDA events around every _build.launch instead."""
+    __global__ name (and by wrapper, GLOBALS), the other device work, and
+    the device's busy and idle share of the prove's wall time (the union of
+    device intervals over the host clock around the prove, profiler on).
+    Each launch's bound at its own shape is summed per kernel as well
+    (``path3_bounds``, from the launches' arguments and the prove's
+    record).  If the profiler sees no device time, CUDA events around
+    every _build.launch instead."""
     from torch.profiler import ProfilerActivity, profile
     names = kernel_names()
+    calls, launch = [], _build.launch
+
+    def captured(kernel, fn_name, device, *args):
+        launch(kernel, fn_name, device, *args)
+        calls.append((kernel, fn_name, args))
+
+    record: dict = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        vm.prove(exe)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    _build.launch = captured
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            vm.prove(exe, record=record)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        _build.launch = launch
+    bounds = path3_bounds(calls, record)
     per: dict = {}
     other = {"ms": 0.0, "calls": 0}
     spans = []
@@ -907,12 +1047,15 @@ def profile_prove(vm, exe) -> dict:
         for start, end in sorted(spans):
             busy_us += max(0.0, end - max(start, last))
             last = max(last, end)
+        by_kernel = {k: sum(per.get(g, {"ms": 0.0})["ms"] for g in gs)
+                     for k, gs in GLOBALS.items()}
         return {"method": "torch.profiler", "wall_s": wall,
                 "device_busy_share": busy_us / 1e6 / wall,
                 "device_idle_share": 1 - busy_us / 1e6 / wall,
-                "kernels": per, "other_device": other}
+                "kernels": per, "ms_by_kernel": by_kernel, "other_device": other,
+                "bounds": bounds}
     # CUDA events around each launch: kernels only, no copies
-    recs, launch = [], _build.launch
+    recs = []
 
     def timed(kernel, fn_name, device, *args):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -930,6 +1073,7 @@ def profile_prove(vm, exe) -> dict:
         wall = time.perf_counter() - t0
     finally:
         _build.launch = launch
+    per = {}
     for kernel, a, b in recs:
         slot = per.setdefault(kernel, {"ms": 0.0, "calls": 0})
         slot["ms"] += a.elapsed_time(b)
@@ -937,7 +1081,88 @@ def profile_prove(vm, exe) -> dict:
     busy = sum(v["ms"] for v in per.values()) / 1e3
     return {"method": "cuda events around _build.launch (the profiler showed "
             "no device time)", "wall_s": wall, "kernel_busy_share": busy / wall,
-            "kernel_idle_share": 1 - busy / wall, "kernels": per}
+            "kernel_idle_share": 1 - busy / wall, "kernels": per,
+            "ms_by_kernel": {k: v["ms"] for k, v in per.items()}, "bounds": bounds}
+
+
+def path3_bounds(calls: list, record: dict) -> dict:
+    """Per kernel, the sum over one prove's launches of each launch's bound
+    at its own shape (the larger of its bytes and its operations, as
+    ``bound``), from the launches' arguments (``calls``: (kernel, C entry,
+    args) in launch order) and, for the table-driven kernels, the prove's
+    ``record``: K7 from its programs, K7 columns and K9 from the AIRs'
+    columns programs and layouts, K8 from its sends, K12 from its job
+    table, K6 from its plan."""
+    out = {k: {"bound_ms": 0.0, "launches": 0, "bytes": 0, "ops": 0} for k in GLOBALS}
+
+    def add(kernel, nbytes, ops):
+        row = out[kernel]
+        row["bound_ms"] += bound(nbytes, ops)[0]
+        row["bytes"] += nbytes
+        row["ops"] += ops
+
+    for kernel, fn, a in calls:
+        out[kernel]["launches"] += 1
+        if fn == "ovt_bb_elementwise":  # op, a, b, out, n
+            code, n = a[0], a[4]
+            reads = 1 if code in (0, 1) else 2
+            add(kernel, n * 4 * (reads + 1),
+                n * (MUL_OPS if code in (0, 2) else RED_OPS if code == 1 else ADD_OPS))
+        elif fn == "ovt_ext_elementwise":  # op, a, b, out, n, bcast
+            code, b, n, bcast = a[0], a[2], a[4], a[5]
+            b_words = 0 if b is None or bcast else (1 if code == 3 else 4)
+            add(kernel, n * 4 * (8 + b_words),
+                n * (EXT_MUL, EXT_ADD, EXT_ADD, EXT_SCALE, EXT_BATCH_INV)[code])
+        elif fn == "ovt_ntt_pass":  # src, dst, tw, in, out, log_n, w, s0, k, n_in, rev
+            log_n, w, k, n_in = a[5], a[6], a[8], a[9]
+            n = 1 << log_n
+            add(kernel, (n_in + n) * w * 4,
+                k * (n // 2) * w * (MUL_OPS + 2 * ADD_OPS)
+                + (n_in * w * MUL_OPS if a[3] is not None else 0)
+                + (n * w * MUL_OPS if a[4] is not None else 0))
+        elif fn == "ovt_poseidon2_hash_rows":  # in, out, n, w
+            n, w = a[2], a[3]
+            add(kernel, n * (w * 4 + 32), n * -(-w // 8) * PERM_OPS)
+        elif fn == "ovt_poseidon2_compress_layer":  # prev, inj, out, h
+            h, inj = a[3], a[1] is not None
+            add(kernel, h * 32 * (3 + inj), h * (1 + inj) * PERM_OPS)
+        elif fn == "ovt_poseidon2_compress_tail":  # prev, injs, outs, n, h0
+            injs, n_layers, h0 = a[1], a[3], a[4]
+            perms = sum((h0 >> t) * (1 + (injs[t] is not None)) for t in range(n_layers))
+            add(kernel, 2 * h0 * 32 + perms * 32, perms * PERM_OPS)
+        elif fn == "ovt_fri_fold":  # evals, beta, y, inv, ro, half, out
+            half, ro = a[5], a[4] is not None
+            add(kernel, half * (32 + 8 + 16 + 16 * ro),
+                half * (EXT_ADD * 2 + EXT_SCALE + EXT_MUL + ADD_OPS
+                        + (EXT_MUL + EXT_ADD) * ro))
+        elif fn == "ovt_reduced_open":  # mat, stride, w, h, apows, npts, pts, xs, ro
+            w, h, npts = a[2], a[3], a[5]
+            add(kernel, h * (w * 4 + 32 + 4), h * reduced_open_ops(w, npts))
+        elif fn == "ovt_perm_scan":  # buf, n, m, status, cumsum
+            add(kernel, *perm_scan_cost(a[1], a[2]))
+    # table-driven kernels, from the record
+    for prog, _, log_n, lqd in record["quotient"]:
+        add("quotient", *quotient_cost([(prog, None, log_n, lqd)]))
+    lk = record["lookup"]
+    columns = [(prog, src, log_n) for _, prog, src, log_n, _ in lk["airs"]]
+    columns += [e["columns"] for e in record["logup"]]
+    for prog, _, log_n in columns:
+        loads, ops = columns_cost(prog)
+        add("quotient_columns", (1 << log_n) * (loads + prog.n_roots) * 4, (1 << log_n) * ops)
+    for e in record["logup"]:
+        cols, layout = e["perm_cols"][:2]
+        n = int(cols.shape[1])
+        add("perm_cols", n * (len(layout.roots) + 4 * layout.m) * 4, n * perm_cols_ops(layout))
+    table_words = sum(int(t.numel()) for t in lk["tables"])
+    for _, prog, src, log_n, layout in lk["airs"]:
+        cols = qmod.evaluate_columns(prog, src, log_n)
+        _, cnt, n_words = lookup_scatter(cols, layout, lk["sizes"])
+        add("lookup_hist", (n_words + 2 * table_words) * 4,
+            n_words * MUL_OPS + int(cnt.numel()) * (3 * ADD_OPS + 1))
+    add("open_dot", *open_cost(*record["openings"]))
+    plan, idx = record["gather"]
+    add("gather", len(idx) * sum(int(m.shape[1]) for m, _, _ in plan.jobs) * 8, 0)
+    return out
 
 
 def sass_permutation() -> dict:
@@ -989,7 +1214,7 @@ def run(dev: torch.device) -> int:
     setup = phase_setup(dev)
     rng = np.random.default_rng(SEED)
     phase_pinned(dev)
-    phase_variants(dev, rng)
+    qprogs = phase_variants(dev, rng)
 
     # ---- path 1: the segment commit ---------------------------------------
     cfg = StarkConfig(fri=FriParameters.standard_with_100_bits_conjectured_security(1))
@@ -1121,10 +1346,11 @@ def run(dev: torch.device) -> int:
           "cells": cells, "cells_per_s": cells / warm_s,
           "cells_per_s_cold": cells / prove_s, "proof_bytes": len(vblob),
           "proof_sha256": vm_sha, "peak_gb": v_peak_gb, "launches": v_launches, "plain_checks": v_checks})
-    emit({"phase": "vm_profile", **profile_prove(vm, vmr["exe"])})
+    profile = profile_prove(vm, vmr["exe"])
+    emit({"phase": "vm_profile", **profile})
 
     kernels = timing(dev, setup, rng, main, err, traces, launches, proved,
-                     ctxs, cfg, p_launches, vmr, v_launches)
+                     ctxs, cfg, p_launches, vmr, v_launches, qprogs, profile)
     print(setup["nvidia_smi"].splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1198,6 +1424,41 @@ def perm_cols_ops(layout) -> int:
                + EXT_SCALE + EXT_ADD for nf in layout.table[:, 1])
 
 
+def perm_scan_cost(n: int, m: int) -> tuple:
+    """(bytes, operations) of K10 over n rows of m chunks: each row's 4m
+    words read and its 4 words of phi written; the row sum and the scan's
+    add, an extension add a chunk."""
+    return n * (4 * m + 4) * 4, n * m * EXT_ADD
+
+
+def open_cost(jobs: list, zpows) -> tuple:
+    """(bytes, operations) of K12 over a job table: every coefficient
+    matrix once, zpows once (as far as the tallest matrix reads it), the
+    openings written; per row and point a row weight (a scale and the
+    product for the next power), per element and point a scale and an
+    add."""
+    n_max = max(int(c.shape[0]) for c, _ in jobs)
+    nbytes = n_max * 16 + sum(int(c.shape[0]) * int(c.shape[1]) * 4
+                              + len(m) * int(c.shape[1]) * 16 for c, m in jobs)
+    ops = sum(int(c.shape[0]) * len(m) * (EXT_SCALE + MUL_OPS + int(c.shape[1])
+                                          * (EXT_SCALE + EXT_ADD)) for c, m in jobs)
+    return nbytes, ops
+
+
+def quotient_cost(recs) -> tuple:
+    """(bytes, operations) of K7 over quotient jobs (program, _, log_n,
+    lqd): each cell a program loads read once, 16 bytes out a row, and
+    ``quotient_ops`` a row."""
+    ops = sum((1 << (r[2] + r[3])) * quotient_ops(r[0]) for r in recs)
+    nbytes = 0
+    for prog, _, log_n, lqd in recs:
+        cells = {(int(a) >> 1, int(b), int(op)) for op, _, a, b in prog.code
+                 if op in (qmod.LOAD_B, qmod.LOAD_E)}
+        row_words = sum(4 if op == qmod.LOAD_E else 1 for _, _, op in cells)
+        nbytes += (1 << (log_n + lqd)) * (row_words * 4 + 16)
+    return nbytes, ops
+
+
 def lookup_scatter(cols, layout, sizes) -> tuple:
     """The live sends' (index, count) pairs of one AIR over the three tables
     laid end to end, and the words the function must read (each send's
@@ -1228,8 +1489,14 @@ def lookup_scatter(cols, layout, sizes) -> tuple:
 
 
 def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
-           p_launches, vmr, v_launches) -> list:
-    """Each kernel and its plain version at the paths' shapes."""
+           p_launches, vmr, v_launches, qprogs, profile) -> list:
+    """Each kernel and its plain version at the paths' shapes, with its
+    path-3 device ms and path-3 bound from ``profile`` (vm_profile)."""
+    path3_bounds, path3_ms = profile["bounds"], profile["ms_by_kernel"]
+    ojobs, ozpows = vmr["record"]["openings"]
+    open_path3 = {"jobs": len(ojobs), "bound_ms": bound(*open_cost(ojobs, ozpows))[0],
+                  "ms": cuda_ms(lambda: pv.open_many(ojobs, ozpows), 10),
+                  "ms_host": cuda_ms(lambda: pv.open_many(ojobs, ozpows), 10, busy=False)}
     tree = main["tree"]
     # ---- path 1 kernels: K1 to_monty of the widest trace; K3 the LDE of the
     # tallest batch; K4 the leaf hash; K5 the top layer with injection
@@ -1260,17 +1527,15 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     fib_lde, fib_coeffs = ntt.coset_lde(fib_dev, 1, return_coeffs=True)
     zeta = words(rng, dev, 4)
     zpows = ef.powers(zeta, nq)
-    g_n = bb.two_adic_generator_int(log_n)
-    geos = torch.stack([bb.from_numpy(pv._geo_series(m, nq), device=dev)
-                        for m in (1, g_n)])
+    open_jobs = [(fib_coeffs, [1, bb.two_adic_generator_int(log_n)])]
     apows = words(rng, dev, 3, 4)
     pts = [tuple(words(rng, dev, 4) for _ in range(3)) for _ in range(2)]
     ro0 = words(rng, dev, 2 * nq, 4)
     fold_in, beta = words(rng, dev, 2 * nq, 4), words(rng, dev, 4)
     errs = {
         "ext_elementwise": max_abs_err(zpows, ef.powers_plain(zeta, nq)),
-        "open_dot": max_abs_err(pv._open_dot(fib_coeffs, zpows, geos),
-                                pv._open_dot_plain(fib_coeffs, zpows, geos)),
+        "open_dot": max_abs_err(pv.open_many(open_jobs, zpows)[0],
+                                pv.open_many_plain(open_jobs, zpows)[0]),
         "fri_reduced_open": max_abs_err(
             pv.reduced_open(ro0.clone(), fib_lde, apows, pts),
             pv.reduced_open_plain(ro0, fib_lde, apows, pts)),
@@ -1297,6 +1562,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     m_alu = k9_layout.m
     perm_in = lentry["perm_scan"]
     row_sums = perm_in.long().reshape(n_alu, m_alu, 4).sum(dim=1)
+    row_sums_t = row_sums.t().contiguous()  # (4, N): the scan on the inner dimension
     lk = rec["lookup"]
     _, h_prog, h_src, h_log_n, h_layout = next(a for a in lk["airs"]
                                                if a[0] == "rv32_base_alu")
@@ -1339,10 +1605,9 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          nq * (w_f * 4 + 16 + 4), nq * quotient_ops(prog),
          [nq, int(prog.code.shape[0])]),
         ("open_dot", "open.cu", "openvm_tpu/stark/prover.py:232",
-         lambda: pv._open_dot(fib_coeffs, zpows, geos),
-         lambda: pv._open_dot_plain(fib_coeffs, zpows, geos), 10, 1,
-         nq * (w_f * 4 + 16 + 2 * 4), nq * 2 * (EXT_SCALE + w_f * (EXT_SCALE + EXT_ADD)),
-         [nq, w_f, 2]),
+         lambda: pv.open_many(open_jobs, zpows),
+         lambda: pv.open_many_plain(open_jobs, zpows), 10, 1,
+         *open_cost(open_jobs, zpows), [nq, w_f, 2]),
         ("fri_reduced_open", "fri.cu", "openvm_tpu/stark/prover.py:773",
          lambda: pv.reduced_open(ro_k, fib_lde, apows, pts),
          lambda: pv.reduced_open_plain(ro0, fib_lde, apows, pts), 5, 1,
@@ -1365,8 +1630,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          n_alu * perm_cols_ops(k9_layout), [n_alu, len(k9_layout.roots), m_alu]),
         ("perm_scan", "logup.cu", "openvm_tpu/stark/logup.py:328",
          lambda: logup.perm_scan(perm_in), lambda: logup.perm_scan_plain(perm_in),
-         10, 2, n_alu * (8 * m_alu + 4) * 4, n_alu * (m_alu + 1) * EXT_ADD,
-         [n_alu, 4 * m_alu]),
+         10, 2, *perm_scan_cost(n_alu, m_alu), [n_alu, 4 * m_alu]),
         ("lookup_hist", "lookup.cu", "openvm_tpu/stark/evaluator.py:253",
          lambda: lookup.lookup_hist(h_cols, h_layout, h_tabs, sizes1),
          lambda: lookup.lookup_hist_plain(h_cols, h_layout, h_tabs, sizes1), 10, 2,
@@ -1375,9 +1639,10 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          [n_alu, int(h_layout.table.shape[0])]),
     ]
     library = {
-        "perm_scan": (lambda: torch.cumsum(row_sums, dim=0),
-                      "torch.cumsum of the int64 row sums: the prefix sum without "
-                      "its reduction mod p or the concatenation"),
+        "perm_scan": (lambda: torch.cumsum(row_sums_t, dim=1),
+                      "torch.cumsum over the inner dimension of the (4, N) int64 row "
+                      "sums: the prefix sum without its reduction mod p or the row "
+                      "sums"),
         "lookup_hist": (lambda: flat_tab.index_add_(0, h_idx, h_cnt),
                         "index_add_ of the live sends' precomputed indices and "
                         "counts into the three tables laid end to end: the "
@@ -1410,6 +1675,15 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
             "library_ms": cuda_ms(lib_fn, 10) if lib_fn else None, "library": lib_what,
             "shape": shape, "bytes": nbytes, "ops": ops})
     by_name = {k["name"]: k for k in kernels}
+    # the earlier yardstick, on the outer dimension of the (N, 4) row sums
+    # (four columns in parallel), kept beside the new one
+    by_name["perm_scan"]["library_ms_outer_dim"] = cuda_ms(
+        lambda: torch.cumsum(row_sums, dim=0), 10)
+    by_name["perm_scan"]["library_outer_dim"] = (
+        "torch.cumsum over dim 0 of the (N, 4) int64 row sums")
+    for k in kernels:
+        k["path3_bound_ms"] = path3_bounds[k["name"]]["bound_ms"]
+        k["path3_ms"] = path3_ms.get(k["name"])
     # K3 in the prove path's form (stark/prover.py: every LDE returns its
     # raw coefficients too, one more n x w output), and its launches per LDE
     k3 = by_name["ntt"]
@@ -1437,6 +1711,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     compress = compress_timing(dev, rng, tree, sass, clock)
     by_name["poseidon2_compress_tail"]["tail_max"] = merkle.TAIL_MAX
     quotient_vm = quotient_timing(vmr)
+    quotient_global = global_timing(dev, rng, qprogs)
     # path 1's stages again, warm: the NTT tables are cached now; stage
     # times, so the host's enqueue counts
     warm_ms = {"to_monty_lde": cuda_ms(lambda: ntt.batched_coset_ldes(
@@ -1455,7 +1730,9 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
           "poseidon2_sass": by_name["poseidon2_hash_rows"].get("sass_per_permutation"),
           "poseidon2_hash_rows_bound_issue_ms":
               by_name["poseidon2_hash_rows"].get("bound_issue_ms"),
-          "compress_phase": compress, "quotient_vm": quotient_vm})
+          "compress_phase": compress, "quotient_vm": quotient_vm,
+          "quotient_global": quotient_global,
+          "open_dot_path3": open_path3, "path3_bounds": path3_bounds})
     return kernels
 
 
@@ -1521,28 +1798,42 @@ def quotient_timing(vmr) -> dict:
     code = next(iter(vm.pk.quotient_code.values()))[1]
     cols = [list(c) for c in zip(*qrec)]
 
-    def cost(recs):
-        ops = sum((1 << (r[2] + r[3])) * quotient_ops(r[0]) for r in recs)
-        nbytes = 0
-        for prog, _, log_n, lqd in recs:  # each cell read once, 16 bytes out
-            cells = {(int(a) >> 1, int(b), int(op)) for op, _, a, b in prog.code
-                     if op in (qmod.LOAD_B, qmod.LOAD_E)}
-            row_words = sum(4 if op == qmod.LOAD_E else 1 for _, _, op in cells)
-            nbytes += (1 << (log_n + lqd)) * (row_words * 4 + 16)
-        return bound(nbytes, ops)
-
     out = {"rv32_base_alu": {"rows": 1 << (qrec[alu][2] + qrec[alu][3]),
                              "instructions": int(qrec[alu][0].code.shape[0]),
                              "lane_words": qrec[alu][0].lane_words,
                              "ops_per_row": quotient_ops(qrec[alu][0])},
            "path3_launch": {"airs": len(qrec)}}
     for key, recs in (("rv32_base_alu", [qrec[alu]]), ("path3_launch", qrec)):
-        b_ms, b_by = cost(recs)
+        b_ms, b_by = bound(*quotient_cost(recs))
         out[key].update({"bound_ms": b_ms, "bound_by": b_by})
     for key, fn in (("rv32_base_alu", lambda: qmod.evaluate(*qrec[alu])),
                     ("path3_launch", lambda: qmod.evaluate_many(*cols, code=code))):
         out[key]["ms"] = cuda_ms(fn, 10)
         out[key]["ms_host"] = cuda_ms(fn, 10, busy=False)
+    return out
+
+
+def global_timing(dev, rng, qprogs: dict) -> dict:
+    """K7's global-memory mode at 2^16 rows (log_n 15, lqd 1) on the
+    variants' programs past the slot limit and past the code limit: device
+    ms, rows in flight and scratch bytes, bound, and equality with plain."""
+    log_n, lqd = 15, 1
+    srcs = [words(rng, dev, 1 << (log_n + lqd), w) for w in (3, 2, 2, 8)]
+    out = {}
+    for name in ("past_slots", "past_code"):
+        prog = qprogs[name]
+        threads = qmod.block_threads(prog.lane_words, int(prog.code.shape[0]), True)
+        total = qmod.block_plan([1 << (log_n + lqd)], threads)[2]
+        rows = qmod.global_rows(prog.lane_words, total, threads)
+        err = max_abs_err(qmod.evaluate(prog, srcs, log_n, lqd),
+                          qmod.evaluate_plain(prog, srcs, log_n, lqd))
+        require(err == 0, f"global-memory mode differs from plain at 2^16: {name}")
+        b_ms, b_by = bound(*quotient_cost([(prog, None, log_n, lqd)]))
+        out[name] = {"rows": 1 << (log_n + lqd), "instructions": int(prog.code.shape[0]),
+                     "lane_words": prog.lane_words, "threads": threads,
+                     "rows_in_flight": rows, "scratch_bytes": 4 * prog.lane_words * rows,
+                     "ms": cuda_ms(lambda: qmod.evaluate(prog, srcs, log_n, lqd), 3),
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
     return out
 
 

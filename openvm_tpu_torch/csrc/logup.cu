@@ -6,7 +6,8 @@
 // :155).  For each row and interaction i, d = alpha + bus_i +
 // sum_j beta^(j+1) * f_ij, and the interaction adds sign_i * count_i / d to
 // its chunk's column; the inverse of 0 is 0 (babybear.py:234), as in the
-// JAX package.  Output: (N, 4m) Montgomery words.
+// JAX package.  Output: the first 4m columns of the (N, 4m + 4) permutation
+// trace, whose last 4 columns K10 fills with phi.
 // Bound: operations.  The function needs per interaction its fields'
 // products and adds, a batch inverse (3 extension products) and the scale;
 // each row reads its field and count words and writes 16m bytes.
@@ -18,22 +19,31 @@
 // a row's interactions is the next step.
 //
 // K10 (ovt_perm_scan) replaces _perm_tail_jit (:328): the row sum over the
-// m chunks, the inclusive prefix sum of the row sums down the rows (phi),
-// the (N, 4m + 4) matrix [perm columns | phi] and phi's last row, the
-// cumulative sum.  Bound: bytes (each row reads 16m and writes 16m + 16).
-// Design: three launches.  A block of 1024 rows copies its perm columns,
-// sums its rows and scans them (warp shuffles, then the warp totals); a
-// single block scans the block totals into exclusive prefixes (and the
-// grand total, the cumulative sum); every block then adds its prefix to its
-// phi rows.  Modular addition is associative, so this order gives the same
-// words as any other.
+// m chunks, the inclusive prefix sum of the row sums down the rows (phi)
+// written into the last 4 columns of K9's (N, 4m + 4) buffer, and phi's
+// last row, the cumulative sum.  Bound: bytes (each row reads its 16m
+// bytes and writes 16).
+// Design: one launch, a single-pass scan with decoupled look-back.  A block
+// takes the next tile of SCAN_TILE rows from a counter (so every tile before
+// it has started), stages the tile's chunk columns in shared memory with
+// coalesced 16-byte loads (consecutive threads on consecutive words of the
+// tile, phi's words skipped), and each thread sums one row.  The block
+// scans its row sums (warp shuffles, then the warp totals), publishes its
+// aggregate, and its first warp looks back over 32 predecessors at a time:
+// aggregates are added until a published inclusive prefix is found.  The
+// block publishes its own inclusive prefix and writes phi.  Modular
+// addition is exact and associative, so this order gives the same words as
+// any other.
 #include <cuda_runtime.h>
 
 #include "ext.cuh"
 
 namespace {
 
-constexpr int SCAN_ROWS = 1024;  // rows per block of the scan, one per thread
+constexpr int SCAN_TILE = 256;   // rows a block of the scan, one a thread
+constexpr int SCAN_CHUNKS = 11;  // chunk columns staged at once; odd, so a
+                                 // thread's row of uint4s hits distinct banks
+constexpr int STATUS_WORDS = 16;  // a tile's flag, aggregate and prefix
 
 __global__ void perm_cols_kernel(const uint32_t* __restrict__ cols, uint32_t n,
                                  const int4* __restrict__ table, int n_its,
@@ -44,7 +54,7 @@ __global__ void perm_cols_kernel(const uint32_t* __restrict__ cols, uint32_t n,
   const ext::E alpha = ext::load(alpha_p);
   for (uint32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
        j += gridDim.x * blockDim.x) {
-    uint32_t* row = out + 4ull * m * j;
+    uint32_t* row = out + (4ull * m + 4) * j;
     ext::E acc = ext::zero();
     int chunk = table[0].z;
     for (int i = 0; i < n_its; ++i) {
@@ -74,10 +84,82 @@ __device__ __forceinline__ ext::E shfl_up(const ext::E& v, int offset) {
   return o;
 }
 
-// Inclusive scan of one value per thread over a block of SCAN_ROWS threads;
-// every thread of the block must call it.  *total gets the block's sum.
-__device__ ext::E block_scan(ext::E v, ext::E* total) {
-  __shared__ uint32_t warp_sums[SCAN_ROWS / 32][4];
+// The sum over the warp's 32 lanes, in every lane.
+__device__ __forceinline__ ext::E warp_sum(ext::E v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    ext::E o;
+    for (int c = 0; c < 4; ++c) o.c[c] = __shfl_xor_sync(0xffffffffu, v.c[c], off);
+    v = ext::add(v, o);
+  }
+  return v;
+}
+
+__device__ __forceinline__ ext::E to_e(const uint4& v) { return ext::E{{v.x, v.y, v.z, v.w}}; }
+__device__ __forceinline__ uint4 to_u4(const ext::E& e) {
+  return make_uint4(e.c[0], e.c[1], e.c[2], e.c[3]);
+}
+
+// A tile's status: word 0 its flag (0 nothing yet, 1 aggregate, 2 inclusive
+// prefix), words 4-7 its aggregate, 8-11 its inclusive prefix; each value
+// is written once, before the release store of its flag.
+__device__ __forceinline__ uint32_t flag_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void flag_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A published value, read past the L1 (a volatile load is relaxed at
+// system scope), after the acquire of its flag.
+__device__ __forceinline__ ext::E value_relaxed(const uint32_t* p) {
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return to_e(v);
+}
+
+__device__ __forceinline__ void publish(uint32_t* status, uint32_t flag, const ext::E& v) {
+  *reinterpret_cast<uint4*>(status + 4 * flag) = to_u4(v);
+  flag_release(status, flag);
+}
+
+// status: word 0 the tile counter, then STATUS_WORDS a tile, zeroed.
+__global__ void __launch_bounds__(SCAN_TILE)
+perm_scan_kernel(uint32_t* __restrict__ buf, long long n, int m,
+                 uint32_t* __restrict__ status, uint32_t* __restrict__ cumsum) {
+  __shared__ uint4 tile_s[SCAN_TILE * SCAN_CHUNKS];
+  __shared__ uint32_t warp_sums[SCAN_TILE / 32][4];
+  __shared__ uint4 carry_s;
+  __shared__ unsigned tile_id;
+  if (threadIdx.x == 0) tile_id = atomicAdd(status, 1u);
+  __syncthreads();
+  const long long t = tile_id;
+  const long long row0 = t * SCAN_TILE;
+  const int rows = (int)min((long long)SCAN_TILE, n - row0);
+  const int wq = m + 1;  // uint4s a row of buf: m chunks, then phi
+  const uint4* src = reinterpret_cast<const uint4*>(buf) + row0 * wq;
+
+  // This thread's row sum, the chunk columns staged SCAN_CHUNKS at a time.
+  ext::E v = ext::zero();
+  for (int c0 = 0; c0 < m; c0 += SCAN_CHUNKS) {
+    const int cw = min(SCAN_CHUNKS, m - c0);
+    for (int k = threadIdx.x; k < rows * cw; k += SCAN_TILE) {
+      const int r = k / cw, c = k - r * cw;
+      tile_s[r * SCAN_CHUNKS + c] = src[(long long)r * wq + c0 + c];
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < rows)
+      for (int c = 0; c < cw; ++c)
+        v = ext::add(v, to_e(tile_s[threadIdx.x * SCAN_CHUNKS + c]));
+    __syncthreads();
+  }
+
+  // Inclusive scan of the tile's row sums.
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int off = 1; off < 32; off <<= 1) {
     const ext::E o = shfl_up(v, off);
@@ -86,62 +168,49 @@ __device__ ext::E block_scan(ext::E v, ext::E* total) {
   if (lane == 31) ext::store(warp_sums[warp], v);
   __syncthreads();
   if (warp == 0) {
-    ext::E w = ext::load(warp_sums[lane]);
-    for (int off = 1; off < 32; off <<= 1) {
+    ext::E w = lane < SCAN_TILE / 32 ? ext::load(warp_sums[lane]) : ext::zero();
+    for (int off = 1; off < SCAN_TILE / 32; off <<= 1) {
       const ext::E o = shfl_up(w, off);
       if (lane >= off) w = ext::add(w, o);
     }
-    ext::store(warp_sums[lane], w);
+    if (lane < SCAN_TILE / 32) ext::store(warp_sums[lane], w);
   }
   __syncthreads();
   if (warp > 0) v = ext::add(v, ext::load(warp_sums[warp - 1]));
-  *total = ext::load(warp_sums[SCAN_ROWS / 32 - 1]);
-  __syncthreads();  // warp_sums is reused by the next call
-  return v;
-}
+  const ext::E total = ext::load(warp_sums[SCAN_TILE / 32 - 1]);
 
-__global__ void __launch_bounds__(SCAN_ROWS)
-scan_rows_kernel(const uint32_t* __restrict__ perm, long long stride, int m,
-                 uint32_t n, uint32_t* __restrict__ out,
-                 uint32_t* __restrict__ totals) {
-  const uint32_t j = blockIdx.x * SCAN_ROWS + threadIdx.x;
-  const int w_out = 4 * m + 4;
-  ext::E s = ext::zero();
-  if (j < n) {
-    for (int c = 0; c < m; ++c) {
-      const ext::E x = ext::load(perm + j * stride + 4 * c);
-      ext::store(out + (unsigned long long)j * w_out + 4 * c, x);
-      s = ext::add(s, x);
+  // The carry: the sum of every earlier tile, by decoupled look-back.
+  uint32_t* mine = status + STATUS_WORDS * (1 + t);
+  if (warp == 0) {
+    ext::E carry = ext::zero();
+    if (t == 0) {
+      if (lane == 0) publish(mine, 2, total);
+    } else {
+      if (lane == 0) publish(mine, 1, total);
+      for (long long base = t - 1;; base -= 32) {
+        const long long p = base - lane;  // lane 0 the nearest predecessor
+        const uint32_t* st = status + STATUS_WORDS * (1 + p);
+        uint32_t f;
+        do {
+          f = p >= 0 ? flag_acquire(st) : 2u;
+        } while (__any_sync(0xffffffffu, f == 0));
+        const unsigned pre = __ballot_sync(0xffffffffu, f == 2);
+        const int stop = pre ? __ffs(pre) - 1 : 31;  // the nearest prefix
+        const ext::E x = p >= 0 && lane <= stop ? value_relaxed(st + 4 * f) : ext::zero();
+        carry = ext::add(carry, warp_sum(x));
+        if (pre) break;
+      }
+      if (lane == 0) publish(mine, 2, ext::add(carry, total));
     }
+    if (lane == 0) carry_s = to_u4(carry);
   }
-  ext::E total;
-  s = block_scan(s, &total);
-  if (j < n) ext::store(out + (unsigned long long)j * w_out + 4 * m, s);
-  if (threadIdx.x == 0) ext::store(totals + 4ull * blockIdx.x, total);
-}
-
-__global__ void __launch_bounds__(SCAN_ROWS)
-scan_totals_kernel(uint32_t* __restrict__ totals, int n_blocks,
-                   uint32_t* __restrict__ cumsum) {
-  ext::E carry = ext::zero();
-  for (int base = 0; base < n_blocks; base += SCAN_ROWS) {
-    const int i = base + threadIdx.x;
-    const ext::E v = i < n_blocks ? ext::load(totals + 4 * i) : ext::zero();
-    ext::E total;
-    const ext::E incl = block_scan(v, &total);
-    if (i < n_blocks) ext::store(totals + 4 * i, ext::add(carry, ext::sub(incl, v)));
-    carry = ext::add(carry, total);
+  __syncthreads();
+  if ((int)threadIdx.x < rows) {
+    const ext::E phi = ext::add(to_e(carry_s), v);
+    const long long j = row0 + threadIdx.x;
+    reinterpret_cast<uint4*>(buf)[j * wq + m] = to_u4(phi);
+    if (j == n - 1) ext::store(cumsum, phi);
   }
-  if (threadIdx.x == 0) ext::store(cumsum, carry);
-}
-
-__global__ void __launch_bounds__(SCAN_ROWS)
-scan_add_kernel(uint32_t* __restrict__ out, int m, uint32_t n,
-                const uint32_t* __restrict__ totals) {
-  const uint32_t j = blockIdx.x * SCAN_ROWS + threadIdx.x;
-  if (blockIdx.x == 0 || j >= n) return;
-  uint32_t* phi = out + (unsigned long long)j * (4 * m + 4) + 4 * m;
-  ext::store(phi, ext::add(ext::load(phi), ext::load(totals + 4ull * blockIdx.x)));
 }
 
 }  // namespace
@@ -158,15 +227,13 @@ extern "C" int ovt_perm_cols(const void* cols, unsigned n, const void* table,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ovt_perm_scan(const void* perm, long long stride, int m, unsigned n,
-                             void* out, void* totals, void* cumsum, void* stream) {
-  const int n_blocks = (int)((n + SCAN_ROWS - 1) / SCAN_ROWS);
-  cudaStream_t s = (cudaStream_t)stream;
-  scan_rows_kernel<<<n_blocks, SCAN_ROWS, 0, s>>>(
-      (const uint32_t*)perm, stride, m, n, (uint32_t*)out, (uint32_t*)totals);
-  scan_totals_kernel<<<1, SCAN_ROWS, 0, s>>>((uint32_t*)totals, n_blocks,
-                                             (uint32_t*)cumsum);
-  scan_add_kernel<<<n_blocks, SCAN_ROWS, 0, s>>>((uint32_t*)out, m, n,
-                                                 (const uint32_t*)totals);
+// buf: (n, 4m + 4) words, 16-byte aligned; status: 1 + STATUS_WORDS a tile
+// words, zeroed.
+extern "C" int ovt_perm_scan(void* buf, long long n, int m, void* status, void* cumsum,
+                             void* stream) {
+  if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n + SCAN_TILE - 1) / SCAN_TILE;
+  perm_scan_kernel<<<(unsigned)tiles, SCAN_TILE, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)buf, n, m, (uint32_t*)status, (uint32_t*)cumsum);
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,18 @@
 //    32 banks (an extension slot's 16 bytes in four conflict-free phases).
 //    The wrapper sizes T from the largest program's words per row and code
 //    and the SM's 227 KB (stark/quotient.py block_threads).
+//  * Global-memory mode, for programs whose code and slots do not fit one
+//    SM's shared memory beside each other (keccakf's 56,186 instructions
+//    are 899 KB of code; the ECC and Fp2 chips need 1,600-1,700 slot words
+//    a row): the same body instantiated with the code read from global
+//    memory through the read-only path (it stays in the 50 MB L2) and the
+//    slots in a global scratch laid out slot-major over the R = blocks x T
+//    rows in flight (slot s of row r at word s R + r), so a warp's access
+//    to one slot is one coalesced transaction; every job of the launch
+//    puts its extension file after the launch's largest base file (J_NBASE),
+//    as rows of different jobs are in flight together.  The wrapper caps R
+//    (stark/quotient.py global_rows); a block walks the plan's blocks with
+//    a grid stride.  No cp.async here: its target must be shared memory.
 //  * is_first_row and is_last_row come from tables of the quotient domain in
 //    LDE order (built once per domain by batch inversion); is_transition is
 //    x - w_n^-1 from the LDE points; 1/Z_H from its 2^lqd values in the pool.
@@ -229,42 +241,53 @@ __device__ __forceinline__ void dispatch(int op, Ctx& c, int d, int a, int b, in
   }
 }
 
-// The body of both modes' kernels, one lane (row) a thread.
-template <bool QUOTIENT>
+// The body of every kernel: plan block vb of its job, one lane (row) a
+// thread.  GLOBAL: code in global memory, slots in the scratch (slot s of
+// the thread's lane at s * gridDim.x * blockDim.x + its global index).
+template <bool QUOTIENT, bool GLOBAL>
 __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, int n_jobs,
                                           const int4* __restrict__ code_all,
                                           const uint32_t* __restrict__ pool_all,
                                           const long long* __restrict__ src_all,
-                                          const uint32_t* __restrict__ xs, int code_cap) {
+                                          const uint32_t* __restrict__ xs, int code_cap,
+                                          uint32_t* __restrict__ scratch, long long vb) {
   extern __shared__ uint4 smem[];
   int jk = 0;
-  while (jk + 1 < n_jobs && (long long)blockIdx.x >= jobs[(jk + 1) * JOB_WORDS + J_BLOCK0]) ++jk;
+  while (jk + 1 < n_jobs && vb >= jobs[(jk + 1) * JOB_WORDS + J_BLOCK0]) ++jk;
   const long long* job = jobs + jk * JOB_WORDS;
   const int n_instr = (int)job[J_NINSTR];
   const int log_q = (int)job[J_LOGQ];
   const uint32_t qd = 1u << (int)job[J_LQD];
   const int sel_mask = (int)job[J_SEL];
 
-  // The job's code is staged in shared memory ahead of the slot files.
-  int4* code = reinterpret_cast<int4*>(smem);
-  {
-    const int4* g = code_all + job[J_CODE];
-    for (int i = threadIdx.x; i < n_instr; i += blockDim.x) code[i] = g[i];
+  // Shared mode stages the job's code in shared memory ahead of the slot
+  // files; global mode reads it where it is.
+  const int4* code = code_all + job[J_CODE];
+  if constexpr (!GLOBAL) {
+    int4* staged = reinterpret_cast<int4*>(smem);
+    for (int i = threadIdx.x; i < n_instr; i += blockDim.x) staged[i] = code[i];
+    code = staged;
   }
   Ctx c;
   c.pool = pool_all + job[J_POOL];
   c.src = src_all + 2 * job[J_SRC];
   c.job = job;
   c.nq = 1u << log_q;
-  c.S.L = blockDim.x;
-  c.S.tid = threadIdx.x;
-  c.S.bf = reinterpret_cast<uint32_t*>(smem + code_cap);
+  if constexpr (GLOBAL) {
+    c.S.L = gridDim.x * blockDim.x;
+    c.S.tid = blockIdx.x * blockDim.x + threadIdx.x;
+    c.S.bf = scratch;
+  } else {
+    c.S.L = blockDim.x;
+    c.S.tid = threadIdx.x;
+    c.S.bf = reinterpret_cast<uint32_t*>(smem + code_cap);
+  }
   c.S.ef = reinterpret_cast<uint4*>(c.S.bf + (uint32_t)job[J_NBASE] * c.S.L);
 
   // The lane's rows (local, next), its output row, whether it lies below
   // the height (a job shorter than a block repeats rows and stores nothing
   // for the repeats), its selectors and its accumulator.
-  const uint32_t l = (uint32_t)(blockIdx.x - job[J_BLOCK0]) * c.S.L + c.S.tid;
+  const uint32_t l = (uint32_t)(vb - job[J_BLOCK0]) * blockDim.x + threadIdx.x;
   c.valid = l < c.nq;
   const uint32_t r = l & (c.nq - 1);
   if (QUOTIENT) {
@@ -284,28 +307,37 @@ __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, in
     c.sel[0] = c.sel[1] = c.sel[2] = 0u;
   }
   c.acc = ext::zero();
-  __syncthreads();
+  if constexpr (!GLOBAL) __syncthreads();
 
-  // Two instructions are read ahead.  After an instruction runs, the one
-  // after next, when it is a load whose slot the next one neither reads nor
-  // writes, has its copy issued, so that it overlaps the next one.
+  auto fetch = [&](int pc) -> int4 {
+    if constexpr (GLOBAL)
+      return __ldg(code + pc);
+    else
+      return code[pc];
+  };
+  // Two instructions are read ahead.  In shared mode, after an instruction
+  // runs, the one after next, when it is a load whose slot the next one
+  // neither reads nor writes, has its copy issued, so that it overlaps the
+  // next one.
   const int4 none = make_int4(-1, -1, -1, -1);
-  int4 nxt = n_instr > 0 ? code[0] : none;
-  int4 nxt2 = n_instr > 1 ? code[1] : none;
+  int4 nxt = n_instr > 0 ? fetch(0) : none;
+  int4 nxt2 = n_instr > 1 ? fetch(1) : none;
   bool out1 = false, out2 = false;  // nxt's and nxt2's copies are issued
   for (int pc = 0; pc < n_instr; ++pc) {
     const int4 ins = nxt;
     const bool out = out1;
     nxt = nxt2;
     out1 = out2;
-    nxt2 = pc + 2 < n_instr ? code[pc + 2] : none;
+    nxt2 = pc + 2 < n_instr ? fetch(pc + 2) : none;
     out2 = false;
     // a copy issued for ins is waited for, leaving a later one (nxt's) out
     dispatch<0, N_OPS, QUOTIENT>(ins.x, c, ins.y, ins.z, ins.w, out ? (out1 ? 2 : 1) : 0);
-    if ((nxt2.x == LOAD_B || nxt2.x == LOAD_E) && nxt2.y != nxt.y &&
-        nxt2.y != nxt.z && nxt2.y != nxt.w) {
-      load_async(c, nxt2);
-      out2 = true;
+    if constexpr (!GLOBAL) {
+      if ((nxt2.x == LOAD_B || nxt2.x == LOAD_E) && nxt2.y != nxt.y &&
+          nxt2.y != nxt.z && nxt2.y != nxt.w) {
+        load_async(c, nxt2);
+        out2 = true;
+      }
     }
   }
   if (QUOTIENT && c.valid)
@@ -318,29 +350,53 @@ __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, in
   const long long* __restrict__ jobs, int n_jobs, const int4* __restrict__ code_all, \
       const uint32_t* __restrict__ pool_all, const long long* __restrict__ src_all,  \
       const uint32_t* __restrict__ xs, int code_cap
+#define OVT_GLOBAL_ARGS OVT_INTERP_ARGS, uint32_t* __restrict__ scratch, long long vblocks
 
 __global__ void __launch_bounds__(128) quotient_kernel(OVT_INTERP_ARGS) {
-  interpret<true>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap);
+  interpret<true, false>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, nullptr,
+                         blockIdx.x);
 }
 
 __global__ void __launch_bounds__(128) columns_kernel(OVT_INTERP_ARGS) {
-  interpret<false>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap);
+  interpret<false, false>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, nullptr,
+                          blockIdx.x);
 }
 
-template <class K>
-int launch(K kernel, bool& configured, const void* jobs, int n_jobs, const void* code,
-           const void* pool, const void* src, const void* xs, int threads, int blocks,
-           int smem_bytes, int code_cap, void* stream) {
+__global__ void __launch_bounds__(128) quotient_global_kernel(OVT_GLOBAL_ARGS) {
+  for (long long vb = blockIdx.x; vb < vblocks; vb += gridDim.x)
+    interpret<true, true>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, scratch,
+                          vb);
+}
+
+__global__ void __launch_bounds__(128) columns_global_kernel(OVT_GLOBAL_ARGS) {
+  for (long long vb = blockIdx.x; vb < vblocks; vb += gridDim.x)
+    interpret<false, true>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, scratch,
+                           vb);
+}
+
+// Shared mode when scratch is null: ``blocks`` plan blocks, smem_bytes of
+// dynamic shared memory.  Global mode otherwise: ``blocks`` blocks walk the
+// plan's ``vblocks`` blocks, the slots in scratch.
+template <class K, class G>
+int launch(K shared_kernel, G global_kernel, bool& configured, const void* jobs, int n_jobs,
+           const void* code, const void* pool, const void* src, const void* xs, int threads,
+           int blocks, int smem_bytes, int code_cap, void* scratch, long long vblocks,
+           void* stream) {
   if (!configured) {  // shared memory above 48 KB is opt-in
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    const cudaError_t e = cudaFuncSetAttribute(
+        shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   if (blocks == 0) return (int)cudaGetLastError();
-  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const long long*)jobs, n_jobs, (const int4*)code, (const uint32_t*)pool,
-      (const long long*)src, (const uint32_t*)xs, code_cap);
+  if (scratch)
+    global_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const long long*)jobs, n_jobs, (const int4*)code, (const uint32_t*)pool,
+        (const long long*)src, (const uint32_t*)xs, code_cap, (uint32_t*)scratch, vblocks);
+  else
+    shared_kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
+        (const long long*)jobs, n_jobs, (const int4*)code, (const uint32_t*)pool,
+        (const long long*)src, (const uint32_t*)xs, code_cap);
   return (int)cudaGetLastError();
 }
 
@@ -349,17 +405,19 @@ int launch(K kernel, bool& configured, const void* jobs, int n_jobs, const void*
 extern "C" int ovt_quotient(const void* jobs, int n_jobs, const void* code,
                             const void* pool, const void* src, const void* xs,
                             int threads, int blocks, int smem_bytes, int code_cap,
-                            void* stream) {
+                            void* scratch, long long vblocks, void* stream) {
   static bool configured = false;
-  return launch(quotient_kernel, configured, jobs, n_jobs, code, pool, src, xs, threads,
-                blocks, smem_bytes, code_cap, stream);
+  return launch(quotient_kernel, quotient_global_kernel, configured, jobs, n_jobs, code,
+                pool, src, xs, threads, blocks, smem_bytes, code_cap, scratch, vblocks,
+                stream);
 }
 
 extern "C" int ovt_quotient_columns(const void* jobs, int n_jobs, const void* code,
                                     const void* pool, const void* src, const void* xs,
                                     int threads, int blocks, int smem_bytes, int code_cap,
-                                    void* stream) {
+                                    void* scratch, long long vblocks, void* stream) {
   static bool configured = false;
-  return launch(columns_kernel, configured, jobs, n_jobs, code, pool, src, xs, threads,
-                blocks, smem_bytes, code_cap, stream);
+  return launch(columns_kernel, columns_global_kernel, configured, jobs, n_jobs, code,
+                pool, src, xs, threads, blocks, smem_bytes, code_cap, scratch, vblocks,
+                stream);
 }

@@ -11,9 +11,11 @@ Device half, a port of logup.py:155-336 (``stack_interactions``,
   * the interaction fields and counts are evaluated over the natural trace
     by the quotient interpreter's columns mode (K7, ``stark.quotient``);
   * ``perm_cols`` (kernel K9, csrc/logup.cu) turns them into the chunk
-    columns sum sign * count / denominator;
-  * ``perm_scan`` (kernel K10) appends phi, their running row sum, and
-    returns its last row, the cumulative sum.
+    columns sum sign * count / denominator, written straight into the
+    first 4m columns of the (N, 4m + 4) permutation trace;
+  * ``perm_scan`` (kernel K10) writes phi, their running row sum, into the
+    last 4 columns of that buffer in place, and returns its last row, the
+    cumulative sum.
 The JAX package's pow2 bucketing of the interaction, field and chunk axes
 and its row floor (logup.py:284-313) only share XLA compiles: padded
 interactions count 0 and padded rows are sliced off, so they change no
@@ -241,11 +243,31 @@ def perm_cols_plain(cols: torch.Tensor, layout: InteractionLayout,
     return perm.permute(1, 0, 2).reshape(n, 4 * layout.m).int()
 
 
+def perm_buffer(n: int, m: int, device) -> torch.Tensor:
+    """The (N, 4m) chunk columns of a new (N, 4m + 4) permutation trace:
+    the view K9 writes and K10 reads, phi's 4 columns beside each row."""
+    return torch.empty((n, 4 * m + 4), dtype=torch.int32, device=device)[:, :4 * m]
+
+
+def _trace_of(perm: torch.Tensor) -> torch.Tensor:
+    """The (N, 4m + 4) trace whose first 4m columns ``perm`` is."""
+    n, w = (int(x) for x in perm.shape)
+    if (perm.dim() != 2 or perm.dtype != torch.int32 or w % 4 or w == 0
+            or perm.stride(1) != 1 or (n > 1 and perm.stride(0) != w + 4)
+            or perm.data_ptr() % 16
+            or perm.untyped_storage().nbytes() < 4 * (perm.storage_offset() + n * (w + 4))):
+        raise ValueError("perm must be the first 4m columns of an (N, 4m + 4) "
+                         "int32 buffer (perm_buffer)")
+    return perm.as_strided((n, w + 4), (w + 4, 1))
+
+
 def perm_cols(cols: torch.Tensor, layout: InteractionLayout,
               alpha: torch.Tensor, beta_pows: torch.Tensor) -> torch.Tensor:
     """Kernel K9 (csrc/logup.cu) on CUDA tensors, ``perm_cols_plain`` on
     CPU tensors.  cols: (R, N) int32 Montgomery output of the AIR's columns
-    program; alpha (4,), beta_pows (F, 4) Montgomery words."""
+    program; alpha (4,), beta_pows (F, 4) Montgomery words.  On CUDA the
+    result is the ``perm_buffer`` view: the first 4m columns of the
+    permutation trace."""
     dev = _build.kernel_device(cols, alpha, beta_pows)
     if dev.type == "cpu":
         return perm_cols_plain(cols, layout, alpha, beta_pows)
@@ -257,7 +279,7 @@ def perm_cols(cols: torch.Tensor, layout: InteractionLayout,
                          f"{len(layout.roots)}")
     table = torch.from_numpy(layout.table).to(dev)
     bus_m = torch.from_numpy(layout.bus_m.view(np.int32)).to(dev)
-    out = torch.empty((n, 4 * layout.m), dtype=torch.int32, device=dev)
+    out = perm_buffer(n, layout.m, dev)
     _build.launch("perm_cols", "ovt_perm_cols", dev, cols.data_ptr(), n,
                   table.data_ptr(), int(table.shape[0]), bus_m.data_ptr(),
                   beta_pows.data_ptr(), alpha.data_ptr(), layout.m,
@@ -276,23 +298,62 @@ def perm_scan_plain(perm: torch.Tensor) -> tuple:
     return torch.cat([perm, phi.int()], dim=1), phi[-1].int()
 
 
+# Rows a block of K10 scans (csrc/logup.cu SCAN_TILE) and the predecessors
+# its look-back reads at once (a warp).
+SCAN_TILE = 256
+LOOKBACK = 32
+
+
+def _scan_model(perm: torch.Tensor, tile: int = SCAN_TILE, window: int = LOOKBACK,
+                seed: int = 0) -> tuple:
+    """K10's arithmetic, modelled on the CPU: tiles of ``tile`` rows taken
+    in order, each its rows' sums and their inclusive scan, and its carry by
+    the look-back over ``window`` predecessors at a time, adding aggregates
+    until an inclusive prefix.  Which predecessors have published their
+    prefix yet is drawn at random (tile 0 always has), as the blocks'
+    timing would make it.  Returns what ``perm_scan_plain`` returns."""
+    rng = np.random.default_rng(seed)
+    n, w = perm.shape
+    m = w // 4
+    sums = perm.long().reshape(n, m, 4).sum(dim=1) % P
+    aggregate, prefix, phi = [], [], []
+    for t in range(-(-n // tile)):
+        incl = torch.cumsum(sums[t * tile:(t + 1) * tile], dim=0) % P
+        aggregate.append(incl[-1])
+        carry = torch.zeros(4, dtype=torch.int64)
+        base = t - 1
+        while base >= 0:
+            lanes = list(range(base, max(base - window, -1), -1))
+            published = [p == 0 or bool(rng.integers(0, 2)) for p in lanes]
+            for p, has_prefix in zip(lanes, published):
+                carry = (carry + (prefix[p] if has_prefix else aggregate[p])) % P
+                if has_prefix:
+                    break
+            if any(published):
+                break
+            base -= window
+        prefix.append((carry + incl[-1]) % P)
+        phi.append((carry + incl) % P)
+    phi = torch.cat(phi)
+    return torch.cat([perm, phi.int()], dim=1), phi[-1].int()
+
+
 def perm_scan(perm: torch.Tensor) -> tuple:
     """Kernel K10 (csrc/logup.cu) on CUDA tensors, ``perm_scan_plain`` on
-    CPU tensors.  perm: (N, 4m) int32 with unit column stride."""
+    CPU tensors.  On CUDA, perm is K9's ``perm_buffer`` view, and phi is
+    written into the 4 columns beside it in place: one launch reads the 4m
+    words of each row and writes 4.  Returns ((N, 4m + 4) trace, (4,)
+    cumulative sum)."""
     dev = _build.kernel_device(perm)
     if dev.type == "cpu":
         return perm_scan_plain(perm)
-    if perm.dim() != 2 or perm.dtype != torch.int32 or perm.stride(1) != 1:
-        raise ValueError("perm must be (N, 4m) int32 with unit column stride")
-    n, w = (int(s) for s in perm.shape)
-    m = w // 4
-    out = torch.empty((n, w + 4), dtype=torch.int32, device=dev)
-    totals = torch.empty((-(-n // 1024), 4), dtype=torch.int32, device=dev)
+    trace = _trace_of(perm)
+    n, m = int(perm.shape[0]), int(perm.shape[1]) // 4
+    status = torch.zeros(16 * (1 + -(-n // SCAN_TILE)), dtype=torch.int32, device=dev)
     cumsum = torch.empty(4, dtype=torch.int32, device=dev)
-    _build.launch("perm_scan", "ovt_perm_scan", dev, perm.data_ptr(),
-                  perm.stride(0), m, n, out.data_ptr(), totals.data_ptr(),
-                  cumsum.data_ptr())
-    return out, cumsum
+    _build.launch("perm_scan", "ovt_perm_scan", dev, trace.data_ptr(), n, m,
+                  status.data_ptr(), cumsum.data_ptr())
+    return trace, cumsum
 
 
 def build_perm_trace(dag, chunks: list, mains: list, prep, publics,

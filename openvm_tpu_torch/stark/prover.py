@@ -11,7 +11,7 @@ so ``codec.encode_proof`` gives equal bytes for equal inputs.  Host code
   LogUp permutation trace    stark.logup.perm_cols, perm_scan (K9, K10)
   quotient                   stark.quotient.evaluate_many (K7+K11)
   zeta power series          field.ext.powers (K2)
-  out-of-domain openings     _open_dot (K12)
+  out-of-domain openings     open_many (K12)
   reduced openings           reduced_open (K13)
   FRI folds                  fri.fold_evals (K14)
   query gathers              merkle.GatherPlan (K6)
@@ -112,11 +112,6 @@ class AirProvingContext:
 # ---------------------------------------------------------------------------
 
 
-def _geo_series(mult: int, n: int) -> np.ndarray:
-    """(n,) Montgomery words mult^0..mult^(n-1) (prover.py:260-269)."""
-    return bb.to_monty_np(bb.powers_np(mult, n))
-
-
 def _col_comb(matrix: torch.Tensor, alpha_pows: torch.Tensor) -> torch.Tensor:
     """sum_t alpha^t * M[:, t] -> (N, 4) ext Montgomery, plain PyTorch
     (prover.py:194); K13 computes it inside its pass."""
@@ -139,33 +134,178 @@ def _open_dot_plain(coeffs: torch.Tensor, zpows: torch.Tensor,
     return torch.stack(out).int()
 
 
-def _open_dot(coeffs: torch.Tensor, zpows: torch.Tensor,
-              geos: torch.Tensor) -> torch.Tensor:
-    """Kernel K12 (csrc/open.cu) on CUDA tensors, ``_open_dot_plain`` on CPU
-    tensors (prover.py:231-257).  coeffs (N, W) base, any row stride;
-    zpows (>= N, 4) ext; geos (Pts, >= N) base, Pts <= 2.  Two launches:
-    per-block partial sums, then their sum."""
-    dev = _build.kernel_device(coeffs, zpows, geos)
+def geo_powers(mult: int, n: int, device) -> torch.Tensor:
+    """(n,) int64 Montgomery words mult^0 .. mult^(n-1) of a canonical base
+    ``mult`` on ``device``, by doubling (prover.py:260-269's series)."""
+    x = torch.full((1,), bb.R_MOD_P, dtype=torch.int64, device=device)
+    step = torch.tensor(bb.to_monty_int(mult % P), dtype=torch.int64, device=device)
+    while x.shape[0] < n:
+        x = torch.cat([x, bb.mul64(x, step)])
+        step = bb.mul64(step, step)
+    return x[:n]
+
+
+def open_many_plain(jobs: list, zpows: torch.Tensor) -> list:
+    """``open_many``'s plain version: each job's ``_open_dot_plain`` with its
+    geometric series built on the device."""
+    return [_open_dot_plain(c, zpows, torch.stack(
+        [geo_powers(m, int(c.shape[0]), c.device) for m in mults]))
+            for c, mults in jobs]
+
+
+# The openings kernel's job table (csrc/open.cu): OPEN_JOB_WORDS int64 a
+# matrix.  A block scans tiles of OPEN_TILE rows (one weight row a thread);
+# a job takes at most OPEN_MAX_BLOCKS blocks.
+(O_PTR, O_STRIDE, O_W, O_N, O_NPTS, O_MULT0, O_MULT1, O_OUT, O_PART, O_BLOCK0,
+ O_NBLK, O_RPB) = range(12)
+OPEN_JOB_WORDS = 12
+OPEN_TILE = 256
+OPEN_MAX_BLOCKS = 1024
+
+
+def open_plan(shapes: list, tile: int = OPEN_TILE,
+              max_blocks: int = OPEN_MAX_BLOCKS) -> tuple:
+    """The openings kernel's map of blocks to jobs for jobs of ``shapes``
+    (N, W, points): (order, rows a block, blocks, first block, total).  Jobs
+    run largest first (N W, ties in input order); job order[k] takes
+    blocks[k] blocks of rows[k] rows (whole tiles) from first[k] on."""
+    order = sorted(range(len(shapes)), key=lambda k: -shapes[k][0] * shapes[k][1])
+    rows, blocks, first, total = [], [], [], 0
+    for k in order:
+        tiles = -(-shapes[k][0] // tile)
+        rpb = -(-tiles // min(tiles, max_blocks)) * tile
+        rows.append(rpb)
+        blocks.append(-(-shapes[k][0] // rpb))
+        first.append(total)
+        total += blocks[-1]
+    return order, rows, blocks, first, total
+
+
+def _open_table(jobs: list, ptrs: list, tile: int = OPEN_TILE,
+                max_blocks: int = OPEN_MAX_BLOCKS) -> tuple:
+    """The openings kernel's job table over the jobs with rows and columns,
+    in ``open_plan`` order: (table (J, OPEN_JOB_WORDS) int64, output word
+    offset by job index, output words, partial words, blocks).  ``ptrs``:
+    each job's coefficient address."""
+    shapes = [(int(c.shape[0]), int(c.shape[1]), len(m)) for c, m in jobs]
+    live = [k for k, (n, w, _) in enumerate(shapes) if n and w]
+    order, rows, blocks, first, total = open_plan([shapes[k] for k in live], tile,
+                                                  max_blocks)
+    table = np.zeros((len(live), OPEN_JOB_WORDS), dtype=np.int64)
+    out_off, n_out, n_part = {}, 0, 0
+    for pos, o in enumerate(order):
+        k = live[o]
+        (c, mults), (n, w, npts), j = jobs[k], shapes[k], table[pos]
+        j[O_PTR], j[O_STRIDE], j[O_W], j[O_N], j[O_NPTS] = ptrs[k], c.stride(0), w, n, npts
+        j[O_MULT0] = bb.to_monty_int(mults[0] % P)
+        j[O_MULT1] = bb.to_monty_int(mults[-1] % P)
+        j[O_OUT], j[O_PART], j[O_BLOCK0] = n_out, n_part, first[pos]
+        j[O_NBLK], j[O_RPB] = blocks[pos], rows[pos]
+        out_off[k] = n_out
+        n_out += npts * w * 4
+        n_part += blocks[pos] * npts * w * 4
+    return table, out_off, n_out, n_part, total
+
+
+def _open_outputs(out: torch.Tensor, jobs: list, out_off: dict) -> list:
+    """Each job's (points, W, 4) view of the flat output, zeros for a job
+    without rows or columns."""
+    res = []
+    for k, (c, mults) in enumerate(jobs):
+        w, npts = int(c.shape[1]), len(mults)
+        res.append(out[out_off[k]:out_off[k] + npts * w * 4].view(npts, w, 4)
+                   if k in out_off else
+                   torch.zeros((npts, w, 4), dtype=torch.int32, device=out.device))
+    return res
+
+
+def _open_model(jobs: list, zpows: torch.Tensor, threads: int = OPEN_TILE,
+                max_blocks: int = OPEN_MAX_BLOCKS) -> list:
+    """csrc/open.cu's two launches, modelled on the CPU over the same job
+    table (``_open_table``, a job's index for its address): per block its
+    job by the first blocks, its rows, the weights' powers from the block's
+    first row by exponentiation and a step a tile; per column group the
+    threads' (row, column) cover of each tile and their sums; the partials
+    at (block, point, column) of the job's partial offset, and each output
+    word's sum over the job's blocks."""
+    table, out_off, n_out, n_part, total = _open_table(
+        jobs, list(range(len(jobs))), threads, max_blocks)
+    z = zpows.long()
+    partial = torch.zeros(n_part, dtype=torch.int64)
+    for blk in range(total):
+        j = table[max(i for i in range(len(table)) if table[i, O_BLOCK0] <= blk)]
+        c = jobs[int(j[O_PTR])][0]
+        n, w, npts = int(j[O_N]), int(j[O_W]), int(j[O_NPTS])
+        mults = [int(j[O_MULT0]), int(j[O_MULT1])][:npts]  # Montgomery words
+        b = blk - int(j[O_BLOCK0])
+        r0 = b * int(j[O_RPB])
+        r1 = min(n, r0 + int(j[O_RPB]))
+        cw = min(w, threads)
+        rstep = threads // cw
+        first = [torch.tensor([bb.to_monty_int(pow(bb.from_monty_int(m), r0 + t, P))
+                               for t in range(threads)]) for m in mults]
+        step = [bb.to_monty_int(pow(bb.from_monty_int(m), threads, P)) for m in mults]
+        for g0 in range(0, w, cw):
+            cols = [g0 + ci for ci in range(cw) if g0 + ci < w]
+            acc = torch.zeros((rstep, len(cols), npts, 4), dtype=torch.int64)
+            pw = list(first)
+            for t0 in range(r0, r1, threads):
+                nr = min(threads, r1 - t0)
+                u = [ef.scale64(z[t0:t0 + nr], pw[p][:nr]) for p in range(npts)]
+                pw = [bb.mul64(x, s) for x, s in zip(pw, step)]
+                for ri in range(min(rstep, nr)):  # thread (ri, ci): rows ri + j rstep
+                    rs = torch.arange(ri, nr, rstep)
+                    v = c[t0 + rs][:, cols].long()  # (rows, cols)
+                    for p in range(npts):
+                        term = bb.mul64(v[:, :, None], u[p][rs][:, None, :])
+                        acc[ri, :, p] = (acc[ri, :, p] + term.sum(dim=0)) % P
+            sums = acc.sum(dim=0) % P  # (cols, points, 4): the tree over a column's threads
+            for ci, col in enumerate(cols):
+                for p in range(npts):
+                    at = int(j[O_PART]) + ((b * npts + p) * w + col) * 4
+                    partial[at:at + 4] = sums[ci, p]
+    out = torch.zeros(n_out, dtype=torch.int64)
+    for j in table:
+        words = int(j[O_NPTS] * j[O_W] * 4)
+        part = partial[int(j[O_PART]):int(j[O_PART]) + int(j[O_NBLK]) * words]
+        out[int(j[O_OUT]):int(j[O_OUT]) + words] = part.view(-1, words).sum(dim=0) % P
+    return _open_outputs(out.int(), jobs, out_off)
+
+
+def open_many(jobs: list, zpows: torch.Tensor) -> list:
+    """Kernel K12 (csrc/open.cu) on CUDA tensors, ``open_many_plain`` on CPU
+    tensors (prover.py:231-257 and :747-751 for every matrix of the
+    openings stage).  jobs: [(coeffs (N, W) int32 Montgomery words with unit
+    column stride, any row stride; its one or two canonical base
+    multipliers m_p)]; zpows (>= every N, 4) ext Montgomery words.  Returns
+    per job (points, W, 4) int32: sum_i coeffs[i, t] zpows[i] m_p^i.
+
+    Two launches for all jobs: per-block partial sums through one job
+    table (``_open_table``) sent in one non-blocking copy, then their sum."""
+    if not jobs:
+        return []
+    dev = _build.kernel_device(zpows, *(c for c, _ in jobs))
     if dev.type == "cpu":
-        return _open_dot_plain(coeffs, zpows, geos)
-    n, w = (int(s) for s in coeffs.shape)
-    npts = int(geos.shape[0])
-    if not 1 <= npts <= 2 or coeffs.stride(1) != 1 or coeffs.dtype != torch.int32:
-        raise ValueError("open_dot takes int32 coeffs with unit column stride "
-                         "and one or two points")
+        return open_many_plain(jobs, zpows)
     _build.check_words(zpows, "zpows", dev)
-    geos = geos[:, :n].contiguous()
-    out = torch.empty((npts, w, 4), dtype=torch.int32, device=dev)
-    if w == 0 or n == 0:
-        return out.zero_()
-    blocks = max(1, min(1024, -(-n // (8 * 16))))
-    partial = torch.empty((blocks, npts, w, 4), dtype=torch.int32, device=dev)
-    _build.launch("open_dot", "ovt_open_partial", dev, coeffs.data_ptr(),
-                  coeffs.stride(0), w, n, zpows.data_ptr(), geos.data_ptr(),
-                  npts, blocks, partial.data_ptr())
-    _build.launch("open_dot", "ovt_open_reduce", dev, partial.data_ptr(),
-                  blocks, npts * w * 4, out.data_ptr())
-    return out
+    for c, mults in jobs:
+        if (c.dtype != torch.int32 or (c.shape[1] > 1 and c.stride(1) != 1)
+                or not 1 <= len(mults) <= 2 or zpows.shape[0] < c.shape[0]):
+            raise ValueError("open_many takes int32 coeffs with unit column "
+                             "stride, one or two points and zpows of every height")
+    table, out_off, n_out, n_part, total = _open_table(jobs, [c.data_ptr() for c, _ in jobs])
+    out = torch.empty(n_out, dtype=torch.int32, device=dev)
+    if len(table):
+        host = torch.from_numpy(table.view(np.uint8).ravel()).pin_memory()
+        dev_table = host.to(dev, non_blocking=True)
+        partial = torch.empty(n_part, dtype=torch.int32, device=dev)
+        _build.launch("open_dot", "ovt_open_partial", dev, dev_table.data_ptr(),
+                      len(table), total, zpows.data_ptr(), partial.data_ptr())
+        _build.launch("open_dot", "ovt_open_reduce", dev, dev_table.data_ptr(),
+                      len(table), partial.data_ptr(), n_out, out.data_ptr())
+    # the table must outlive the launches: the caching allocator holds a
+    # freed block for the stream's later work, and the kernels run first
+    return _open_outputs(out, jobs, out_off)
 
 
 def reduced_open_plain(ro: torch.Tensor, mat: torch.Tensor,
@@ -258,8 +398,9 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     dict, the seconds of each stage are written into it.  When ``record`` is
     a dict, the inputs of the quotient interpreter (``"quotient"``: per AIR
     (bound program, sources, log_n, lqd)), of the LogUp kernels
-    (``"logup"``: per AIR with interactions, see ``logup.build_perm_trace``)
-    and of the query gather (``"gather"``: (plan, indices)) are kept in it,
+    (``"logup"``: per AIR with interactions, see ``logup.build_perm_trace``),
+    of the openings (``"openings"``: (jobs, zpows), see ``open_many``) and
+    of the query gather (``"gather"``: (plan, indices)) are kept in it,
     so that a caller can run those kernels' plain versions at this prove's
     own shapes."""
     dev = resolve_device(device)
@@ -458,26 +599,21 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
 
     # Every point factors as zeta * c^i with a base-field c (zeta*g_n for
     # the next row, zeta/in_shift for quotient chunks): one zeta power
-    # series (K2) and per-matrix geometric tables serve every opening (K12).
+    # series (K2) serves every opening, and K12 makes each c^i itself, for
+    # every matrix in one launch.
     all_mats = [m for rnd in rounds for m in rnd.mats]
     n_max = 1 << max(log_degrees)
     zpows = ef.powers(ef.from_canonical(zeta_c, device=dev), n_max)
-    geo_cache: dict = {}
-
-    def geo(mult, n):
-        if (mult, n) not in geo_cache:
-            geo_cache[(mult, n)] = bb.from_numpy(_geo_series(mult, n), device=dev)
-        return geo_cache[(mult, n)]
-
-    opened_dev = []
+    jobs = []
     for m in all_mats:
-        n_m = int(m.coeffs.shape[0])
         if m.in_shift == 1:
             mults = [1, bb.two_adic_generator_int(m.log_lde - lb)]
         else:
             mults = [pow(m.in_shift, -1, P)]
-        geos = torch.stack([geo(x, n_m) for x in mults[:len(m.points)]])
-        opened_dev.append(_open_dot(m.coeffs, zpows, geos))
+        jobs.append((m.coeffs, mults[:len(m.points)]))
+    if record is not None:
+        record["openings"] = (jobs, zpows)
+    opened_dev = open_many(jobs, zpows)
     # one copy to the host for every opening
     flat = bb.from_monty(torch.cat([o.reshape(-1) for o in opened_dev]))
     flat = flat.cpu().numpy().astype(np.uint64)

@@ -13,7 +13,9 @@ proving key), ``bind`` fills the program's constant pool with one prove's
 values, and one interpreter evaluates it:
   * ``evaluate_many`` runs kernel K7+K11 (csrc/quotient.cu) on CUDA
     tensors: one launch for every AIR of a prove, each thread evaluating
-    one quotient-domain row with its value slots in shared memory;
+    one quotient-domain row with its value slots in shared memory, and one
+    more launch in the kernel's global-memory mode for the programs too
+    large for shared memory (keccakf, the ECC and Fp2 chips);
     ``evaluate`` is the one-AIR case;
   * ``evaluate_plain`` runs the same bytecode with int64 torch operations
     over all rows at once (any device).
@@ -55,17 +57,23 @@ from ..field import ext as ef
 P = bb.P
 
 # The kernel's plan (csrc/quotient.cu): each thread takes one row; a row's
-# slots take ``lane_words`` words of shared memory (one per base slot, four
-# per extension slot), and a block of T threads holds its job's code (16
-# bytes an instruction) and the slots of its T rows in the SM's 227 KB.
+# slots take ``lane_words`` words (one per base slot, four per extension
+# slot).  A block of T threads holds its job's code (16 bytes an
+# instruction) and the slots of its T rows in the SM's 227 KB; a program for
+# which even T = 32 does not fit runs in the kernel's global-memory mode,
+# with its code read from global memory and its slots in a global scratch of
+# GLOBAL_ROWS rows in flight at most (and at most GLOBAL_SCRATCH_WORDS).
 SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 THREADS = (128, 64, 32)
+GLOBAL_ROWS = 1 << 16
+GLOBAL_SCRATCH_WORDS = 1 << 28
 
 
 def max_lane_words(n_instr: int) -> int:
     """The most slot words a row can take in a block of the fewest threads
-    beside ``n_instr`` instructions of code."""
+    beside ``n_instr`` instructions of code (negative when the code alone
+    overruns shared memory)."""
     return (SMEM_BYTES - 16 * n_instr) // (4 * THREADS[-1])
 
 
@@ -103,7 +111,9 @@ class Program:
     pool_spec: what each constant-pool entry holds ("word", w),
     ("public", i), ("challenge", i), ("exposed", i) or ("alpha", e)
     (alpha^e); pool: the uint32 Montgomery words ``bind`` filled in, None
-    until then."""
+    until then; global_memory: the program's code and one row's slots do
+    not fit one SM's shared memory beside each other (``max_lane_words``),
+    so the kernel keeps them in global memory."""
 
     code: np.ndarray
     n_base: int
@@ -114,6 +124,7 @@ class Program:
     n_folds: int = 0
     pool_spec: tuple = ()
     pool: np.ndarray | None = None
+    global_memory: bool = False
 
     @property
     def lane_words(self) -> int:
@@ -230,23 +241,46 @@ def _root_order(dag, roots) -> list:
     """A fold order for the roots (any order folds to the same words, since
     root k is scaled by its own power of alpha): greedily the root whose
     cone needs the fewest nodes not computed yet, ties to the one that
-    retires the most nodes no other remaining root uses, so that fewer
-    values are live at once."""
+    retires the most nodes no other remaining root uses, then to the lower
+    index, so that fewer values are live at once.  The keys only fall as
+    roots are taken, so a heap with lazy updates finds each next root
+    without rescanning every cone (keccakf's 3,508 roots in about a
+    second)."""
     cones = [_cone(dag, r) for r in roots]
-    uses: dict = {}
-    for c in cones:
+    holders: dict = {}  # node -> the root positions whose cone holds it
+    for k, c in enumerate(cones):
         for n in c:
-            uses[n] = uses.get(n, 0) + 1
+            holders.setdefault(n, []).append(k)
+    uses = {n: len(h) for n, h in holders.items()}  # roots not taken yet
+    left = [len(c) for c in cones]  # nodes not computed yet
+    alone = [sum(1 for n in c if uses[n] == 1) for c in cones]
+    heap = [(left[k], -alone[k], k) for k in range(len(roots))]
+    heapq.heapify(heap)
+    taken = [False] * len(roots)
     done: set = set()
-    order, left = [], list(range(len(roots)))
-    while left:
-        k = min(left, key=lambda k: (len(cones[k] - done),
-                                     -sum(1 for n in cones[k] if uses[n] == 1)))
+    order = []
+    while heap:
+        key = heapq.heappop(heap)
+        k = key[2]
+        if taken[k] or key != (left[k], -alone[k], k):
+            continue
         order.append(k)
-        left.remove(k)
-        done |= cones[k]
+        taken[k] = True
+        moved = set()
         for n in cones[k]:
+            if n not in done:
+                done.add(n)
+                for j in holders[n]:
+                    if not taken[j]:
+                        left[j] -= 1
+                        moved.add(j)
             uses[n] -= 1
+            if uses[n] == 1:
+                j = next(j for j in holders[n] if not taken[j])
+                alone[j] += 1
+                moved.add(j)
+        for j in moved:
+            heapq.heappush(heap, (left[j], -alone[j], j))
     return order
 
 
@@ -266,8 +300,9 @@ def compile_dag(dag, *, n_main: int, has_preprocessed: bool, has_perm: bool,
     """Compile the nodes reachable from the constraint roots to bytecode
     that folds them by powers of ``alpha``, and bind the pool.  ``publics``
     are base Montgomery words, ``challenges`` and ``exposed`` (k, 4) and
-    ``alpha`` (4,) extension Montgomery words.  Raises when one row's slots
-    need more words than ``max_lane_words`` allows beside the code."""
+    ``alpha`` (4,) extension Montgomery words.  A program whose slots need
+    more words a row than ``max_lane_words`` allows beside its code is
+    marked ``global_memory``."""
     return bind(compile_dag_code(dag, n_main=n_main,
                                  has_preprocessed=has_preprocessed,
                                  has_perm=has_perm),
@@ -458,12 +493,7 @@ def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
                    sel_mask=0 if columns else sel_mask,
                    n_sources=len(sources), n_roots=n_roots if columns else 0,
                    n_folds=0 if columns else n_roots, pool_spec=tuple(spec))
-    limit = max_lane_words(int(prog.code.shape[0]))
-    if prog.lane_words > limit:
-        raise ValueError(
-            f"the constraint program needs {prog.lane_words} slot words a row "
-            f"({prog.n_base} base and {prog.n_ext} extension slots); beside its "
-            f"{prog.code.shape[0]} instructions the quotient kernel holds {limit}")
+    prog.global_memory = prog.lane_words > max_lane_words(int(prog.code.shape[0]))
     return prog
 
 
@@ -703,11 +733,14 @@ def evaluate_many_plain(progs: list, sources: list, log_ns: list,
             for p, s, n, q in zip(progs, sources, log_ns, lqds)]
 
 
-def block_threads(lane_words: int, n_instr: int) -> int:
+def block_threads(lane_words: int, n_instr: int, global_memory: bool = False) -> int:
     """Threads of a kernel block: of THREADS, the one that keeps the most
     threads resident on an SM (its 228 KB of shared memory, 1 KB reserved
     a block, at most 32 blocks), the larger on a tie; a block's code and its
-    rows' slots must fit its 227 KB."""
+    rows' slots must fit its 227 KB.  A global-memory launch uses no shared
+    memory: the largest block."""
+    if global_memory:
+        return THREADS[0]
     best, best_resident = 0, 0
     for t in THREADS:
         per_block = lane_words * 4 * t + 16 * n_instr
@@ -720,6 +753,70 @@ def block_threads(lane_words: int, n_instr: int) -> int:
         raise ValueError(f"{lane_words} slot words a row and {n_instr} "
                          "instructions do not fit the kernel's shared memory")
     return best
+
+
+def split_modes(progs: list) -> tuple:
+    """(shared, global): the positions of the programs that share one
+    shared-memory launch, and of those left to the global-memory launch.
+    Global-memory programs go to the second; of the others, while their
+    largest slot words a row and largest code do not fit one block of 32
+    threads together, the program that needs most shared memory moves."""
+    shared = [k for k, p in enumerate(progs) if not p.global_memory]
+
+    def need(k):
+        return 4 * THREADS[-1] * progs[k].lane_words + 16 * int(progs[k].code.shape[0])
+
+    while shared and (4 * THREADS[-1] * max(progs[k].lane_words for k in shared)
+                      + 16 * max(int(progs[k].code.shape[0]) for k in shared)
+                      > SMEM_BYTES):
+        shared.remove(max(shared, key=need))
+    return shared, [k for k in range(len(progs)) if k not in shared]
+
+
+def launch_plan(progs: list) -> list:
+    """The launches of one interpreter call: per launch (positions of its
+    programs, global-memory mode, slot words a row, base file words, code
+    capacity, threads).  A shared-memory block runs one job, so each job
+    puts its extension file after its own base file.  In a global-memory
+    launch the blocks in flight hold rows of different jobs side by side in
+    one scratch, so every job puts its extension file after the launch's
+    largest base file, and a row takes that many words plus four a slot of
+    the largest extension file."""
+    plan = []
+    for idx, is_global in zip(split_modes(progs), (False, True)):
+        if not idx:
+            continue
+        n_base = max(progs[k].n_base for k in idx)
+        if is_global:
+            lane_words = max(n_base + 4 * max(progs[k].n_ext for k in idx), 1)
+            code_cap = 0
+        else:
+            lane_words = max(max(progs[k].lane_words for k in idx), 1)
+            code_cap = max(int(progs[k].code.shape[0]) for k in idx)
+        plan.append((idx, is_global, lane_words, n_base, code_cap,
+                     block_threads(lane_words, code_cap, is_global)))
+    return plan
+
+
+def global_rows(lane_words: int, blocks: int, threads: int) -> int:
+    """Rows in flight of a global-memory launch (its blocks times threads):
+    every block of the plan at once, capped at GLOBAL_ROWS and at the
+    scratch's GLOBAL_SCRATCH_WORDS, a whole number of blocks."""
+    cap = min(GLOBAL_ROWS, GLOBAL_SCRATCH_WORDS // max(lane_words, 1))
+    return max(1, min(blocks, cap // threads)) * threads
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(words: int, dev) -> torch.Tensor:
+    """The global-memory mode's slot scratch on ``dev``, kept between
+    launches and grown when a launch needs more (launches on one stream
+    use it in turn)."""
+    t = _SCRATCH.get(dev)
+    if t is None or t.numel() < words:
+        t = _SCRATCH[dev] = torch.empty(words, dtype=torch.int32, device=dev)
+    return t
 
 
 def block_plan(heights: list, lanes: int) -> tuple:
@@ -771,9 +868,11 @@ def _align16(n: int) -> int:
 
 def _launch(kernel: str, fn_name: str, progs: list, sources: list,
             log_qs: list, lqds: list, quotient: bool, code, dev):
-    """Build the job table, pool and source tables of one launch, copy them
-    to the card in one non-blocking copy from pinned memory, and launch.
-    Returns the output of each job, in the order given."""
+    """Build the job tables, pool and source tables, copy them to the card
+    in one non-blocking copy from pinned memory, and launch: one launch for
+    the programs that fit shared memory, one more in global-memory mode for
+    the rest (``split_modes``).  Returns the output of each job, in the
+    order given."""
     for p, src, log_q in zip(progs, sources, log_qs):
         if len(src) != p.n_sources:
             raise ValueError(f"program reads {p.n_sources} matrices, "
@@ -781,11 +880,7 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
         if p.pool is None:
             raise ValueError("the program's pool is not bound")
         _check_sources(src, 1 << log_q)
-    lane_words = max(max(p.lane_words for p in progs), 1)
-    code_cap = max(int(p.code.shape[0]) for p in progs)
-    threads = block_threads(lane_words, code_cap)
     heights = [1 << q for q in log_qs]
-    order, first, total = block_plan(heights, threads)
 
     code_off = np.cumsum([0] + [int(p.code.shape[0]) for p in progs])
     pool_parts, pool_off, n_pool = [], [], 0
@@ -810,28 +905,35 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
         src_off.append(len(src_words) // 2)
         for m in sources[k]:
             src_words += [m.data_ptr(), m.stride(0)]
-    jobs = np.zeros((len(progs), JOB_WORDS), dtype=np.int64)
-    for pos, k in enumerate(order):
-        p, j = progs[k], jobs[pos]
-        j[J_CODE], j[J_NINSTR] = code_off[k], p.code.shape[0]
-        j[J_POOL], j[J_SRC], j[J_NBASE] = pool_off[k], src_off[k], p.n_base
-        j[J_LOGQ], j[J_LQD], j[J_SEL] = log_qs[k], lqds[k], p.sel_mask
-        j[J_OUT], j[J_BLOCK0] = out_ptr[k], first[pos]
-        if quotient:
-            log_n = log_qs[k] - lqds[k]
-            j[J_ZH] = pool_off[k] + int(p.pool.shape[0])
-            j[J_GINV] = bb.to_monty_int(pow(bb.two_adic_generator_int(log_n), -1, P))
-            if p.sel_mask & 3:
-                tab = selector_table(log_n, lqds[k], dev)
-                j[J_FIRST], j[J_LAST] = tab[0].data_ptr(), tab[1].data_ptr()
 
-    sections = [jobs.view(np.uint8).ravel(),
-                np.asarray(src_words or [0, 0], dtype=np.int64).view(np.uint8),
+    launches = []
+    for idx, is_global, lane_words, n_base, code_cap, threads in launch_plan(progs):
+        order, first, total = block_plan([heights[k] for k in idx], threads)
+        jobs = np.zeros((len(idx), JOB_WORDS), dtype=np.int64)
+        for pos, o in enumerate(order):
+            k = idx[o]
+            p, j = progs[k], jobs[pos]
+            j[J_CODE], j[J_NINSTR] = code_off[k], p.code.shape[0]
+            j[J_POOL], j[J_SRC] = pool_off[k], src_off[k]
+            j[J_NBASE] = n_base if is_global else p.n_base
+            j[J_LOGQ], j[J_LQD], j[J_SEL] = log_qs[k], lqds[k], p.sel_mask
+            j[J_OUT], j[J_BLOCK0] = out_ptr[k], first[pos]
+            if quotient:
+                log_n = log_qs[k] - lqds[k]
+                j[J_ZH] = pool_off[k] + int(p.pool.shape[0])
+                j[J_GINV] = bb.to_monty_int(pow(bb.two_adic_generator_int(log_n), -1, P))
+                if p.sel_mask & 3:
+                    tab = selector_table(log_n, lqds[k], dev)
+                    j[J_FIRST], j[J_LAST] = tab[0].data_ptr(), tab[1].data_ptr()
+        launches.append((jobs, threads, total, lane_words, code_cap, is_global))
+
+    sections = [np.asarray(src_words or [0, 0], dtype=np.int64).view(np.uint8),
                 np.concatenate(pool_parts + [np.zeros(1, np.uint32)])
                 .astype(np.uint32).view(np.uint8)]
     if code is None:
         code_np = np.concatenate([p.code for p in progs]).astype(np.int32)
         sections.append(code_np.view(np.uint8).ravel())
+    sections += [jobs.view(np.uint8).ravel() for jobs, *_ in launches]
     offs, size = [], 0
     for s in sections:
         offs.append(size)
@@ -842,11 +944,20 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
         host_np[o:o + s.nbytes] = s
     tables = host.to(dev, non_blocking=True)
     base = tables.data_ptr()
-    code_ptr = base + offs[3] if code is None else code.data_ptr()
+    code_ptr = base + offs[2] if code is None else code.data_ptr()
     xs = ntt.lde_points(max(log_qs), dev) if quotient else tables
-    _build.launch(kernel, fn_name, dev, base + offs[0], len(progs), code_ptr,
-                  base + offs[2], base + offs[1], xs.data_ptr(), threads,
-                  total, lane_words * 4 * threads + 16 * code_cap, code_cap)
+    for (jobs, threads, total, lane_words, code_cap, is_global), off in zip(
+            launches, offs[len(sections) - len(launches):]):
+        if is_global:
+            rows = global_rows(lane_words, total, threads)
+            scratch = _scratch(lane_words * rows, dev).data_ptr()
+            blocks, smem = rows // threads, 0
+        else:
+            scratch, blocks = None, total
+            smem = lane_words * 4 * threads + 16 * code_cap
+        _build.launch(kernel, fn_name, dev, base + off, len(jobs), code_ptr,
+                      base + offs[1], base + offs[0], xs.data_ptr(), threads,
+                      blocks, smem, code_cap, scratch, total)
     # the tables must outlive the launch: PyTorch's caching allocator holds
     # a freed block for the stream's later work, and the kernel runs first
     return outs
@@ -863,7 +974,9 @@ def evaluate_many(progs: list, sources: list, log_ns: list, lqds: list,
 
     Blocks map to (AIR, row range) through a job table (``block_plan``);
     each thread evaluates one row, in LDE order, so neighbouring threads
-    load neighbouring rows.  Bound by operations for a constraint-heavy AIR
+    load neighbouring rows.  Programs marked ``global_memory`` (and any that
+    do not fit one block beside the others, ``split_modes``) take a second
+    launch, with code and slots in global memory.  Bound by operations for a constraint-heavy AIR
     (every node a Montgomery product or add a row; the fold a scale or an
     extension product by a power of alpha) and by bytes for a narrow one
     (each row reads its local and next cells and writes 16 bytes)."""
@@ -902,8 +1015,9 @@ def evaluate_columns(prog: Program, sources: list, log_n: int) -> torch.Tensor:
     """Kernel K7 in its columns mode (csrc/quotient.cu) on CUDA tensors,
     ``evaluate_columns_plain`` on CPU tensors; same arguments and result.
 
-    The quotient kernel's interpreter with one job over the natural rows:
-    each thread stores its rows' root values in their output rows, so
+    The quotient kernel's interpreter with one job over the natural rows
+    (in global-memory mode for a program marked ``global_memory``): each
+    thread stores its rows' root values in their output rows, so
     neighbouring threads write neighbouring words.  Bound by bytes when the
     roots are columns and small expressions, as interaction fields are:
     each row reads its cells and writes 4 bytes per root."""

@@ -9,6 +9,12 @@ one pass.  Both are held word for word against ``build_perm_trace`` and
 and on the RV32IM auipc chip's fib(10) trace (whose quotient domain is
 twice its trace: lqd 1), and in a pinned case where alpha makes one
 denominator zero, which both packages turn into a zero contribution.
+
+K10's single-pass scan is held through its buffer and a model: the chunk
+columns in K9's (N, 4m + 4) buffer (``perm_buffer``), scanned, equal
+``_perm_tail_jit`` at 2^1 to 2^12 rows, and ``logup._scan_model`` (tiles,
+row sums, the look-back's carries over aggregates and prefixes) equals the
+plain scan at forced small tiles and look-back windows.
 """
 
 import functools
@@ -23,6 +29,7 @@ import jax.numpy as jnp
 from openvm_tpu import stark as jstark
 from openvm_tpu.field import babybear as jbb
 from openvm_tpu.stark import logup as jlogup
+from openvm_tpu.stark.logup import _perm_tail_jit
 from openvm_tpu.stark.prover import _selectors_on_domain
 from openvm_tpu.vm.circuit import rv32im as jrv
 from openvm_tpu_torch import ntt, stark
@@ -219,3 +226,40 @@ def test_sender_receiver_proof_sha256_pinned():
     stark.verify(pk.vk, proof)
     assert hashlib.sha256(codec.encode_proof(proof)).hexdigest() == \
         SENDER_RECEIVER_PROOF_SHA256
+
+
+@pytest.mark.parametrize("log_n,m", [(1, 1), (5, 3), (9, 11), (12, 12)])
+def test_perm_buffer_scan_equals_jax_tail(log_n, m):
+    """Chunk columns in K9's output view of the (N, 4m + 4) trace: the
+    trace around them has phi's 4 columns beside each row, and the scan of
+    the view equals the JAX package's ``_perm_tail_jit``."""
+    rng = np.random.default_rng(log_n)
+    words = bb.to_monty_np(rng.integers(0, P, size=(1 << log_n, 4 * m), dtype=np.uint64))
+    perm = logup.perm_buffer(1 << log_n, m, "cpu")
+    perm.copy_(bb.from_numpy(words, device="cpu"))
+    trace = logup._trace_of(perm)
+    assert trace.shape == (1 << log_n, 4 * m + 4)
+    assert trace.data_ptr() == perm.data_ptr()
+    np.testing.assert_array_equal(bb.to_numpy(trace[:, :4 * m]), words)
+    got, cum = logup.perm_scan(perm)
+    jmat, jcum = _perm_tail_jit(jnp.asarray(words))
+    np.testing.assert_array_equal(bb.to_numpy(got), np.asarray(jmat))
+    np.testing.assert_array_equal(bb.to_numpy(cum), np.asarray(jcum))
+    with pytest.raises(ValueError, match="perm_buffer"):
+        logup._trace_of(bb.from_numpy(words, device="cpu"))
+
+
+@pytest.mark.parametrize("n,m,tile,window", [(1, 1, 2, 2), (7, 2, 2, 2), (37, 3, 3, 4),
+                                             (256, 11, 4, 3), (1000, 12, 16, 32)])
+def test_scan_model_equals_plain(n, m, tile, window):
+    """K10's tiles, row sums and look-back carries, modelled at forced
+    small tiles and windows (so the look-back crosses several windows of
+    aggregates before a prefix), with prefixes published at random."""
+    rng = np.random.default_rng(n)
+    perm = bb.from_numpy(bb.to_monty_np(rng.integers(0, P, size=(n, 4 * m), dtype=np.uint64)),
+                         device="cpu")
+    want, want_cum = logup.perm_scan_plain(perm)
+    for seed in range(3):
+        got, cum = logup._scan_model(perm, tile, window, seed)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        np.testing.assert_array_equal(cum.numpy(), want_cum.numpy())

@@ -154,6 +154,9 @@ def test_wrong_public_value_fails(proofs):
 
 
 def test_open_dot_and_col_comb_equal_jax():
+    """The openings' dot product (random series, and ``open_many``'s own
+    geometric ones for one and two points) and the column combination
+    equal the JAX package's."""
     rng = np.random.default_rng(5)
 
     def words(*shape):
@@ -167,10 +170,53 @@ def test_open_dot_and_col_comb_equal_jax():
     np.testing.assert_array_equal(
         np.asarray(_open_dot_jit(jnp.asarray(coeffs), jnp.asarray(zpows),
                                  jnp.asarray(geos))),
-        bb.to_numpy(pv._open_dot(t(coeffs), t(zpows), t(geos))))
+        bb.to_numpy(pv._open_dot_plain(t(coeffs), t(zpows), t(geos))))
+    mults = [7, 31]
+    series = bb.to_monty_np(np.asarray([[pow(m, i, P) for i in range(16)] for m in mults],
+                                       dtype=np.uint64))
+    got = pv.open_many([(t(coeffs), mults), (t(coeffs)[:, 1:], mults[1:])], t(zpows))
+    np.testing.assert_array_equal(
+        np.asarray(_open_dot_jit(jnp.asarray(coeffs), jnp.asarray(zpows),
+                                 jnp.asarray(series))), bb.to_numpy(got[0]))
+    np.testing.assert_array_equal(
+        np.asarray(_open_dot_jit(jnp.asarray(np.ascontiguousarray(coeffs[:, 1:])),
+                                 jnp.asarray(zpows), jnp.asarray(series[1:]))),
+        bb.to_numpy(got[1]))
     np.testing.assert_array_equal(
         np.asarray(jax_col_comb(jnp.asarray(coeffs), jnp.asarray(apows))),
         bb.to_numpy(pv._col_comb(t(coeffs), t(apows))))
+
+
+@pytest.mark.parametrize("threads,max_blocks", [(4, 2), (8, 3), (16, 1000)])
+def test_open_kernel_model_equals_plain(threads, max_blocks):
+    """K12's job table and index arithmetic, modelled (``pv._open_model``):
+    one table of widths 1 to 17 and heights 2^1 to 2^7 (largest first),
+    one and two points, a strided column slice, wider matrices than a
+    block's threads (column groups), a matrix without rows, and weights'
+    powers made from each block's first row and stepped a tile at a time;
+    each job's openings read from the flat output at its table offset."""
+    rng = np.random.default_rng(threads)
+
+    def words(*shape):
+        return bb.from_numpy(bb.to_monty_np(rng.integers(0, P, size=shape, dtype=np.uint64)),
+                             device="cpu")
+
+    zpows = words(1 << 7, 4)
+    wide = words(1 << 6, 9)
+    jobs = [(words(1 << 7, 2), [1, 5]), (words(2, 1), [3]), (wide[:, 2:7], [11, 13]),
+            (words(1 << 5, 17), [P - 1]), (words(1 << 3, 4), [1, 2]), (words(1 << 4, 3), [6]),
+            (words(0, 3), [2, 3])]
+    shapes = [(int(c.shape[0]), int(c.shape[1]), len(m)) for c, m in jobs][:-1]
+    order, rows, blocks, first, total = pv.open_plan(shapes, threads, max_blocks)
+    assert [shapes[k][0] * shapes[k][1] for k in order] == sorted(
+        (n * w for n, w, _ in shapes), reverse=True)
+    assert first == list(np.cumsum([0] + blocks[:-1])) and total == sum(blocks)
+    for pos, k in enumerate(order):
+        assert rows[pos] % threads == 0 and blocks[pos] <= max_blocks
+        assert (blocks[pos] - 1) * rows[pos] < shapes[k][0] <= blocks[pos] * rows[pos]
+    for got, want in zip(pv._open_model(jobs, zpows, threads, max_blocks),
+                         pv.open_many_plain(jobs, zpows)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_codec_reproduces_pinned_blob():

@@ -12,7 +12,17 @@ Horner's, the typed slot files against the kernel's shared-memory limit,
 the selector tables against the Fermat-inverse selectors, the job table's
 map of blocks to (AIR, rows), and ``evaluate_many`` over AIRs of mixed
 heights and quotient degrees.
+
+The extension chips whose programs do not fit shared memory (keccakf,
+keccak_sponge, modular_muldiv, sw_add_ne, sw_double, fp2_muldiv), built
+as the JAX package's keygen builds them, compile for the kernel's
+global-memory mode; keccakf's and sw_double's quotient values on a 4-row
+domain equal the JAX package's HostOps (its DeviceOps under OPENVM_SLOW).
 """
+
+import functools
+import os
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -21,8 +31,10 @@ import torch
 import jax.numpy as jnp
 
 from openvm_tpu.field import ext as jef
-from openvm_tpu.stark.evaluator import DeviceOps as JaxDeviceOps
+from openvm_tpu.stark.evaluator import DeviceOps as JaxDeviceOps, HostOps
+from openvm_tpu.stark.logup import append_logup_constraints as jax_append_logup
 from openvm_tpu.stark.prover import _selectors_on_domain
+from openvm_tpu.stark.symbolic import AirBuilder as JaxAirBuilder
 from openvm_tpu.stark.symbolic import SymbolicDag as JaxDag
 from openvm_tpu_torch import ntt
 from openvm_tpu_torch.field import babybear as bb
@@ -225,6 +237,9 @@ def test_zerofier_table_matches_selectors():
 
 
 def test_compile_reuses_slots_and_refuses_too_many(monkeypatch):
+    """Slots are reused; a program past the shared-memory plan compiles to
+    the same code, marked for the kernel's global-memory mode, and goes to
+    the second launch."""
     nodes, roots = random_dag(3)
     dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
     kw = dict(n_main=2, has_preprocessed=True, has_perm=True,
@@ -232,9 +247,13 @@ def test_compile_reuses_slots_and_refuses_too_many(monkeypatch):
               exposed=np.ones((1, 4), np.uint32), alpha=np.ones(4, np.uint32))
     prog = quotient.compile_dag(dag, **kw)
     assert prog.n_base + prog.n_ext < len(nodes) // 3
+    assert not prog.global_memory
     monkeypatch.setattr(quotient, "max_lane_words", lambda n: prog.lane_words - 1)
-    with pytest.raises(ValueError, match="slot words"):
-        quotient.compile_dag(dag, **kw)
+    big = quotient.compile_dag(dag, **kw)
+    assert big.global_memory
+    np.testing.assert_array_equal(big.code, prog.code)
+    assert quotient.split_modes([prog, big, prog]) == ([0, 2], [1])
+    assert quotient.block_threads(big.lane_words, 10 ** 6, True) == quotient.THREADS[0]
 
 
 @pytest.mark.parametrize("seed", range(4, 10))
@@ -379,3 +398,215 @@ def test_evaluate_many_mixed_heights_equal_per_air_and_jax():
                       else jnp.broadcast_to(v, (2, 4)))
     want = np.asarray(jef.scale(acc, sels["inv_zeroifier"]))
     np.testing.assert_array_equal(want, bb.to_numpy(got[2]))
+
+
+def _naive_root_order(dag, roots):
+    """The greedy fold order by rescanning every cone each step."""
+    cones = [quotient._cone(dag, r) for r in roots]
+    uses: dict = {}
+    for c in cones:
+        for n in c:
+            uses[n] = uses.get(n, 0) + 1
+    done: set = set()
+    order, left = [], list(range(len(roots)))
+    while left:
+        k = min(left, key=lambda k: (len(cones[k] - done),
+                                     -sum(1 for n in cones[k] if uses[n] == 1)))
+        order.append(k)
+        left.remove(k)
+        done |= cones[k]
+        for n in cones[k]:
+            uses[n] -= 1
+    return order
+
+
+@pytest.mark.parametrize("seed", [0, 3, 21])
+def test_root_order_equals_the_greedy_rescan(seed):
+    """The heap's lazily updated keys give the same order as rescanning
+    every remaining root's cone at each step (repeated roots included)."""
+    nodes, roots = random_dag(seed, n_ops=300)
+    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    assert quotient._root_order(dag, roots) == _naive_root_order(dag, roots)
+
+
+# ---------------------------------------------------------------------------
+# F1: programs too large for shared memory
+# ---------------------------------------------------------------------------
+
+SECP_P = (1 << 256) - (1 << 32) - 977
+BN254_P = int("21888242871839275222246405745257275088696311157297823662689037894645226208583")
+# (AIR, instructions, slot words a row) of the JAX configs' chips that
+# shared memory cannot hold
+EXTENSION_AIRS = {"keccakf": (56186, 2890), "keccak_sponge": (10397, 1814),
+                  "modular_muldiv_0": (8943, 910), "sw_add_ne_0": (16407, 1641),
+                  "sw_double_0": (18286, 1691), "fp2_muldiv_0": (27668, 1714)}
+
+
+@functools.lru_cache(maxsize=None)
+def _extension(name):
+    """(air, JAX DAG, the port's DAG, its code), the DAG built as the JAX
+    package's keygen builds it: AirBuilder + append_logup_constraints at
+    degree 3."""
+    from openvm_tpu.vm.circuit.ecc import EcAddNeAir, EcDoubleAir
+    from openvm_tpu.vm.circuit.fp2 import Fp2MulDivAir
+    from openvm_tpu.vm.circuit.keccak import KeccakfAir, KeccakVmAir
+    from openvm_tpu.vm.circuit.modular import ModularMulDivAir
+    air = {"keccakf": KeccakfAir, "keccak_sponge": KeccakVmAir,
+           "modular_muldiv_0": lambda: ModularMulDivAir(SECP_P, 0),
+           "sw_add_ne_0": lambda: EcAddNeAir(SECP_P, 0, 0),
+           "sw_double_0": lambda: EcDoubleAir(SECP_P, 0, 0),
+           "fp2_muldiv_0": lambda: Fp2MulDivAir(BN254_P, 0)}[name]()
+    builder = JaxAirBuilder(air)
+    air.eval(builder)
+    jax_append_logup(builder, 3)
+    jdag = JaxDag.from_builder(builder)
+    dag = SymbolicDag(nodes=jdag.nodes, constraint_roots=jdag.constraint_roots,
+                      interactions=jdag.interactions)
+    prog = quotient.compile_dag_code(
+        dag, n_main=1 + len(air.cached_main_widths),
+        has_preprocessed=air.preprocessed_trace() is not None,
+        has_perm=bool(jdag.interactions))
+    return air, jdag, dag, prog
+
+
+def test_global_scratch_holds_mixed_jobs_apart():
+    """A global-memory launch of programs with different base and
+    extension files: with the plan's base file for every job, the words of
+    any two rows in flight (slot s of row r at s R + r, the extension file
+    after the base file, four words a slot) never meet, and fit the
+    scratch the plan sizes."""
+    progs = []
+    for seed, lane in ((5, 40), (6, 60), (7, 10 ** 6)):
+        nodes, roots = random_dag(seed, n_ops=120)
+        prog = quotient.compile_dag_code(SymbolicDag(nodes=nodes, constraint_roots=roots),
+                                         n_main=2, has_preprocessed=True, has_perm=True)
+        progs.append(replace(prog, global_memory=prog.lane_words > lane))
+    assert [p.global_memory for p in progs] == [True, True, False]
+    assert progs[0].n_base != progs[1].n_base and progs[0].n_ext != progs[1].n_ext
+    plan = quotient.launch_plan(progs)
+    assert [(idx, g) for idx, g, *_ in plan] == [([2], False), ([0, 1], True)]
+    _, _, lane_words, n_base, code_cap, threads = plan[1]
+    assert code_cap == 0 and threads == quotient.THREADS[0]
+    rows = 6  # rows in flight; the jobs alternate over them
+    owner = {}
+    for r in range(rows):
+        p = progs[r % 2]
+        cells = [s * rows + r for s in range(p.n_base)]
+        cells += [n_base * rows + 4 * (e * rows + r) + c
+                  for e in range(p.n_ext) for c in range(4)]
+        for w in cells:
+            assert w < lane_words * rows and owner.setdefault(w, r) == r, (w, r)
+
+
+@pytest.mark.parametrize("name", list(EXTENSION_AIRS))
+def test_extension_air_compiles_for_global_memory(name):
+    _, _, _, prog = _extension(name)
+    n_instr = int(prog.code.shape[0])
+    assert (n_instr, prog.lane_words) == EXTENSION_AIRS[name]
+    assert prog.global_memory and prog.lane_words > quotient.max_lane_words(n_instr)
+    assert quotient.split_modes([prog]) == ([], [0])
+    threads = quotient.block_threads(prog.lane_words, n_instr, True)
+    rows = quotient.global_rows(prog.lane_words, 1 << 20, threads)
+    assert rows % threads == 0 and rows <= quotient.GLOBAL_ROWS
+    assert prog.lane_words * rows <= quotient.GLOBAL_SCRATCH_WORDS
+
+
+def _host_ops_quotient(air, jdag, env_words, log_n, lqd, ops=HostOps):
+    """The alpha-folded constraints over Z_H at each natural row of the
+    quotient domain, through the JAX package's HostOps (canonical ints)."""
+    log_q = log_n + lqd
+    nq = 1 << log_q
+    sels = quotient.selectors_on_domain(log_n, log_q, bb.GENERATOR, "cpu")
+    sel_c = {k: bb.to_numpy(bb.from_monty_plain(v)).tolist() for k, v in sels.items()}
+
+    def ext(row):
+        return [tuple(int(x) for x in row[4 * i:4 * i + 4]) for i in range(len(row) // 4)]
+
+    alpha = tuple(env_words["alpha"].tolist())
+    out = []
+    for j in range(nq):
+        nxt = (j + (1 << lqd)) % nq
+        env = {"main": [([(int(x), 0, 0, 0) for x in m[j]],
+                         [(int(x), 0, 0, 0) for x in m[nxt]]) for m in env_words["main"]],
+               "preprocessed": None,
+               "perm": (ext(env_words["perm"][j]), ext(env_words["perm"][nxt]))
+               if env_words["perm"] is not None else None,
+               "publics": env_words["publics"].tolist(),
+               "challenges": [tuple(c) for c in env_words["challenges"].tolist()],
+               "exposed": [tuple(c) for c in env_words["exposed"].tolist()],
+               "sels": {k: (v[j], 0, 0, 0) for k, v in sel_c.items()}}
+        vals = jdag.eval(ops, env, roots=jdag.constraint_roots)
+        acc = (0, 0, 0, 0)
+        for r in jdag.constraint_roots:
+            acc = tuple(int(x) for x in
+                        np.asarray(ops.add(ops.mul(acc, alpha), vals[r])) % P)
+        z = sel_c["inv_zeroifier"][j]
+        out.append([a * z % P for a in acc])
+    return np.asarray(out, dtype=np.uint64)
+
+
+def _extension_case(name, seed):
+    """A random 2-row trace of the AIR (lqd 1: a 4-row quotient domain):
+    canonical words for HostOps, and the port's plain quotient of the
+    AIR's program over the same values stored as LDEs."""
+    air, jdag, dag, prog = _extension(name)
+    rng = np.random.default_rng(seed)
+    log_n, lqd = 1, 1
+    nq = 1 << (log_n + lqd)
+    widths = list(air.cached_main_widths) + [air.width]
+    n_perm = 4 * (len(jdag.interactions) and max(
+        (n[4] for n in jdag.nodes if n[0] == "var" and n[1] == "permutation"),
+        default=-1) + 1)
+    n_pub = 1 + max((n[4] for n in jdag.nodes if n[0] == "var" and n[1] == "public"),
+                    default=-1)
+    canon = {"main": [rng.integers(0, P, size=(nq, w), dtype=np.uint64) for w in widths],
+             "perm": rng.integers(0, P, size=(nq, n_perm), dtype=np.uint64)
+             if n_perm else None,
+             "publics": rng.integers(0, P, size=n_pub, dtype=np.uint64),
+             "challenges": rng.integers(0, P, size=(2, 4), dtype=np.uint64),
+             "exposed": rng.integers(0, P, size=(1, 4), dtype=np.uint64),
+             "alpha": rng.integers(0, P, size=4, dtype=np.uint64)}
+    bound = quotient.bind(prog, publics=bb.to_monty_np(canon["publics"]),
+                          challenges=bb.to_monty_np(canon["challenges"]),
+                          exposed=bb.to_monty_np(canon["exposed"]),
+                          alpha=bb.to_monty_np(canon["alpha"]))
+    mats = canon["main"] + ([canon["perm"]] if n_perm else [])
+    got = quotient.evaluate_plain(bound, [_lde(bb.to_monty_np(m)) for m in mats],
+                                  log_n, lqd)
+    return air, jdag, canon, log_n, lqd, bb.to_numpy(bb.from_monty_plain(got))
+
+
+@pytest.mark.parametrize("name", ["keccakf", "sw_double_0"])
+def test_extension_air_quotient_equals_host_ops(name):
+    air, jdag, canon, log_n, lqd, got = _extension_case(name, 31)
+    want = _host_ops_quotient(air, jdag, canon, log_n, lqd)
+    np.testing.assert_array_equal(got.astype(np.uint64), want)
+
+
+@pytest.mark.parametrize("name", ["keccakf", "sw_double_0"])
+def test_extension_air_quotient_equals_device_ops(name):
+    """The same against the JAX package's DeviceOps: a DAG of up to 56 K
+    nodes compiled eagerly on XLA:CPU (minutes; run with OPENVM_SLOW=1)."""
+    if not os.environ.get("OPENVM_SLOW"):
+        pytest.skip("compiles every node of the DAG on XLA:CPU; run with OPENVM_SLOW=1")
+    air, jdag, canon, log_n, lqd, got = _extension_case(name, 31)
+    sels = _selectors_on_domain(log_n, log_n + lqd, bb.GENERATOR)
+    nq = 1 << (log_n + lqd)
+    jenv = {"main": [jnp.asarray(bb.to_monty_np(m)) for m in canon["main"]],
+            "preprocessed": None,
+            "perm": None if canon["perm"] is None else jnp.asarray(bb.to_monty_np(canon["perm"])),
+            "publics": jnp.asarray(bb.to_monty_np(canon["publics"])),
+            "challenges": jnp.asarray(bb.to_monty_np(canon["challenges"])),
+            "exposed": jnp.asarray(bb.to_monty_np(canon["exposed"])),
+            "sels": sels, "next_step": 1 << lqd}
+    vals = jdag.eval(JaxDeviceOps, jenv, roots=jdag.constraint_roots)
+    alpha = jnp.asarray(bb.to_monty_np(canon["alpha"]))
+    acc = jef.zeros((nq,))
+    for r in jdag.constraint_roots:
+        tag, v = vals[r]
+        acc = jef.mul(acc, jnp.broadcast_to(alpha, acc.shape))
+        acc = jef.add(acc, jef.from_base(jnp.broadcast_to(v, (nq,))) if tag == "b"
+                      else jnp.broadcast_to(v, (nq, 4)))
+    want = np.asarray(jef.scale(acc, sels["inv_zeroifier"]))
+    np.testing.assert_array_equal(
+        bb.to_monty_np(got.astype(np.uint64)), want)
