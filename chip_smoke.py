@@ -26,8 +26,15 @@ Phases, each printing one JSON line:
             launches); K5's tail on trees of 2^1 to 2^14 leaves with
             injections at every height, at tails of 2, 64 and 512 digests;
             K12 on one table of widths 1 to 380, heights 2^1 to 2^22, one
-            and two points and column slices; K10 at m = 1 to 12 chunks,
-            heights off its 256-row tile and 16,385 tiles
+            and two points and column slices; K9 in one launch over a job
+            table of heights 1 to 2^21 (0 to 9 fields, m = 1 to 13 chunks,
+            zero denominators at a row's first, middle and last
+            interaction and on a whole row) and with
+            alpha zeroing a field-less interaction; K10 at m = 1 to 12
+            chunks, heights off its 256-row tile and 16,385 tiles; K8 in
+            one launch over AIRs of 2^20, 1000 and 1 rows with skewed
+            sends, counts that wrap, indices at and past each table's edge
+            and wrapping indices
   main      path 1, one RV32IM segment's common-main commit at full size:
             the matrix widths of the VM's AIRs, heights at the fib_e2e
             segment cap (1,048,476 rows) padded to 2^20; to_monty -> coset
@@ -48,8 +55,9 @@ Phases, each printing one JSON line:
             1.0 M instructions (rv32_base_alu 800 k rows, padded to 2^20),
             with FIB_EXECUTORS and the production profile (84 queries, 16
             PoW bits, log_blowup 1); stage seconds, insn/s, trace cells/s;
-            the proof's SHA-256 pinned (VM_PROOF_SHA256); then K8 on every
-            AIR's sends, K9 and K10 on every AIR's permutation trace, K7
+            the proof's SHA-256 pinned (VM_PROOF_SHA256); one K8 and one
+            K9 launch a prove; then K8's tables and every AIR's K9 columns
+            and K10 scan from the prove against plain, K7
             on all 15 AIRs' quotient in one launch (LogUp roots included)
             and K12 on every matrix's openings in one table against their
             plain versions, on the prove's own inputs
@@ -64,7 +72,10 @@ Phases, each printing one JSON line:
             at tail thresholds of 64 to 512 digests and layer by layer; K7
             on path 3's own rv32_base_alu quotient input and on the prove's
             one launch over all 15 AIRs, and in its global-memory mode at
-            2^16 rows; K12 on path 3's own openings table; K10's yardstick
+            2^16 rows; K12 on path 3's own openings table; K8 and K9 on
+            path 3's own one-launch inputs, with the skew of its sends and
+            the host seconds of compiling the columns programs; K10's
+            yardstick
             torch.cumsum on the inner dimension of the (4, N) row sums (and
             on the outer dimension of (N, 4), the earlier reading); each
             device time with the card
@@ -195,6 +206,12 @@ EXT_ADD = 4 * ADD_OPS
 EXT_SCALE = 4 * MUL_OPS
 EXT_MUL = 19 * MUL_OPS + 12 * ADD_OPS
 BATCH_INV, EXT_BATCH_INV = 3 * MUL_OPS, 3 * EXT_MUL
+# With delayed reduction (K9, csrc/logup.cu mul_d): a 32x32-bit product
+# added into a 64-bit sum counts 2 (its low and high halves, with the
+# carry), a reduction of the sum RED_OPS; an extension product is 19 such
+# products and 7 reductions.
+WIDE_MAC_OPS = 2
+EXT_MUL_D = 19 * WIDE_MAC_OPS + 7 * RED_OPS
 NO_LIBRARY = "no single PyTorch call computes this function"
 
 
@@ -794,27 +811,17 @@ def phase_variants(dev, rng) -> dict:
             cols, qmod.evaluate_columns_plain(cprog, csrc, 12))
         del cols
 
-    # K9 and K10: a layout of 5 interactions in 3 chunks (0 to 4 fields, a
-    # zero denominator), heights 1, 1000 (a partial tile) and 2^21; then
+    # K9 in one launch over a job table of heights 1 to 2^21: 0 to 9 fields
+    # an interaction, m = 1, 3, 12 and 13 chunks (interactions sharing
+    # output rows in the 13-chunk layout), and a layout whose rows
+    # 0, 1 and 2 have a zero denominator at their first, middle and last
+    # interaction and row 3 at every one; then a table whose alpha zeroes a
+    # field-less
+    # interaction on every row.  K10 on the tallest and shortest buffers.
+    perm_jobs, perm_errs = k9_variants(dev, rng)
+    errs.update(perm_errs)
     # K10 alone over m = 1 to 12 chunks at heights that are not a multiple
     # of its tile, and 2^22 + 37 rows (16,385 tiles: a long look-back chain)
-    for n in (1, 1000, 1 << (VARIANT_LOG_H - 1)):
-        table = np.asarray([(0, 2, 0, 1), (3, 0, 0, 0), (4, 4, 1, 1),
-                            (9, 1, 2, 0), (11, 3, 2, 1)], dtype=np.int32)
-        layout = logup.InteractionLayout(
-            roots=list(range(15)), table=table,
-            bus_m=bb.to_monty_np(np.asarray([1, 2, 7, 3, 0], dtype=np.uint64)), m=3, f_max=4)
-        cols = words(rng, dev, 15, n)
-        alpha, bpows = words(rng, dev, 4), words(rng, dev, 4, 4)
-        cols[0, 0] = 0
-        cols[1, 0] = 0
-        alpha[1:] = 0
-        alpha[0] = P - int(layout.bus_m[0])  # interaction 0, row 0: d = 0
-        perm = logup.perm_cols(cols, layout, alpha, bpows)
-        errs[f"perm_cols/{n}"] = max_abs_err(perm, logup.perm_cols_plain(cols, layout, alpha, bpows))
-        want = logup.perm_scan_plain(perm)
-        got = logup.perm_scan(perm)
-        errs[f"perm_scan/{n}"] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
     scan_shapes = [(n, m) for m in range(1, 13)
                    for n in (1, 255, 257, 1000 + 37 * m, (1 << 14) + m)]
     scan_shapes += [((1 << VARIANT_LOG_H) + 37, 1), ((1 << VARIANT_LOG_H) + 1, 2)]
@@ -827,30 +834,169 @@ def phase_variants(dev, rng) -> dict:
                                          max_abs_err(got[1], want[1]))
         del perm, want, got
 
-    # K8: random sends of all three kinds, canonical values small and large
-    sends_tab = np.asarray([(lookup.RANGE, 0, 1, 1, 2), (lookup.BITWISE, 3, 4, 5, 2),
-                            (lookup.TUPLE, 3, 4, 4, 6)], dtype=np.int32)
-    layout = lookup.SendLayout(roots=list(range(7)), table=sends_tab)
-    vals = rng.integers(0, 300, size=(7, 1 << 16)).astype(np.uint64)
-    vals[1] = rng.integers(0, 33, size=1 << 16)
-    vals[2] = rng.integers(0, 3, size=1 << 16)
-    vals[6] = rng.integers(0, P, size=1 << 16)
-    vals[:, :64] = rng.integers(0, P, size=(7, 64))
-    cols = bb.monty(vals, device=dev)
-    k_tabs = lookup.new_tables(1 << 16, 256 * 2048, dev)
-    p_tabs = lookup.new_tables(1 << 16, 256 * 2048, dev)
-    for _ in range(2):  # the second call adds into the first call's counts
-        lookup.lookup_hist(cols, layout, k_tabs, 2048)
-        lookup.lookup_hist_plain(cols, layout, p_tabs, 2048)
-    errs["lookup_hist"] = max(max_abs_err(a, b) for a, b in zip(k_tabs, p_tabs))
+    # K8 in one launch over AIRs of 2^20, 1000 and 1 rows: skewed sends
+    # (90% on bits 14 value 0, bitwise and tuple bin 0, all private or
+    # head bins), counts that wrap uint32 in one bin (private and global),
+    # indices at and past each table's edge, wrapping tuple and bitwise
+    # indices; two calls add into the same tables
+    hist_heights, hist_errs = k8_variants(dev, rng)
+    errs.update(hist_errs)
     bad = {k: v for k, v in errs.items() if v}
     emit({"phase": "variants", "cases": len(errs), "mismatched": bad,
           "quotient_dags": big, "quotient_jobs": jobs,
           "quotient_mixed": [(int(m[0].code.shape[0]), m[1], m[2], m[0].global_memory)
                              for m in mixed],
-          "open_table": open_table, "perm_scan_shapes": scan_shapes})
+          "open_table": open_table, "perm_scan_shapes": scan_shapes,
+          "perm_cols_jobs": perm_jobs, "lookup_hist_heights": hist_heights})
     require(not bad, f"kernel and plain disagree: {bad}")
     return qprogs
+
+
+def solve_mod_p(a: list, b: list) -> list:
+    """x with a x = b over F_p (a square and invertible), by elimination."""
+    n = len(a)
+    m = [[int(v) % P for v in row] + [int(bv) % P] for row, bv in zip(a, b)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if m[r][c])
+        m[c], m[piv] = m[piv], m[c]
+        inv = pow(m[c][c], -1, P)
+        m[c] = [v * inv % P for v in m[c]]
+        for r in range(n):
+            if r != c and m[r][c]:
+                f = m[r][c]
+                m[r] = [(v - f * w) % P for v, w in zip(m[r], m[c])]
+    return [m[r][n] for r in range(n)]
+
+
+def perm_variant_layout(rows: list, rng, shared: bool = False) -> logup.InteractionLayout:
+    """An InteractionLayout of (first field row, fields, chunk, is_send)
+    rows over consecutive output rows, random bus ids; with ``shared``,
+    every other entry reads a row that an earlier interaction reads too."""
+    table = np.asarray(rows, dtype=np.int32)
+    n_roots = int(max(r[0] + r[1] + 1 for r in rows))
+    entries = np.arange(n_roots, dtype=np.int32)
+    if shared:
+        entries = np.where(entries % 2, entries // 2, entries)
+    return logup.InteractionLayout(
+        roots=list(range(n_roots)), rows=entries, table=table,
+        bus_m=bb.to_monty_np(rng.integers(0, P, size=len(rows), dtype=np.uint64)),
+        m=int(table[:, 2].max()) + 1, f_max=int(table[:, 1].max()))
+
+
+def zero_denominators(cols, layout, alpha_m, bpows_m, rows_its: dict) -> None:
+    """Set 4 fields of each (row, interaction) of ``rows_its`` so that its
+    denominator alpha + bus + sum_j beta^(j+1) f_j is 0 (the interactions
+    have at least 4 fields): a 4 x 4 system over F_p in canonical values."""
+    canon = lambda w: bb.from_monty_int(int(w))  # noqa: E731
+    beta = [[canon(bpows_m[j][k]) for j in range(4)] for k in range(4)]
+    for row, its in rows_its.items():
+        for i in its:
+            first, nf = int(layout.table[i, 0]), int(layout.table[i, 1])
+            at = layout.rows[first:first + nf]
+            rest = [sum(canon(bpows_m[j][k]) * canon(cols[at[j], row])
+                        for j in range(4, nf)) for k in range(4)]
+            rhs = [-(canon(alpha_m[k]) + (canon(layout.bus_m[i]) if k == 0 else 0)
+                     + rest[k]) for k in range(4)]
+            f = solve_mod_p(beta, rhs)
+            for j in range(4):
+                cols[at[j], row] = bb.to_monty_int(f[j])
+
+
+def k9_variants(dev, rng) -> tuple:
+    """K9 (and K10 on its output) against plain on one-launch job tables;
+    returns (the job table's (layout, height) pairs, errors)."""
+    errs = {}
+    layouts = {
+        "mixed": perm_variant_layout([(0, 2, 0, 1), (3, 0, 0, 0), (4, 4, 1, 1),
+                                      (9, 1, 2, 0), (11, 3, 2, 1)], rng),
+        "one_chunk": perm_variant_layout([(0, 9, 0, 0), (10, 1, 0, 1)], rng),
+        "twelve_chunks": perm_variant_layout([(3 * i, 2, i, i % 2) for i in range(12)], rng),
+        "zeros": perm_variant_layout([(5 * i, 4, i // 2, (i + 1) % 2) for i in range(5)], rng),
+        "load_store_like": perm_variant_layout(
+            [(10 * i, 1 + (3 * i) % 9, i * 13 // 22, int(i % 3 != 0)) for i in range(22)],
+            rng, shared=True),
+    }
+    jobs = [("mixed", 1), ("zeros", 2), ("one_chunk", 1000), ("twelve_chunks", 4099),
+            ("load_store_like", 1 << 12), ("zeros", 1 << (VARIANT_LOG_H - 1))]
+    alpha = bb.to_monty_np(rng.integers(0, P, size=4, dtype=np.uint64))
+    bpows = bb.to_monty_np(rng.integers(0, P, size=(9, 4), dtype=np.uint64))
+    cols = []
+    for name, n in jobs:
+        lay = layouts[name]
+        c = bb.to_monty_np(rng.integers(0, P, size=(len(lay.roots), n), dtype=np.uint64))
+        if name == "zeros":
+            zero_denominators(c, lay, alpha, bpows,
+                              {0: [0], 1: [2], 2: [4], 3: range(5)} if n > 3 else {1: [0, 4]})
+        cols.append(bb.from_numpy(c, device=dev))
+    lays = [layouts[name] for name, _ in jobs]
+    plain = [logup.perm_cols_plain(c, lay, bb.from_numpy(alpha, device=dev),
+                                   bb.from_numpy(bpows, device=dev))
+             for c, lay in zip(cols, lays)]
+    # row 3 is all zero denominators, row 2's last chunk holds only its
+    # zero one; rows 0 and 1 keep their other interactions
+    require(not plain[-1][3].any() and not plain[-1][2, 8:].any()
+            and bool(plain[-1][:2].all()), "the zero denominators' rows are not as planted")
+    before = _build.LAUNCHES["perm_cols"]
+    got = logup.perm_cols_many(cols, lays, alpha, bpows)
+    require(_build.LAUNCHES["perm_cols"] == before + 1, "K9: one launch a table")
+    for (name, n), g, w in zip(jobs, got, plain):
+        errs[f"perm_cols/{name}/{n}"] = max_abs_err(g, w)
+    for k in (0, len(jobs) - 1):
+        want, have = logup.perm_scan_plain(got[k]), logup.perm_scan(got[k])
+        errs[f"perm_scan/{jobs[k][1]}"] = max(max_abs_err(have[0], want[0]),
+                                              max_abs_err(have[1], want[1]))
+    del got, plain
+    # alpha = -bus of the field-less interaction 1: zero on every row
+    lay = layouts["mixed"]
+    alpha0 = np.zeros(4, dtype=np.uint32)
+    alpha0[0] = P - int(lay.bus_m[1])
+    c = words(rng, dev, len(lay.roots), 1000)
+    errs["perm_cols/alpha_zero"] = max_abs_err(
+        logup.perm_cols(c, lay, alpha0, bpows),
+        logup.perm_cols_plain(c, lay, bb.from_numpy(alpha0, device=dev),
+                              bb.from_numpy(bpows, device=dev)))
+    return [(name, n) for name, n in jobs], errs
+
+
+def k8_variants(dev, rng) -> tuple:
+    """K8 against plain on one job table; returns (heights, errors)."""
+    range_h, tuple_h, sizes1 = 1 << 16, 256 * 2048, 2048
+    layout = lookup.SendLayout(roots=list(range(7)), table=np.asarray(
+        [(lookup.RANGE, 0, 1, 1, 2), (lookup.BITWISE, 3, 4, 5, 2),
+         (lookup.TUPLE, 3, 4, 4, 6)], dtype=np.int32))
+    heights = [1 << 20, 1000, 1]
+    cols = []
+    for n in heights:
+        v = rng.integers(0, 300, size=(7, n)).astype(np.uint64)
+        v[1] = rng.integers(0, 17, size=n)
+        v[2] = rng.integers(0, P, size=n)
+        v[2, rng.random(n) < 0.1] = 0
+        v[5] = rng.integers(0, 2, size=n)
+        v[6] = rng.integers(0, P, size=n)
+        hot = rng.random(n) < 0.9
+        v[0, hot], v[1, hot], v[3, hot], v[4, hot], v[5, hot] = 0, 14, 0, 0, 0
+        if n == 1000:  # every count p - 1: bins that wrap, private and global
+            v[2], v[6] = P - 1, P - 1
+            v[:2, 500:] = ((300,), (10,))
+        # the edges: the last bin of each table, then the first past it
+        edge = [(0, 16, 255, 255, 1), (1, 16, 256, 0, 0), (0, 16, 255, 2047, 1),
+                ((1 << 23) + 1, 1, (1 << 21) + 5, 9, 0), (5, 31, (1 << 23) + 1, 3, 1)]
+        for r, (val, bits, x, y, xr) in enumerate(edge[:min(n, len(edge))]):
+            v[[0, 1, 3, 4, 5], r] = (val, bits, x, y, xr)
+        cols.append(bb.monty(v, device=dev))
+    k_tabs = lookup.new_tables(range_h, tuple_h, dev)
+    p_tabs = lookup.new_tables(range_h, tuple_h, dev)
+    before = _build.LAUNCHES["lookup_hist"]
+    for _ in range(2):  # the second call adds into the first call's counts
+        lookup.lookup_hist_many(cols, [layout] * 3, k_tabs, sizes1)
+        for c in cols:
+            lookup.lookup_hist_plain(c, layout, p_tabs, sizes1)
+    require(_build.LAUNCHES["lookup_hist"] == before + 2, "K8: one launch a table")
+    errs = {f"lookup_hist/{name}": max_abs_err(a, b)
+            for name, a, b in zip(("range", "bitwise", "tuple"), k_tabs, p_tabs)}
+    require(int(p_tabs[0][range_h - 1]) != 0 and int(p_tabs[1][-1]) != 0
+            and int(p_tabs[0][(1 << 14) - 1]) != 0, "the K8 edge and hot bins are empty")
+    return heights, errs
 
 
 def run_main(traces: list, cfg: StarkConfig) -> dict:
@@ -931,9 +1077,11 @@ def run_vm(dev, cfg: StarkConfig) -> dict:
 
 def check_vm_kernels(vm, record: dict) -> dict:
     """K7 (columns mode), K8, K9, K10, K7 (quotient) and K12 of path 3
-    against their plain versions on the prove's own inputs: every AIR's
-    sends and permutation trace, every AIR's quotient from one launch, and
-    every matrix's openings from one table."""
+    against their plain versions on the prove's own inputs: the tables of
+    the prove's one K8 launch over every AIR's sends, each AIR's chunk
+    columns from its one K9 launch and its permutation trace, every AIR's
+    quotient from one launch, and every matrix's openings from one
+    table."""
     lk = record["lookup"]
     range_h, tuple_total, sizes1 = lk["sizes"]
     p_tabs = lookup.new_tables(range_h, tuple_total, lk["tables"][0].device)
@@ -1153,12 +1301,9 @@ def path3_bounds(calls: list, record: dict) -> dict:
         cols, layout = e["perm_cols"][:2]
         n = int(cols.shape[1])
         add("perm_cols", n * (len(layout.roots) + 4 * layout.m) * 4, n * perm_cols_ops(layout))
-    table_words = sum(int(t.numel()) for t in lk["tables"])
-    for _, prog, src, log_n, layout in lk["airs"]:
-        cols = qmod.evaluate_columns(prog, src, log_n)
-        _, cnt, n_words = lookup_scatter(cols, layout, lk["sizes"])
-        add("lookup_hist", (n_words + 2 * table_words) * 4,
-            n_words * MUL_OPS + int(cnt.numel()) * (3 * ADD_OPS + 1))
+    scatter = [lookup_scatter(qmod.evaluate_columns(prog, src, log_n), layout, lk["sizes"])
+               for _, prog, src, log_n, layout in lk["airs"]]
+    add("lookup_hist", *hist_cost(scatter, lk["tables"]))
     add("open_dot", *open_cost(*record["openings"]))
     plan, idx = record["gather"]
     add("gather", len(idx) * sum(int(m.shape[1]) for m, _, _ in plan.jobs) * 8, 0)
@@ -1319,6 +1464,8 @@ def run(dev: torch.device) -> int:
     v_launches = vmr["launches"]
     v_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     require(all(v_launches.values()), f"a kernel of path 3 never ran: {v_launches}")
+    require(v_launches["lookup_hist"] == 1 and v_launches["perm_cols"] == 1,
+            f"path 3 takes one lookup_hist and one perm_cols launch a prove: {v_launches}")
     vm, vproof, pre = vmr["vm"], vmr["proof"], vmr["pre"]
     x2 = (0, 1)
     for _ in range(VM_FIB_N):
@@ -1417,11 +1564,15 @@ def columns_cost(prog) -> tuple:
 
 
 def perm_cols_ops(layout) -> int:
-    """The fewest operations per row of K9: per interaction its fields'
-    scales and adds, alpha + bus, a batch inverse, the count's scale and
-    the add into its chunk."""
-    return sum(int(nf) * (EXT_SCALE + EXT_ADD) + ADD_OPS + EXT_BATCH_INV
-               + EXT_SCALE + EXT_ADD for nf in layout.table[:, 1])
+    """The fewest operations per row of K9, priced at the delayed-reduction
+    arithmetic the kernel uses: per interaction 4 multiply-adds a field
+    and, every 4 fields, 4 reductions and an extension add into the
+    constant alpha + bus; a batch inverse at 3 delayed extension products
+    an element (none for a field-less interaction, whose denominator is a
+    constant); the count's scale and the add into its chunk."""
+    return sum(nf * 4 * WIDE_MAC_OPS + -(-nf // 4) * (4 * RED_OPS + EXT_ADD)
+               + (3 * EXT_MUL_D if nf else 0) + EXT_SCALE + EXT_ADD
+               for nf in layout.table[:, 1].tolist())
 
 
 def perm_scan_cost(n: int, m: int) -> tuple:
@@ -1461,31 +1612,41 @@ def quotient_cost(recs) -> tuple:
 
 def lookup_scatter(cols, layout, sizes) -> tuple:
     """The live sends' (index, count) pairs of one AIR over the three tables
-    laid end to end, and the words the function must read (each send's
-    count, and its fields where the count is live); for the index_add_
-    yardstick and the bound."""
+    laid end to end, and the words the function must read: each distinct
+    count row of the layout on every row (sends share counts), and each
+    distinct field row on the rows where a send that reads it is live; for
+    the index_add_ yardstick and the bound."""
     range_h, tuple_h, sizes1 = sizes
     offsets = {lookup.RANGE: 0, lookup.BITWISE: range_h,
                lookup.TUPLE: range_h + lookup.BITWISE_BINS}
     limit = {lookup.RANGE: range_h, lookup.BITWISE: lookup.BITWISE_BINS,
              lookup.TUPLE: tuple_h}
     c = bb.from_monty_plain(cols).long()
-    idxs, cnts, words = [], [], 0
+    count_rows = set(layout.table[:, 4].tolist())
+    field_live: dict = {}
+    idxs, cnts = [], []
     for kind, rx, ry, rz, rc in layout.table.tolist():
-        x, y, cnt = c[rx], c[ry], c[rc]
-        if kind == lookup.RANGE:
-            high = torch.bitwise_left_shift(torch.ones_like(y), torch.clamp(y, max=30))
-            idx = torch.where(y == 0, 0, (high - 1 + x) & 0xFFFFFFFF)
-        elif kind == lookup.TUPLE:
-            idx = (x * sizes1 + y) & 0xFFFFFFFF
-        else:
-            idx = ((x * 256 + y) * 2 + c[rz]) & 0xFFFFFFFF
+        cnt = c[rc]
+        idx = lookup._indices(c, kind, rx, ry, rz, sizes1)
         live = cnt != 0
-        words += int(cnt.numel()) + int(live.sum()) * (3 if kind == lookup.BITWISE else 2)
+        for r in {rx, ry, rz} - count_rows:  # rz is ry but for bitwise sends
+            field_live[r] = field_live[r] | live if r in field_live else live
         keep = live & (idx < limit[kind])
         idxs.append(idx[keep] + offsets[kind])
         cnts.append(cnt[keep])
+    words = int(c.shape[1]) * len(count_rows) + sum(int(m.sum()) for m in field_live.values())
     return torch.cat(idxs), torch.cat(cnts), words
+
+
+def hist_cost(scatter: list, tables) -> tuple:
+    """(bytes, operations) of one K8 launch over AIRs whose
+    ``lookup_scatter`` results are ``scatter``: their words read once and
+    the tables read and written once; a from_monty (a reduction) a word
+    read, and per kept live send its index (3 adds and a shift) and add."""
+    words = sum(w for _, _, w in scatter)
+    live = sum(int(cnt.numel()) for _, cnt, _ in scatter)
+    table_words = sum(int(t.numel()) for t in tables)
+    return (words + 2 * table_words) * 4, words * RED_OPS + live * (3 * ADD_OPS + 1)
 
 
 def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
@@ -1567,11 +1728,15 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     _, h_prog, h_src, h_log_n, h_layout = next(a for a in lk["airs"]
                                                if a[0] == "rv32_base_alu")
     h_cols = qmod.evaluate_columns(h_prog, h_src, h_log_n)
-    h_idx, h_cnt, h_words = lookup_scatter(h_cols, h_layout, lk["sizes"])
+    h_scatter = lookup_scatter(h_cols, h_layout, lk["sizes"])
+    h_idx, h_cnt = h_scatter[:2]
     range_h, tuple_total, sizes1 = lk["sizes"]
     h_tabs = lookup.new_tables(range_h, tuple_total, dev)
-    h_table_words = sum(int(x.numel()) for x in h_tabs)
-    flat_tab = torch.zeros(h_table_words, dtype=torch.int64, device=dev)
+    # alpha and beta's powers as host words, as the prove passes them
+    k9_cols, _, k9_alpha, k9_bpows = k9_args
+    k9_alpha, k9_bpows = bb.to_numpy(k9_alpha), bb.to_numpy(k9_bpows)
+    flat_tab = torch.zeros(sum(int(x.numel()) for x in h_tabs), dtype=torch.int64,
+                           device=dev)
     cases = [
         ("bb_elementwise", "babybear.cu", "openvm_tpu/field/babybear.py:174",
          lambda: bb.to_monty(widest), lambda: bb.to_monty_plain(widest), 20, 3,
@@ -1625,18 +1790,17 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          n_alu * (c_loads + c_prog.n_roots) * 4, n_alu * c_ops,
          [n_alu, c_prog.n_roots, int(c_prog.code.shape[0])]),
         ("perm_cols", "logup.cu", "openvm_tpu/stark/logup.py:247",
-         lambda: logup.perm_cols(*k9_args), lambda: logup.perm_cols_plain(*k9_args),
+         lambda: logup.perm_cols_many([k9_cols], [k9_layout], k9_alpha, k9_bpows),
+         lambda: logup.perm_cols_plain(*k9_args),
          5, 1, n_alu * (len(k9_layout.roots) + 4 * m_alu) * 4,
          n_alu * perm_cols_ops(k9_layout), [n_alu, len(k9_layout.roots), m_alu]),
         ("perm_scan", "logup.cu", "openvm_tpu/stark/logup.py:328",
          lambda: logup.perm_scan(perm_in), lambda: logup.perm_scan_plain(perm_in),
          10, 2, *perm_scan_cost(n_alu, m_alu), [n_alu, 4 * m_alu]),
         ("lookup_hist", "lookup.cu", "openvm_tpu/stark/evaluator.py:253",
-         lambda: lookup.lookup_hist(h_cols, h_layout, h_tabs, sizes1),
+         lambda: lookup.lookup_hist_many([h_cols], [h_layout], h_tabs, sizes1),
          lambda: lookup.lookup_hist_plain(h_cols, h_layout, h_tabs, sizes1), 10, 2,
-         (h_words + 2 * h_table_words) * 4,
-         h_words * MUL_OPS + int(h_cnt.numel()) * (3 * ADD_OPS + 1),
-         [n_alu, int(h_layout.table.shape[0])]),
+         *hist_cost([h_scatter], h_tabs), [n_alu, int(h_layout.table.shape[0])]),
     ]
     library = {
         "perm_scan": (lambda: torch.cumsum(row_sums_t, dim=1),
@@ -1712,6 +1876,10 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     by_name["poseidon2_compress_tail"]["tail_max"] = merkle.TAIL_MAX
     quotient_vm = quotient_timing(vmr)
     quotient_global = global_timing(dev, rng, qprogs)
+    hist_perm = lookup_logup_timing(vmr, dev)
+    by_name["lookup_hist"].update(path3_launch=hist_perm["lookup_hist"],
+                                  skew=hist_perm["skew"])
+    by_name["perm_cols"]["path3_launch"] = hist_perm["perm_cols"]
     # path 1's stages again, warm: the NTT tables are cached now; stage
     # times, so the host's enqueue counts
     warm_ms = {"to_monty_lde": cuda_ms(lambda: ntt.batched_coset_ldes(
@@ -1732,7 +1900,8 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
               by_name["poseidon2_hash_rows"].get("bound_issue_ms"),
           "compress_phase": compress, "quotient_vm": quotient_vm,
           "quotient_global": quotient_global,
-          "open_dot_path3": open_path3, "path3_bounds": path3_bounds})
+          "open_dot_path3": open_path3, "lookup_logup_path3": hist_perm,
+          "path3_bounds": path3_bounds})
     return kernels
 
 
@@ -1810,6 +1979,86 @@ def quotient_timing(vmr) -> dict:
                     ("path3_launch", lambda: qmod.evaluate_many(*cols, code=code))):
         out[key]["ms"] = cuda_ms(fn, 10)
         out[key]["ms_host"] = cuda_ms(fn, 10, busy=False)
+    return out
+
+
+def send_skew(idx: torch.Tensor, range_h: int) -> dict:
+    """How path 3's live sends (kept indices, the three tables laid end to
+    end as ``lookup_scatter`` gives them) fall on bins: the hottest bin's
+    share, and the share that K8 adds into its private bins (the first
+    RANGE_SEG values of each bit width of the range table, the first
+    BITWISE_HEAD bins of the bitwise table)."""
+    hist = torch.bincount(idx)
+    one = idx + 1
+    private = (idx >= range_h) & (idx < range_h + lookup.BITWISE_HEAD)
+    for b in range(range_h.bit_length()):
+        private |= (idx < range_h) & (one >= 1 << b) & (one < (1 << b) + min(
+            lookup.RANGE_SEG, 1 << b))
+    live = int(idx.numel())
+    return {"live_sends": live, "bins_hit": int((hist > 0).sum()),
+            "hottest_bin": int(hist.argmax()), "hottest_bin_share": int(hist.max()) / live,
+            "private_share": int(private.sum()) / live,
+            "private_bins": range_h.bit_length() * lookup.RANGE_SEG + lookup.BITWISE_HEAD}
+
+
+def lookup_logup_timing(vmr, dev) -> dict:
+    """K8 and K9 at path 3's own inputs, as the prove launches them: every
+    AIR in one launch each, with the sum of the AIRs' bounds; the skew of
+    path 3's sends; and the host seconds of compiling every AIR's columns
+    programs, which the prover now does once per proving key
+    (``pk.kernel_plans``)."""
+    vm, rec = vmr["vm"], vmr["record"]
+    lk = rec["lookup"]
+    range_h, tuple_total, sizes1 = lk["sizes"]
+    cols = [qmod.evaluate_columns(prog, src, log_n) for _, prog, src, log_n, _ in lk["airs"]]
+    layouts = [a[4] for a in lk["airs"]]
+    tabs = lookup.new_tables(range_h, tuple_total, dev)
+    scatter = [lookup_scatter(c, lay, lk["sizes"]) for c, lay in zip(cols, layouts)]
+    nbytes, ops = hist_cost(scatter, tabs)
+    skew = send_skew(torch.cat([idx for idx, _, _ in scatter]), range_h)
+    del scatter
+    out = {"skew": skew}
+
+    def launch_row(kernel, fn, nbytes, ops, airs):
+        before = _build.LAUNCHES[kernel]
+        fn()
+        b_ms, b_by = bound(nbytes, ops)
+        return {"airs": airs, "launches": _build.LAUNCHES[kernel] - before,
+                "ms": cuda_ms(fn, 10), "ms_host": cuda_ms(fn, 10, busy=False),
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    out["lookup_hist"] = launch_row(
+        "lookup_hist", lambda: lookup.lookup_hist_many(cols, layouts, tabs, sizes1),
+        nbytes, ops, len(cols))
+    del cols
+    plan = next(v for k, v in vm.pk.kernel_plans.items() if k[0] == "logup")
+    entries = rec["logup"]
+    pcols = [e["perm_cols"][0] for e in entries]
+    alpha, bpows = (bb.to_numpy(x) for x in entries[0]["perm_cols"][2:])
+    nbytes = sum(int(c.shape[1]) * (len(lay.roots) + 4 * lay.m) * 4
+                 for c, lay in zip(pcols, plan.layouts))
+    ops = sum(int(c.shape[1]) * perm_cols_ops(lay) for c, lay in zip(pcols, plan.layouts))
+    out["perm_cols"] = launch_row(
+        "perm_cols", lambda: logup.perm_cols_many(pcols, plan.layouts, alpha, bpows),
+        nbytes, ops, len(pcols))
+    # one compile of every AIR's columns programs
+    sends = vm.pk.kernel_plans["lookup"]
+    t0 = time.perf_counter()
+    for i, _, layout in sends:
+        qmod.compile_columns_code(vm.pk.vk.per_air[i].dag, layout.roots,
+                                  n_main=2 if vm.airs[i].name == "program" else 1,
+                                  has_preprocessed=vm.pk.per_air[i].preprocessed_trace
+                                  is not None)
+    t1 = time.perf_counter()
+    perm_airs = [i for i, vk in enumerate(vm.pk.vk.per_air) if vk.widths.after_challenge]
+    for i, layout in zip(perm_airs, plan.layouts):
+        qmod.compile_columns_code(vm.pk.vk.per_air[i].dag, layout.roots,
+                                  n_main=2 if vm.airs[i].name == "program" else 1,
+                                  has_preprocessed=vm.pk.per_air[i].preprocessed_trace
+                                  is not None)
+    out["compile_columns_s"] = {"lookup_sends": t1 - t0,
+                                "logup_interactions": time.perf_counter() - t1,
+                                "airs": [len(sends), len(perm_airs)]}
     return out
 
 

@@ -20,6 +20,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ._device import require_cuda
@@ -57,9 +58,9 @@ _SIGNATURES = {
     "ovt_fri_fold": (_V, _V, _V, _V, _V, _LL, _V, _V),
     "ovt_reduced_open": (_V, _LL, _I, _LL, _V, _I, _V, _V, _V, _V),
     "ovt_quotient_columns": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _V, _LL, _V),
-    "ovt_perm_cols": (_V, _U, _V, _I, _V, _V, _V, _I, _V, _V),
+    "ovt_perm_cols": (_V, _I, _I, _V, _V, _V, _V, _I, _I, _I, _V),
     "ovt_perm_scan": (_V, _LL, _I, _V, _V, _V),
-    "ovt_lookup_hist": (_V, _U, _V, _I, _V, _U, _V, _V, _U, _U, _V),
+    "ovt_lookup_hist": (_V, _I, _I, _I, _V, _V, _U, _V, _V, _U, _U, _V),
 }
 
 _LIB = None
@@ -168,6 +169,23 @@ def check_words(t: torch.Tensor, name: str, device: torch.device) -> None:
         raise TypeError(f"{name} has dtype {t.dtype}, expected torch.int32")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def upload(sections: list, device: torch.device) -> tuple:
+    """numpy arrays laid end to end at 16-byte offsets in one pinned host
+    buffer and sent to ``device`` in one non-blocking copy: (device uint8
+    tensor, byte offset of each section).  The caller keeps the tensor
+    until its launches are enqueued; PyTorch's caching allocator then holds
+    the block for the stream's later work."""
+    offs, size = [], 0
+    for s in sections:
+        offs.append(size)
+        size += -(-s.nbytes // 16) * 16
+    host = torch.empty(max(size, 16), dtype=torch.uint8, pin_memory=True)
+    host_np = host.numpy()
+    for s, o in zip(sections, offs):
+        host_np[o:o + s.nbytes] = np.ascontiguousarray(s).view(np.uint8).ravel()
+    return host.to(device, non_blocking=True), offs
 
 
 def kernel_device(*tensors: torch.Tensor) -> torch.device:

@@ -55,6 +55,16 @@ __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
   return min(d, d + P);
 }
 
+// x R^-1 mod p for any 64-bit x = h 2^32 + l: h mod p (h < 3p) plus the
+// Montgomery reduction of l.  A sum of up to four Montgomery words'
+// products (each below p^2 < 2^62) reduces in one step.
+__device__ __forceinline__ uint32_t reduce_wide(uint64_t x) {
+  const uint32_t h = (uint32_t)(x >> 32);
+  uint32_t hm = min(h, h - P);
+  hm = min(hm, hm - P);
+  return add(hm, monty_reduce(x & 0xffffffffull));
+}
+
 __device__ __forceinline__ uint32_t to_monty(uint32_t x) { return mul(x, R2); }
 
 __device__ __forceinline__ uint32_t from_monty(uint32_t x) {

@@ -48,15 +48,6 @@ enum Job : int {
   O_RPB, JOB_WORDS = 12
 };
 
-// x R^-1 mod p for any 64-bit x = h 2^32 + l: h mod p (h < 3p) plus the
-// Montgomery reduction of l.
-__device__ __forceinline__ uint32_t reduce_wide(uint64_t x) {
-  const uint32_t h = (uint32_t)(x >> 32);
-  uint32_t hm = min(h, h - bb::P);
-  hm = min(hm, hm - bb::P);
-  return bb::add(hm, bb::monty_reduce(x & 0xffffffffull));
-}
-
 // A loop over the job's points with a constant trip count, so that the
 // per-point arrays stay in registers.
 #define PER_POINT(p) _Pragma("unroll") for (int p = 0; p < MAX_PTS; ++p) if (p < npts)
@@ -125,7 +116,7 @@ open_partial_kernel(const long long* __restrict__ jobs, int n_jobs,
             }
           }
           PER_POINT(p)
-            for (int k = 0; k < 4; ++k) acc[p].c[k] = bb::add(acc[p].c[k], reduce_wide(wide[p][k]));
+            for (int k = 0; k < 4; ++k) acc[p].c[k] = bb::add(acc[p].c[k], bb::reduce_wide(wide[p][k]));
         }
       }
       __syncthreads();  // the tile's weights are consumed

@@ -94,6 +94,9 @@ class MultiStarkProvingKey:
     # the prover's quotient programs and their code on the device, by the
     # set of AIRs proved (stark/prover.py): the same in every prove
     quotient_code: dict = field(default_factory=dict, repr=False, compare=False)
+    # the histogram and LogUp kernels' per-key state (vm/machine.py,
+    # stark/logup.py): their layouts and columns programs
+    kernel_plans: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 def _vk_pre_hash(per_air, config: StarkConfig, height_constraints) -> np.ndarray:

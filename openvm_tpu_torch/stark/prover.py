@@ -8,7 +8,7 @@ so ``codec.encode_proof`` gives equal bytes for equal inputs.  Host code
   main, perm, quotient LDEs  ntt.batched_coset_ldes / coset_lde (K3)
   Merkle commits             merkle.commit (K4, K5)
   interaction fields         stark.quotient.evaluate_columns (K7, columns)
-  LogUp permutation trace    stark.logup.perm_cols, perm_scan (K9, K10)
+  LogUp permutation trace    stark.logup.perm_cols_many, perm_scan (K9, K10)
   quotient                   stark.quotient.evaluate_many (K7+K11)
   zeta power series          field.ext.powers (K2)
   out-of-domain openings     open_many (K12)
@@ -296,8 +296,7 @@ def open_many(jobs: list, zpows: torch.Tensor) -> list:
     table, out_off, n_out, n_part, total = _open_table(jobs, [c.data_ptr() for c, _ in jobs])
     out = torch.empty(n_out, dtype=torch.int32, device=dev)
     if len(table):
-        host = torch.from_numpy(table.view(np.uint8).ravel()).pin_memory()
-        dev_table = host.to(dev, non_blocking=True)
+        dev_table = _build.upload([table], dev)[0]
         partial = torch.empty(n_part, dtype=torch.int32, device=dev)
         _build.launch("open_dot", "ovt_open_partial", dev, dev_table.data_ptr(),
                       len(table), total, zpows.data_ptr(), partial.data_ptr())
@@ -486,17 +485,26 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
         log_up_pow_witness = challenger.grind(cfg.log_up_pow_bits)
         challenges_c = (challenger.sample_ext(), challenger.sample_ext())
         challenges_m = bb.to_monty_np(np.asarray(challenges_c, dtype=np.uint64))
-        perm_traces, cumsums = {}, {}
-        for i, (c, vk) in enumerate(zip(ctxs, vks)):
-            if not vk.widths.after_challenge:
-                continue
-            mains = cacheds[i] + ([commons[i]] if commons[i] is not None else [])
-            publics = [bb.to_monty_int(int(v) % P) for v in c.public_values]
-            perm_traces[i], cumsums[i] = logup.build_perm_trace(
-                vk.dag, vk.interaction_chunks, mains,
-                pk.per_air[c.air_id].preprocessed_trace, publics, challenges_c,
-                record=None if record is None else record.setdefault("logup", []))
-        perm_order = sorted(perm_traces)
+        # the layouts and columns code depend on the AIRs only: built once
+        # per proving key and set of AIRs
+        perm_order = [i for i, vk in enumerate(vks) if vk.widths.after_challenge]
+        mains = [cacheds[i] + ([commons[i]] if commons[i] is not None else [])
+                 for i in perm_order]
+        preps = [pk.per_air[ctxs[i].air_id].preprocessed_trace for i in perm_order]
+        plan_key = ("logup", tuple((ctxs[i].air_id, len(m)) for i, m
+                                   in zip(perm_order, mains)))
+        if plan_key not in pk.kernel_plans:
+            pk.kernel_plans[plan_key] = logup.perm_plan(
+                [vks[i].dag for i in perm_order],
+                [vks[i].interaction_chunks for i in perm_order],
+                [len(m) for m in mains], [p is not None for p in preps])
+        built = logup.build_perm_traces(
+            pk.kernel_plans[plan_key], mains, preps,
+            [[bb.to_monty_int(int(v) % P) for v in ctxs[i].public_values]
+             for i in perm_order], challenges_c,
+            record=None if record is None else record.setdefault("logup", []))
+        perm_traces = {i: t for i, (t, _) in zip(perm_order, built)}
+        cumsums = {i: c for i, (_, c) in zip(perm_order, built)}
         # every cumulative sum is built before any is observed, so one copy
         # brings them all to the host; they are observed in AIR order
         cums = bb.canonical_np(torch.stack([cumsums[i] for i in perm_order]))

@@ -321,9 +321,17 @@ def compile_columns(dag, roots, *, n_main: int, has_preprocessed: bool,
                     publics=()) -> Program:
     """Compile ``roots`` (base-valued node ids, repeats allowed) to bytecode
     that writes root k's value as output row k (``evaluate_columns``)."""
-    return bind(_compile(dag, list(roots), True, n_main=n_main,
-                         has_preprocessed=has_preprocessed, has_perm=False),
+    return bind(compile_columns_code(dag, roots, n_main=n_main,
+                                     has_preprocessed=has_preprocessed),
                 publics=publics)
+
+
+def compile_columns_code(dag, roots, *, n_main: int,
+                         has_preprocessed: bool) -> Program:
+    """``compile_columns`` without the values: the same code for every
+    prove."""
+    return _compile(dag, list(roots), True, n_main=n_main,
+                    has_preprocessed=has_preprocessed, has_perm=False)
 
 
 def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
@@ -862,10 +870,6 @@ def upload_code(progs: list, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(code)).to(device)
 
 
-def _align16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
 def _launch(kernel: str, fn_name: str, progs: list, sources: list,
             log_qs: list, lqds: list, quotient: bool, code, dev):
     """Build the job tables, pool and source tables, copy them to the card
@@ -934,15 +938,7 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
         code_np = np.concatenate([p.code for p in progs]).astype(np.int32)
         sections.append(code_np.view(np.uint8).ravel())
     sections += [jobs.view(np.uint8).ravel() for jobs, *_ in launches]
-    offs, size = [], 0
-    for s in sections:
-        offs.append(size)
-        size = _align16(size + s.nbytes)
-    host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
-    host_np = host.numpy()
-    for s, o in zip(sections, offs):
-        host_np[o:o + s.nbytes] = s
-    tables = host.to(dev, non_blocking=True)
+    tables, offs = _build.upload(sections, dev)
     base = tables.data_ptr()
     code_ptr = base + offs[2] if code is None else code.data_ptr()
     xs = ntt.lde_points(max(log_qs), dev) if quotient else tables

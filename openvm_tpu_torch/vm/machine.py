@@ -257,39 +257,34 @@ class VirtualMachine:
 
     def _lookup_multiplicities(self, traces: dict, program_cached, record=None):
         """Every AIR's RANGE/BITWISE/TUPLE sends evaluated over its trace
-        (the quotient interpreter's columns mode, K7) and histogrammed on
-        the device (K8) into three tables, copied to the host once
-        (machine.py:591-660).  ``traces``: Montgomery tensors by AIR name.
-        Returns the range, bitwise and tuple multiplicity traces as
-        Montgomery tensors (the tuple one None without a tuple AIR)."""
+        (the quotient interpreter's columns mode, K7, a launch an AIR) and
+        histogrammed on the device (K8, one launch for every AIR) into three
+        tables, copied to the host once (machine.py:591-660).  ``traces``:
+        Montgomery tensors by AIR name.  Returns the range, bitwise and
+        tuple multiplicity traces as Montgomery tensors (the tuple one None
+        without a tuple AIR)."""
         range_h = len(self.airs[self.air_index["range_checker"]].preprocessed_trace())
         tuple_sizes = ()
         if "range_tuple" in self.air_index:
             tuple_sizes = self.airs[self.air_index["range_tuple"]].sizes
         tuple_total = tuple_sizes[0] * tuple_sizes[1] if tuple_sizes else 0
         sizes1 = tuple_sizes[1] if tuple_sizes else 1
-        kind_of = {B.RANGE_BUS: "range", B.BITWISE_BUS: "bitwise",
-                   B.RANGE_TUPLE_BUS: "tuple"}
+        if "lookup" not in self.pk.kernel_plans:
+            self.pk.kernel_plans["lookup"] = self._send_plan()
+        entries = self.pk.kernel_plans["lookup"]
         tables = lookup.new_tables(range_h, tuple_total, self.device)
-        airs = []
-        for i, air in enumerate(self.airs):
-            dag = self.pk.vk.per_air[i].dag
-            sends = [(kind_of[bus], frs, cr) for (bus, frs, cr, is_send)
-                     in dag.interactions if is_send and bus in kind_of]
-            if not sends:
-                continue
-            layout = lookup.send_layout(sends)
+        cols, airs = [], []
+        for i, prog, layout in entries:
+            air = self.airs[i]
             mains = ([program_cached, traces[air.name]] if air.name == "program"
                      else [traces[air.name]])
             prep = self.pk.per_air[i].preprocessed_trace
             sources = mains + ([prep] if prep is not None else [])
             log_n = int(mains[0].shape[0]).bit_length() - 1
-            prog = qmod.compile_columns(dag, layout.roots, n_main=len(mains),
-                                        has_preprocessed=prep is not None,
-                                        publics=[0] * 64)
-            cols = qmod.evaluate_columns(prog, sources, log_n)
-            lookup.lookup_hist(cols, layout, tables, sizes1)
+            cols.append(qmod.evaluate_columns(prog, sources, log_n))
             airs.append((air.name, prog, sources, log_n, layout))
+        lookup.lookup_hist_many(cols, [e[2] for e in entries], tables, sizes1)
+        del cols
         if record is not None:
             record["lookup"] = {"airs": airs, "tables": tables,
                                 "sizes": (range_h, tuple_total, sizes1)}
@@ -298,6 +293,27 @@ class VirtualMachine:
                 bb.monty(bitwise_np.reshape(-1, 2), device=self.device),
                 bb.monty(tuple_np[:, None], device=self.device)
                 if tuple_sizes else None)
+
+    def _send_plan(self) -> list:
+        """Each AIR's lookup sends (index, columns program, layout): the
+        same in every prove, so built once per proving key.  The program's
+        pool holds no prove's values."""
+        kind_of = {B.RANGE_BUS: "range", B.BITWISE_BUS: "bitwise",
+                   B.RANGE_TUPLE_BUS: "tuple"}
+        entries = []
+        for i, air in enumerate(self.airs):
+            dag = self.pk.vk.per_air[i].dag
+            sends = [(kind_of[bus], frs, cr) for (bus, frs, cr, is_send)
+                     in dag.interactions if is_send and bus in kind_of]
+            if not sends:
+                continue
+            layout = lookup.send_layout(sends)
+            prog = qmod.compile_columns(
+                dag, layout.roots, n_main=2 if air.name == "program" else 1,
+                has_preprocessed=self.pk.per_air[i].preprocessed_trace is not None,
+                publics=[0] * 64)
+            entries.append((i, prog, layout))
+        return entries
 
     # -- verification ----------------------------------------------------
     def verify(self, proof, expected_exe_commit=None, exe: VmExe = None):

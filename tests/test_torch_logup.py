@@ -35,6 +35,7 @@ from openvm_tpu.vm.circuit import rv32im as jrv
 from openvm_tpu_torch import ntt, stark
 from openvm_tpu_torch.stark import codec
 from openvm_tpu_torch.field import babybear as bb
+from openvm_tpu_torch.field import ext as ef
 from openvm_tpu_torch.stark import logup, npext as nx, quotient as qmod
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
 from openvm_tpu_torch.vm.circuit import rv32im as trv
@@ -263,3 +264,132 @@ def test_scan_model_equals_plain(n, m, tile, window):
         got, cum = logup._scan_model(perm, tile, window, seed)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
         np.testing.assert_array_equal(cum.numpy(), want_cum.numpy())
+
+
+# ---------------------------------------------------------------------------
+# K9's one-launch design: batch inversion, delayed reduction, the plan
+# ---------------------------------------------------------------------------
+
+def random_words(rng, *shape) -> torch.Tensor:
+    return torch.from_numpy(bb.to_monty_np(rng.integers(0, P, size=shape,
+                                                        dtype=np.uint64)).astype(np.int64))
+
+
+@pytest.mark.parametrize("n_its", [3, 4, 11])
+def test_batch_inverse_model_zero_denominators(n_its):
+    """Montgomery's trick over a row's interactions, PERM_BATCH at a time
+    (fewer interactions than a batch, one whole batch, batches with a
+    short last one), with a zero denominator at the first, a middle and
+    the last interaction of a row and a row of zeros only: equal to the
+    per-element inverse, a zero's inverse 0."""
+    rng = np.random.default_rng(n_its)
+    d = random_words(rng, n_its, 5, 4)
+    d[0, 0] = 0
+    d[n_its // 2, 1] = 0
+    d[n_its - 1, 2] = 0
+    d[:, 3] = 0
+    got = logup._batch_inv_model(d)
+    assert torch.equal(got, ef.inv64(d))
+    assert not got[:, 3].any() and not got[0, 0].any() and got[1, 0].all()
+
+
+def test_delayed_reduction_bounds():
+    """The delayed sums stay below 2^64 at the largest words (p - 1
+    everywhere: 4 products of (p - 1)^2 a coefficient, the W fold's
+    reduced operand, a denominator's 4 fields before each reduction), and
+    give the words of the reduced arithmetic."""
+    top = [P - 1] * 4
+    assert logup._mul_delayed(top, top) == ef.mul64(torch.tensor(top), torch.tensor(top)).tolist()
+    with pytest.raises(AssertionError, match="2\\^64"):
+        logup._reduce_wide(5 * (P - 1) ** 2)
+    rng = np.random.default_rng(2)
+    for a, b in zip(random_words(rng, 50, 4).tolist(), random_words(rng, 50, 4).tolist()):
+        assert logup._mul_delayed(a, b) == ef.mul64(torch.tensor(a), torch.tensor(b)).tolist()
+    for nf in (0, 1, 4, 5, 9):
+        fields = torch.full((1, max(nf, 1), 1), P - 1, dtype=torch.int64)[:, :nf]
+        bpows = torch.full((max(nf, 1), 4), P - 1, dtype=torch.int64)
+        alpha, bus = torch.full((4,), P - 1, dtype=torch.int64), torch.tensor([P - 1])
+        want = logup.batched_denoms(fields, bus, alpha, bpows)[0, 0].tolist()
+        assert logup._denominator_delayed(top, P - 1, bpows.tolist(), [P - 1] * nf) == want
+
+
+# (first field row, fields, chunk, is_send) tables: fields 0 to 9, one
+# chunk, 12 chunks, sends and receives side by side in a chunk
+PERM_LAYOUTS = {
+    "mixed": [(0, 2, 0, 1), (3, 0, 0, 0), (4, 4, 1, 1), (9, 1, 2, 0), (11, 3, 2, 1)],
+    "one_chunk": [(0, 9, 0, 0), (10, 1, 0, 1)],
+    "twelve_chunks": [(3 * i, 2, i, i % 2) for i in range(12)],
+}
+
+
+def perm_layout(rows, shared: bool = False) -> logup.InteractionLayout:
+    """Interactions over consecutive output rows; with ``shared``, every
+    other field row read a second time by the next interactions (as
+    interactions share DAG nodes)."""
+    table = np.asarray(rows, dtype=np.int32)
+    n_roots = int(max(r[0] + r[1] + 1 for r in rows))
+    entries = np.arange(n_roots, dtype=np.int32)
+    if shared:
+        entries = np.where(entries % 2, entries // 2, entries)
+    return logup.InteractionLayout(
+        roots=list(range(n_roots)), rows=entries, table=table,
+        bus_m=bb.to_monty_np(np.arange(1, len(rows) + 1, dtype=np.uint64) * 7),
+        m=int(table[:, 2].max()) + 1, f_max=int(table[:, 1].max()))
+
+
+@pytest.mark.parametrize("heights", [(70, 1, 300), (1, 129, 128)])
+def test_perm_model_equals_plain(heights):
+    """K9's launch over one job table of three AIRs (of 1 to 300 rows, so
+    blocks of 128 rows end inside an AIR or on its end): delayed
+    denominators, the batch inverse, signed chunk sums staged a row, the
+    block's flat store.  Row 0 of the mixed AIR has a zero denominator
+    (alpha = -bus of its field-less interaction 1): that interaction adds
+    0, the others do not change.  The twelve-chunk AIR's interactions
+    share output rows."""
+    rng = np.random.default_rng(sum(heights))
+    names = ("mixed", "one_chunk", "twelve_chunks")
+    layouts = [perm_layout(PERM_LAYOUTS[k], shared=k == "twelve_chunks") for k in names]
+    cols = [random_words(rng, len(lay.roots), n).int() for lay, n in zip(layouts, heights)]
+    bpows = bb.to_monty_np(rng.integers(0, P, size=(9, 4), dtype=np.uint64))
+    alpha = bb.to_monty_np(rng.integers(0, P, size=4, dtype=np.uint64))
+    alpha[1:] = 0
+    alpha[0] = P - int(layouts[0].bus_m[1])
+    got = logup._perm_model(cols, layouts, alpha, bpows)
+    want = logup.perm_cols_many(cols, layouts, alpha, bpows)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, c, lay in zip(got, cols, layouts):
+        assert torch.equal(g, logup.perm_cols_plain(
+            c, lay, torch.from_numpy(alpha.astype(np.int64)),
+            torch.from_numpy(bpows.astype(np.int64))))
+
+
+def test_perm_shape():
+    """128 threads a block; shared memory for alpha, beta's powers (padded
+    to 4 fields at a time) and a row of chunk sums a thread; fewer threads
+    when the chunks grow, refused past shared memory."""
+    assert logup.perm_shape(11, 9) == (128, 11, 13, (13 + 128 * 11) * 16)
+    assert logup.perm_shape(12, 0)[:3] == (128, 13, 5)
+    threads, stage_w, _, smem = logup.perm_shape(300, 9)
+    assert threads == 32 and stage_w == 301 and smem <= qmod.SMEM_BYTES
+    with pytest.raises(ValueError, match="chunks"):
+        logup.perm_shape(500, 9)
+
+
+def test_build_perm_traces_equal_per_air_and_jax():
+    """The multi-AIR build (one K9 call over the sender, the receiver and
+    auipc's fib(10) trace) equals the per-AIR builds and the JAX
+    package's build_perm_trace, AIR by AIR."""
+    cases = computed("sender_receiver") + computed("auipc")
+    chs = cases[0]["chs"]
+    plan = logup.perm_plan([c["vk"].dag for c in cases],
+                           [c["vk"].interaction_chunks for c in cases],
+                           [1] * len(cases), [False] * len(cases))
+    record: list = []
+    built = logup.build_perm_traces(plan, [[bb.monty(c["trace"], device="cpu")] for c in cases],
+                                    [None] * len(cases), [[]] * len(cases), chs, record)
+    assert len(record) == len(cases) == 3
+    for case, (perm, cum) in zip(cases, built):
+        assert np.array_equal(bb.to_numpy(perm), case["port"][0])
+        assert np.array_equal(bb.to_numpy(perm), case["jax"][0])
+        assert np.array_equal(bb.to_numpy(cum), case["jax"][1])
