@@ -26,7 +26,11 @@ Phases, each printing one JSON line:
             launches); K5's tail on trees of 2^1 to 2^14 leaves with
             injections at every height, at tails of 2, 64 and 512 digests;
             K12 on one table of widths 1 to 380, heights 2^1 to 2^22, one
-            and two points and column slices; K9 in one launch over a job
+            and two points and column slices; K13 in one launch over a
+            table of heights 2^1 to 2^12 (1 to 6 matrices a height, widths
+            1 to 64, 1 to 3 distinct points, column slices, one zero
+            denominator); K14 at every height 2^1 to 2^23, with and without
+            ro; K9 in one launch over a job
             table of heights 1 to 2^21 (0 to 9 fields, m = 1 to 13 chunks,
             zero denominators at a row's first, middle and last
             interaction and on a whole row) and with
@@ -48,19 +52,23 @@ Phases, each printing one JSON line:
             fib_e2e segment caps, 4,194,204 and 1,048,476 rows, padded) and
             CubeAir at 2^18 (preprocessed column, cached main, degree 3),
             84 queries and 16 PoW bits; the proof's SHA-256 pinned
-            (PROVE_PROOF_SHA256); the prove's own quotient inputs and query
-            gather are run again through the plain versions
+            (PROVE_PROOF_SHA256); one K13 launch, and no host table of the
+            FRI fold or of LDE points past the tallest quotient domain built
+            by the prove; the prove's own quotient inputs and query gather
+            are run again through the plain versions
   vm        path 3, the RV32IM VM proof: VirtualMachine keygen -> prove ->
             verify of the fibonacci guest build_fib_program(200,000), about
             1.0 M instructions (rv32_base_alu 800 k rows, padded to 2^20),
             with FIB_EXECUTORS and the production profile (84 queries, 16
             PoW bits, log_blowup 1); stage seconds, insn/s, trace cells/s;
-            the proof's SHA-256 pinned (VM_PROOF_SHA256); one K8 and one
-            K9 launch a prove; then K8's tables and every AIR's K9 columns
+            the proof's SHA-256 pinned (VM_PROOF_SHA256); one K8, one K9
+            and one K13 launch a prove; then K8's tables and every AIR's K9
+            columns
             and K10 scan from the prove against plain, K7
             on all 15 AIRs' quotient in one launch (LogUp roots included)
-            and K12 on every matrix's openings in one table against their
-            plain versions, on the prove's own inputs
+            K12 on every matrix's openings in one table and K13 on every
+            matrix's reduced openings in one launch against their plain
+            versions, on the prove's own inputs
   vm_profile one more warm prove of path 3 under torch.profiler: each
             kernel's summed device ms and launches, the device's busy and
             idle share of the prove, and each kernel's path-3 bound: the
@@ -72,7 +80,7 @@ Phases, each printing one JSON line:
             at tail thresholds of 64 to 512 digests and layer by layer; K7
             on path 3's own rv32_base_alu quotient input and on the prove's
             one launch over all 15 AIRs, and in its global-memory mode at
-            2^16 rows; K12 on path 3's own openings table; K8 and K9 on
+            2^16 rows; K12 and K13 on path 3's own tables; K8 and K9 on
             path 3's own one-launch inputs, with the skew of its sends and
             the host seconds of compiling the columns programs; K10's
             yardstick
@@ -757,19 +765,27 @@ def phase_variants(dev, rng) -> dict:
     open_table = [[int(c.shape[0]), int(c.shape[1]), int(c.stride(0)), len(m)]
                   for c, m in ojobs]
     del ojobs, got, want, zp
-    mat, apows = words(rng, dev, 4096, 7)[:, 1:6], words(rng, dev, 6, 4)
-    for npts in (1, 2):
-        pts = [tuple(words(rng, dev, 4) for _ in range(3)) for _ in range(npts)]
-        ro = words(rng, dev, 4096, 4)
-        want = pv.reduced_open_plain(ro, mat, apows, pts)
-        errs[f"reduced_open/{npts}"] = max_abs_err(
-            pv.reduced_open(ro.clone(), mat, apows, pts), want)
-    ev, beta, ro = words(rng, dev, 4096, 4), words(rng, dev, 4), words(rng, dev, 2048, 4)
-    errs["fri_fold"] = max_abs_err(fri.fold_evals(ev, beta), fri.fold_evals_plain(ev, beta))
-    errs["fri_fold/ro"] = max_abs_err(fri.fold_evals(ev, beta, ro),
-                                      fri.fold_evals_plain(ev, beta, ro))
-    errs["fri_fold/2"] = max_abs_err(fri.fold_evals(ev[:2], beta),
-                                     fri.fold_evals_plain(ev[:2], beta))
+    # K13 in one launch over a table of heights 2^1 to 2^12: 1 to 6
+    # matrices a height, widths 1 to 64 (column slices among them), 1 to 3
+    # distinct points, matrices opened at one or two of them, and one point
+    # equal to an LDE point (a zero denominator)
+    ro_jobs, ro_shape = ro_variant_jobs(rng, dev)
+    before = _build.LAUNCHES["fri_reduced_open"]
+    got = pv.reduced_open_many(*ro_jobs)
+    require(_build.LAUNCHES["fri_reduced_open"] == before + 1, "K13: one launch a table")
+    want = pv.reduced_open_many_plain(*ro_jobs)
+    require(sorted(got) == sorted(want), "K13: heights")
+    errs["reduced_open/table"] = max(max_abs_err(got[k], want[k]) for k in want)
+    del ro_jobs, got, want
+    # K14 at every height 2^1 to 2^23, with and without ro
+    beta = words(rng, dev, 4)
+    for log_h in range(1, 24):
+        ev, ro = words(rng, dev, 1 << log_h, 4), words(rng, dev, 1 << (log_h - 1), 4)
+        errs[f"fri_fold/2^{log_h}"] = max_abs_err(fri.fold_evals(ev, beta),
+                                                  fri.fold_evals_plain(ev, beta))
+        errs[f"fri_fold/2^{log_h}/ro"] = max_abs_err(fri.fold_evals(ev, beta, ro),
+                                                     fri.fold_evals_plain(ev, beta, ro))
+    ev = words(rng, dev, 4096, 4)
 
     # K6 on a mixed-height tree: rows, paths and fold-style siblings
     mats = [words(rng, dev, h, w) for h, w in ((4096, 5), (1024, 3), (4096, 2), (256, 9))]
@@ -846,10 +862,44 @@ def phase_variants(dev, rng) -> dict:
           "quotient_dags": big, "quotient_jobs": jobs,
           "quotient_mixed": [(int(m[0].code.shape[0]), m[1], m[2], m[0].global_memory)
                              for m in mixed],
-          "open_table": open_table, "perm_scan_shapes": scan_shapes,
+          "open_table": open_table, "reduced_open_table": ro_shape,
+          "perm_scan_shapes": scan_shapes,
           "perm_cols_jobs": perm_jobs, "lookup_hist_heights": hist_heights})
     require(not bad, f"kernel and plain disagree: {bad}")
     return qprogs
+
+
+def ro_variant_jobs(rng, dev) -> tuple:
+    """K13's variant table: heights 2^1 to 2^12 in rising order (the table
+    puts them largest first), 1 to 6 matrices a height of widths 1 to 64
+    (rows of 16-byte units and of words, column slices of both kinds), 1 to
+    3 distinct points a height, each matrix opened at one or two of them;
+    at height 2^5 one point is the LDE point of row 7, a zero denominator;
+    at height 2^1 a matrix opened twice at one point.  Returns ((jobs, alpha), [log_h, width, row stride, points] a matrix)."""
+    def ext():
+        return tuple(int(v) for v in rng.integers(0, P, size=4))
+
+    widths = (1, 4, 64, 3, 48, 33, 8, 45, 2, 32, 13, 60)
+    jobs, shape = [], []
+    for log_h in range(1, 13):
+        zs = [ext() for _ in range(1 + log_h % 3)]
+        if log_h == 5:
+            zs[0] = (bb.from_monty_int(int(ntt.lde_points_np(5)[7])), 0, 0, 0)
+        for k in range(1 + (log_h * 5) % 6):
+            w = widths[(log_h + k) % len(widths)]
+            if k % 3 == 2:
+                mat = words(rng, dev, 1 << log_h, w + 3)[:, 1:1 + w]
+            elif k % 3 == 1 and w % 4 == 0:
+                mat = words(rng, dev, 1 << log_h, w + 8)[:, 4:4 + w]
+            else:
+                mat = words(rng, dev, 1 << log_h, w)
+            pick = sorted({k % len(zs), (k + 1) % len(zs)} if k % 2 else {k % len(zs)})
+            jobs.append((mat, [(zs[q], ext(), ext()) for q in pick]))
+            shape.append([log_h, w, int(mat.stride(0)), len(pick)])
+        if log_h == 1:  # a one-row trace's LDE, opened at zeta and zeta g_1 = zeta
+            jobs.append((words(rng, dev, 2, 5), [(zs[0], ext(), ext()) for _ in range(2)]))
+            shape.append([1, 5, 5, 2])
+    return (jobs, ext()), shape
 
 
 def solve_mod_p(a: list, b: list) -> list:
@@ -1076,12 +1126,12 @@ def run_vm(dev, cfg: StarkConfig) -> dict:
 
 
 def check_vm_kernels(vm, record: dict) -> dict:
-    """K7 (columns mode), K8, K9, K10, K7 (quotient) and K12 of path 3
+    """K7 (columns mode), K8, K9, K10, K7 (quotient), K12 and K13 of path 3
     against their plain versions on the prove's own inputs: the tables of
     the prove's one K8 launch over every AIR's sends, each AIR's chunk
     columns from its one K9 launch and its permutation trace, every AIR's
-    quotient from one launch, and every matrix's openings from one
-    table."""
+    quotient from one launch, every matrix's openings from one table and
+    every matrix's reduced openings from one launch."""
     lk = record["lookup"]
     range_h, tuple_total, sizes1 = lk["sizes"]
     p_tabs = lookup.new_tables(range_h, tuple_total, lk["tables"][0].device)
@@ -1112,14 +1162,19 @@ def check_vm_kernels(vm, record: dict) -> dict:
     ojobs, zpows = record["openings"]
     open_err = max(max_abs_err(a, b) for a, b in
                    zip(pv.open_many(ojobs, zpows), pv.open_many_plain(ojobs, zpows)))
+    # K13 on every matrix of the reduced openings in one launch
+    rjobs = record["reduced_openings"]
+    got, want = pv.reduced_open_many(*rjobs), pv.reduced_open_many_plain(*rjobs)
+    require(sorted(got) == sorted(want), "K13: heights")
     errs = {"quotient_columns": max(cols_err.values()), "lookup_hist": hist_err,
             "perm_cols": max(perm_err.values()), "perm_scan": max(scan_err.values()),
-            "quotient": max(q_err.values()), "open_dot": open_err}
+            "quotient": max(q_err.values()), "open_dot": open_err,
+            "fri_reduced_open": max(max_abs_err(got[k], want[k]) for k in want)}
     require(all(v == 0 for v in errs.values()),
             f"kernel and plain differ on the VM prove's inputs: {cols_err} "
             f"{perm_err} {scan_err} {q_err} {errs}")
     return {"max": errs, "columns_airs": len(cols_err), "perm_airs": len(perm_err),
-            "open_jobs": len(ojobs),
+            "open_jobs": len(ojobs), "reduced_open_jobs": len(rjobs[0]),
             "quotient_airs": {vm.airs[i].name: {"log_n": r[2], "lqd": r[3],
                                                 "lane_words": r[0].lane_words}
                               for i, r in enumerate(qrec)}}
@@ -1239,8 +1294,8 @@ def path3_bounds(calls: list, record: dict) -> dict:
     ``bound``), from the launches' arguments (``calls``: (kernel, C entry,
     args) in launch order) and, for the table-driven kernels, the prove's
     ``record``: K7 from its programs, K7 columns and K9 from the AIRs'
-    columns programs and layouts, K8 from its sends, K12 from its job
-    table, K6 from its plan."""
+    columns programs and layouts, K8 from its sends, K12 and K13 from their
+    jobs, K6 from its plan."""
     out = {k: {"bound_ms": 0.0, "launches": 0, "bytes": 0, "ops": 0} for k in GLOBALS}
 
     def add(kernel, nbytes, ops):
@@ -1278,14 +1333,8 @@ def path3_bounds(calls: list, record: dict) -> dict:
             injs, n_layers, h0 = a[1], a[3], a[4]
             perms = sum((h0 >> t) * (1 + (injs[t] is not None)) for t in range(n_layers))
             add(kernel, 2 * h0 * 32 + perms * 32, perms * PERM_OPS)
-        elif fn == "ovt_fri_fold":  # evals, beta, y, inv, ro, half, out
-            half, ro = a[5], a[4] is not None
-            add(kernel, half * (32 + 8 + 16 + 16 * ro),
-                half * (EXT_ADD * 2 + EXT_SCALE + EXT_MUL + ADD_OPS
-                        + (EXT_MUL + EXT_ADD) * ro))
-        elif fn == "ovt_reduced_open":  # mat, stride, w, h, apows, npts, pts, xs, ro
-            w, h, npts = a[2], a[3], a[5]
-            add(kernel, h * (w * 4 + 32 + 4), h * reduced_open_ops(w, npts))
+        elif fn == "ovt_fri_fold":  # evals, beta, roots, ro, half, log_h, out
+            add(kernel, *fold_cost(a[4], a[3] is not None))
         elif fn == "ovt_perm_scan":  # buf, n, m, status, cumsum
             add(kernel, *perm_scan_cost(a[1], a[2]))
     # table-driven kernels, from the record
@@ -1305,6 +1354,7 @@ def path3_bounds(calls: list, record: dict) -> dict:
                for _, prog, src, log_n, layout in lk["airs"]]
     add("lookup_hist", *hist_cost(scatter, lk["tables"]))
     add("open_dot", *open_cost(*record["openings"]))
+    add("fri_reduced_open", *reduced_open_cost(record["reduced_openings"][0]))
     plan, idx = record["gather"]
     add("gather", len(idx) * sum(int(m.shape[1]) for m, _, _ in plan.jobs) * 8, 0)
     return out
@@ -1425,8 +1475,19 @@ def run(dev: torch.device) -> int:
     airs, ctxs = prove_inputs(PROVE_AIRS, SEED)
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
+    ntt._PREFIX_TABLES.clear()
     proved = run_prove(dev, cfg, airs, ctxs)
     p_launches = dict(_build.LAUNCHES)
+    # the host tables the prove built, before any plain version runs: K13
+    # and K14 make their points on the card, so no fold table and no LDE
+    # points past the tallest quotient domain (K7's)
+    p_tables = {name: int(t.shape[0]) for (name, _), t in ntt._PREFIX_TABLES.items()}
+    log_q = max(r[2] + r[3] for r in proved["record"]["quotient"])
+    require(not {"fold_y", "fold_inv_neg2y"} & set(p_tables)
+            and p_tables.get("lde_points", 0) <= 1 << log_q,
+            f"path 2 built host tables of K13 or K14: {p_tables}")
+    require(p_launches["fri_reduced_open"] == 1,
+            f"path 2 takes one K13 launch a prove: {p_launches}")
     p_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     require(all(p_launches[k] for k in PATH2_KERNELS),
             f"a kernel of path 2 never ran: {p_launches}")
@@ -1452,7 +1513,7 @@ def run(dev: torch.device) -> int:
           "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
           "verified": True, "s": proved["s"], "stage_s": proved["stages_s"],
           "proof_bytes": len(blob), "proof_sha256": prove_sha,
-          "peak_gb": p_peak_gb, "launches": p_launches,
+          "peak_gb": p_peak_gb, "launches": p_launches, "host_tables": p_tables,
           "plain_max_abs_err": {"quotient": q_err, "gather": p_err["gather"],
                                 "gather_jobs": len(plan.jobs)}})
     err = {**err, **{k: max(v, err.get(k, 0)) for k, v in p_err.items()}}
@@ -1464,8 +1525,10 @@ def run(dev: torch.device) -> int:
     v_launches = vmr["launches"]
     v_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     require(all(v_launches.values()), f"a kernel of path 3 never ran: {v_launches}")
-    require(v_launches["lookup_hist"] == 1 and v_launches["perm_cols"] == 1,
-            f"path 3 takes one lookup_hist and one perm_cols launch a prove: {v_launches}")
+    require(v_launches["lookup_hist"] == 1 and v_launches["perm_cols"] == 1
+            and v_launches["fri_reduced_open"] == 1,
+            f"path 3 takes one lookup_hist, perm_cols and fri_reduced_open "
+            f"launch a prove: {v_launches}")
     vm, vproof, pre = vmr["vm"], vmr["proof"], vmr["pre"]
     x2 = (0, 1)
     for _ in range(VM_FIB_N):
@@ -1545,13 +1608,41 @@ def quotient_ops(prog) -> int:
     return ops
 
 
-def reduced_open_ops(w: int, npts: int) -> int:
-    """The fewest operations per row of K13: the column combination (w
-    scales and adds), then per point z - x (a base sub), a batch inverse,
-    p(z) - comb, two products (by the inverse and by alpha_pow) and the add
-    into ro."""
-    return w * (EXT_SCALE + EXT_ADD) + npts * (
-        ADD_OPS + EXT_BATCH_INV + 2 * EXT_MUL + 2 * EXT_ADD)
+def reduced_open_cost(jobs: list) -> tuple:
+    """(bytes, operations) of K13 over reduced-opening jobs: each matrix
+    read once and each height's ro written once; per word of a row 4
+    multiply-adds into 64 bits and one more for the fold every 4 words, per
+    matrix and row 4 reductions, and per matrix, row and point one delayed
+    extension product and an add; per row its point x (a product) and per
+    distinct point of its height 1/(z - x) in the base field: f(x) by
+    Horner (4 products, 4 adds), a batch inverse (3 products), q(x) by
+    Horner (two extension-by-base scales and adds, a base add) and its
+    scale by 1/f; then s - C (an extension sub), one delayed product and
+    an add."""
+    heights: dict = {}
+    nbytes = ops = 0
+    for mat, pts in jobs:
+        h, w = int(mat.shape[0]), int(mat.shape[1])
+        heights.setdefault(h, set()).update(tuple(int(v) for v in z) for z, _, _ in pts)
+        nbytes += h * w * 4
+        ops += h * (w * 5 * WIDE_MAC_OPS + 4 * RED_OPS + len(pts) * (EXT_MUL_D + EXT_ADD))
+    per_point = (7 * MUL_OPS + 4 * ADD_OPS + 3 * (EXT_SCALE + EXT_ADD) + ADD_OPS
+                 + EXT_MUL_D + EXT_ADD)
+    for h, zs in heights.items():
+        nbytes += h * 16
+        ops += h * (MUL_OPS + len(zs) * per_point)
+    return nbytes, ops
+
+
+def fold_cost(half: int, with_ro: bool) -> tuple:
+    """(bytes, operations) of one K14 fold to ``half`` outputs: 32 bytes
+    read and 16 written an output, 16 more read with ro; per output v1 - v0,
+    its scale by 1/(-2y), beta - y, a delayed extension product and an add,
+    the two products that make y and 1/(-2y), and with ro a delayed product
+    and an add."""
+    return (half * (48 + 16 * with_ro),
+            half * (2 * EXT_ADD + EXT_SCALE + ADD_OPS + EXT_MUL_D + 2 * MUL_OPS
+                    + (EXT_MUL_D + EXT_ADD) * with_ro))
 
 
 def columns_cost(prog) -> tuple:
@@ -1658,6 +1749,14 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     open_path3 = {"jobs": len(ojobs), "bound_ms": bound(*open_cost(ojobs, ozpows))[0],
                   "ms": cuda_ms(lambda: pv.open_many(ojobs, ozpows), 10),
                   "ms_host": cuda_ms(lambda: pv.open_many(ojobs, ozpows), 10, busy=False)}
+    # K13's one launch over path 3's reduced openings, with the host's
+    # table build and upload (ms_host) and without the card kept busy
+    rjobs = vmr["record"]["reduced_openings"]
+    ro_path3 = {"jobs": len(rjobs[0]), "bound_ms": bound(*reduced_open_cost(rjobs[0]))[0],
+                "bound_by": bound(*reduced_open_cost(rjobs[0]))[1],
+                "ms": cuda_ms(lambda: pv.reduced_open_many(*rjobs), 10),
+                "ms_host": cuda_ms(lambda: pv.reduced_open_many(*rjobs), 10, busy=False),
+                "heights": sorted({int(m.shape[0]) for m, _ in rjobs[0]}, reverse=True)}
     tree = main["tree"]
     # ---- path 1 kernels: K1 to_monty of the widest trace; K3 the LDE of the
     # tallest batch; K4 the leaf hash; K5 the top layer with injection
@@ -1689,24 +1788,24 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     zeta = words(rng, dev, 4)
     zpows = ef.powers(zeta, nq)
     open_jobs = [(fib_coeffs, [1, bb.two_adic_generator_int(log_n)])]
-    apows = words(rng, dev, 3, 4)
-    pts = [tuple(words(rng, dev, 4) for _ in range(3)) for _ in range(2)]
-    ro0 = words(rng, dev, 2 * nq, 4)
+    # K13 on FibonacciAir's LDE (2^23 x 2) opened at two points
+    k13 = ([(fib_lde, [tuple(tuple(int(v) for v in rng.integers(0, P, size=4))
+                             for _ in range(3)) for _ in range(2)])],
+           tuple(int(v) for v in rng.integers(0, P, size=4)))
+    k13_got, k13_want = pv.reduced_open_many(*k13), pv.reduced_open_many_plain(*k13)
     fold_in, beta = words(rng, dev, 2 * nq, 4), words(rng, dev, 4)
     errs = {
         "ext_elementwise": max_abs_err(zpows, ef.powers_plain(zeta, nq)),
         "open_dot": max_abs_err(pv.open_many(open_jobs, zpows)[0],
                                 pv.open_many_plain(open_jobs, zpows)[0]),
-        "fri_reduced_open": max_abs_err(
-            pv.reduced_open(ro0.clone(), fib_lde, apows, pts),
-            pv.reduced_open_plain(ro0, fib_lde, apows, pts)),
+        "fri_reduced_open": max(max_abs_err(k13_got[k], k13_want[k]) for k in k13_want),
         "fri_fold": max_abs_err(fri.fold_evals(fold_in, beta),
                                 fri.fold_evals_plain(fold_in, beta)),
     }
     err = {**err, **errs}
     require(all(v == 0 for v in errs.values()), f"kernel and plain differ: {errs}")
+    del k13_got, k13_want
     w_f = int(fib_lde.shape[1])
-    ro_k = ro0.clone()
 
     # ---- path 3 kernels at the VM prove's own inputs: rv32_base_alu, the
     # tallest AIR (2^20 rows), its interaction columns, permutation
@@ -1774,15 +1873,11 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          lambda: pv.open_many_plain(open_jobs, zpows), 10, 1,
          *open_cost(open_jobs, zpows), [nq, w_f, 2]),
         ("fri_reduced_open", "fri.cu", "openvm_tpu/stark/prover.py:773",
-         lambda: pv.reduced_open(ro_k, fib_lde, apows, pts),
-         lambda: pv.reduced_open_plain(ro0, fib_lde, apows, pts), 5, 1,
-         2 * nq * (w_f * 4 + 32 + 4),
-         2 * nq * reduced_open_ops(w_f, 2),
-         [2 * nq, w_f, 2]),
+         lambda: pv.reduced_open_many(*k13), lambda: pv.reduced_open_many_plain(*k13),
+         10, 1, *reduced_open_cost(k13[0]), [2 * nq, w_f, 2]),
         ("fri_fold", "fri.cu", "openvm_tpu/fri.py:78",
          lambda: fri.fold_evals(fold_in, beta),
-         lambda: fri.fold_evals_plain(fold_in, beta), 20, 2,
-         2 * nq * 16 + nq * (16 + 8), nq * (EXT_ADD * 2 + EXT_SCALE + EXT_MUL + ADD_OPS),
+         lambda: fri.fold_evals_plain(fold_in, beta), 20, 2, *fold_cost(nq, False),
          [2 * nq, 4]),
         ("quotient_columns", "quotient.cu", "openvm_tpu/stark/logup.py:155",
          lambda: qmod.evaluate_columns(c_prog, c_src, c_log_n),
@@ -1900,7 +1995,8 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
               by_name["poseidon2_hash_rows"].get("bound_issue_ms"),
           "compress_phase": compress, "quotient_vm": quotient_vm,
           "quotient_global": quotient_global,
-          "open_dot_path3": open_path3, "lookup_logup_path3": hist_perm,
+          "open_dot_path3": open_path3, "reduced_open_path3": ro_path3,
+          "lookup_logup_path3": hist_perm,
           "path3_bounds": path3_bounds})
     return kernels
 

@@ -55,8 +55,8 @@ _SIGNATURES = {
     "ovt_quotient": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _V, _LL, _V),
     "ovt_open_partial": (_V, _I, _I, _V, _V, _V),
     "ovt_open_reduce": (_V, _I, _V, _LL, _V, _V),
-    "ovt_fri_fold": (_V, _V, _V, _V, _V, _LL, _V, _V),
-    "ovt_reduced_open": (_V, _LL, _I, _LL, _V, _I, _V, _V, _V, _V),
+    "ovt_fri_fold": (_V, _V, _V, _V, _LL, _I, _V, _V),
+    "ovt_reduced_open": (_V, _I, _V, _V, _I, _V, _U, _I, _V, _V),
     "ovt_quotient_columns": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _V, _LL, _V),
     "ovt_perm_cols": (_V, _I, _I, _V, _V, _V, _V, _I, _I, _I, _V),
     "ovt_perm_scan": (_V, _LL, _I, _V, _V, _V),

@@ -1,6 +1,6 @@
 // Quartic extension Fp4 = Fp[x]/(x^4 - 11) over BabyBear: device helpers
-// shared by the kernels that compute in the extension (K2, K7+K11, K12, K13,
-// K14).
+// shared by the kernels that compute in the extension (K2, K7+K11, K9, K10,
+// K12, K13, K14).
 //
 // Replaces openvm_tpu/field/ext.py: mul (:72), frobenius (:99), inv (:106),
 // scale (:66), from_base (:35).  An element is four Montgomery words
@@ -45,6 +45,16 @@ __device__ __forceinline__ E from_base(uint32_t a) { return E{{a, 0u, 0u, 0u}}; 
 
 __device__ __forceinline__ E load(const uint32_t* p) {
   return E{{p[0], p[1], p[2], p[3]}};
+}
+
+__device__ __forceinline__ E to_e(const uint4& v) { return E{{v.x, v.y, v.z, v.w}}; }
+
+__device__ __forceinline__ uint4 to_u4(const E& e) {
+  return make_uint4(e.c[0], e.c[1], e.c[2], e.c[3]);
+}
+
+__device__ __forceinline__ bool is_zero(const E& a) {
+  return (a.c[0] | a.c[1] | a.c[2] | a.c[3]) == 0u;
 }
 
 __device__ __forceinline__ void store(uint32_t* p, const E& a) {
@@ -130,6 +140,65 @@ __device__ __forceinline__ E inv(const E& a) {
       bb::mul(W_MONTY, bb::add(bb::add(bb::mul(a.c[1], g.c[3]), bb::mul(a.c[2], g.c[2])),
                                bb::mul(a.c[3], g.c[1]))));
   return scale(g, bb_inv(norm));
+}
+
+// a * b with delayed reduction: each coefficient's products summed in 64
+// bits (at most 4 terms, each below p^2 < 2^62) and reduced once
+// (bb::reduce_wide); c4..c6 reduced before their fold by W.
+__device__ __forceinline__ E mul_d(const E& a, const E& b) {
+  const uint64_t a0 = a.c[0], a1 = a.c[1], a2 = a.c[2], a3 = a.c[3];
+  const uint64_t b0 = b.c[0], b1 = b.c[1], b2 = b.c[2], b3 = b.c[3];
+  const uint64_t c4 = a1 * b3 + a2 * b2 + a3 * b1;
+  const uint64_t c5 = a2 * b3 + a3 * b2;
+  const uint64_t c6 = a3 * b3;
+  const uint64_t w = W_MONTY;
+  const uint64_t c0 = a0 * b0 + bb::reduce_wide(c4) * w;
+  const uint64_t c1 = a0 * b1 + a1 * b0 + bb::reduce_wide(c5) * w;
+  const uint64_t c2 = a0 * b2 + a1 * b1 + a2 * b0 + bb::reduce_wide(c6) * w;
+  const uint64_t c3 = a0 * b3 + a1 * b2 + a2 * b1 + a3 * b0;
+  return E{{bb::reduce_wide(c0), bb::reduce_wide(c1), bb::reduce_wide(c2),
+            bb::reduce_wide(c3)}};
+}
+
+__device__ __forceinline__ uint32_t sqr_n(uint32_t x, int n) {
+  for (int k = 0; k < n; ++k) x = bb::mul(x, x);
+  return x;
+}
+
+// x^(p-2) by an addition chain, 29 squarings and 10 products (square and
+// multiply takes 61): p - 2 = 7 * 2^28 + 2^27 - 1.  0 maps to 0.
+__device__ __forceinline__ uint32_t bb_inv_chain(uint32_t x) {
+  const uint32_t t3 = bb::mul(sqr_n(bb::mul(sqr_n(x, 1), x), 1), x);  // x^(2^3 - 1)
+  const uint32_t t6 = bb::mul(sqr_n(t3, 3), t3);
+  const uint32_t t12 = bb::mul(sqr_n(t6, 6), t6);
+  const uint32_t t24 = bb::mul(sqr_n(t12, 12), t12);
+  const uint32_t t27 = bb::mul(sqr_n(t24, 3), t3);  // x^(2^27 - 1)
+  const uint32_t v = sqr_n(bb::mul(t27, x), 1);     // x^(2^28)
+  const uint32_t v2 = sqr_n(v, 1);
+  return bb::mul(bb::mul(bb::mul(sqr_n(v2, 1), v2), v), t27);
+}
+
+// a^-1 through the quadratic subfield F_p[y], y = x^2, y^2 = W: with
+// a = A + x B (A = a0 + a2 y, B = a1 + a3 y), a (A - x B) = A^2 - y B^2 =
+// c0 + c1 y, whose inverse is (c0 - c1 y) / (c0^2 - W c1^2); then
+// a^-1 = (A - x B) (c0 - c1 y) / N.  21 products and the chain (the norm
+// through three Frobenius maps takes 33).  0 maps to 0.
+__device__ __forceinline__ E inv_d(const E& a) {
+  using bb::add;
+  using bb::mul;
+  using bb::sub;
+  const uint32_t w = W_MONTY;
+  const uint32_t p13 = mul(a.c[1], a.c[3]);
+  const uint32_t c0 = add(mul(a.c[0], a.c[0]), mul(w, sub(mul(a.c[2], a.c[2]), add(p13, p13))));
+  const uint32_t p02 = mul(a.c[0], a.c[2]);
+  const uint32_t c1 = sub(add(p02, p02), add(mul(a.c[1], a.c[1]), mul(w, mul(a.c[3], a.c[3]))));
+  const uint32_t inv_n = bb_inv_chain(sub(mul(c0, c0), mul(w, mul(c1, c1))));
+  const uint64_t e0 = mul(c0, inv_n), e1 = mul(sub(0u, c1), inv_n);
+  const uint64_t a0 = a.c[0], a1 = a.c[1], a2 = a.c[2], a3 = a.c[3];
+  return E{{bb::reduce_wide(a0 * e0 + (uint64_t)bb::reduce_wide(a2 * e1) * w),
+            sub(0u, bb::reduce_wide(a1 * e0 + (uint64_t)bb::reduce_wide(a3 * e1) * w)),
+            bb::reduce_wide(a0 * e1 + a2 * e0),
+            sub(0u, bb::reduce_wide(a1 * e1 + a3 * e0))}};
 }
 
 }  // namespace ext

@@ -74,77 +74,16 @@ constexpr int SCAN_CHUNKS = 11;  // chunk columns staged at once; odd, so a
                                  // thread's row of uint4s hits distinct banks
 constexpr int STATUS_WORDS = 16;  // a tile's flag, aggregate and prefix
 
-__device__ __forceinline__ ext::E to_e(const uint4& v) { return ext::E{{v.x, v.y, v.z, v.w}}; }
-__device__ __forceinline__ uint4 to_u4(const ext::E& e) {
-  return make_uint4(e.c[0], e.c[1], e.c[2], e.c[3]);
-}
+using ext::inv_d;
+using ext::is_zero;
+using ext::mul_d;
+using ext::to_e;
+using ext::to_u4;
 
 // stark/logup.py P_* and PERM_JOB_WORDS
 enum PermJob : int { P_COLS, P_N, P_ITS, P_NITS, P_M, P_OUT, P_BLOCK0, PERM_JOB_WORDS = 8 };
 constexpr int PERM_THREADS = 128;  // the most threads of a perm_cols block
 constexpr int PERM_BATCH = 4;      // interactions an inverse, in registers
-
-// a * b with delayed reduction: each coefficient's products summed in 64
-// bits and reduced once; c4..c6 reduced before their fold by W.
-__device__ __forceinline__ ext::E mul_d(const ext::E& a, const ext::E& b) {
-  const uint64_t a0 = a.c[0], a1 = a.c[1], a2 = a.c[2], a3 = a.c[3];
-  const uint64_t b0 = b.c[0], b1 = b.c[1], b2 = b.c[2], b3 = b.c[3];
-  const uint64_t c4 = a1 * b3 + a2 * b2 + a3 * b1;
-  const uint64_t c5 = a2 * b3 + a3 * b2;
-  const uint64_t c6 = a3 * b3;
-  const uint64_t w = ext::W_MONTY;
-  const uint64_t c0 = a0 * b0 + bb::reduce_wide(c4) * w;
-  const uint64_t c1 = a0 * b1 + a1 * b0 + bb::reduce_wide(c5) * w;
-  const uint64_t c2 = a0 * b2 + a1 * b1 + a2 * b0 + bb::reduce_wide(c6) * w;
-  const uint64_t c3 = a0 * b3 + a1 * b2 + a2 * b1 + a3 * b0;
-  return ext::E{{bb::reduce_wide(c0), bb::reduce_wide(c1), bb::reduce_wide(c2),
-                 bb::reduce_wide(c3)}};
-}
-
-__device__ __forceinline__ uint32_t sqr_n(uint32_t x, int n) {
-  for (int k = 0; k < n; ++k) x = bb::mul(x, x);
-  return x;
-}
-
-// x^(p-2) by an addition chain, 29 squarings and 10 products (square and
-// multiply takes 61): p - 2 = 7 * 2^28 + 2^27 - 1.  0 maps to 0.
-__device__ __forceinline__ uint32_t bb_inv_chain(uint32_t x) {
-  const uint32_t t3 = bb::mul(sqr_n(bb::mul(sqr_n(x, 1), x), 1), x);  // x^(2^3 - 1)
-  const uint32_t t6 = bb::mul(sqr_n(t3, 3), t3);
-  const uint32_t t12 = bb::mul(sqr_n(t6, 6), t6);
-  const uint32_t t24 = bb::mul(sqr_n(t12, 12), t12);
-  const uint32_t t27 = bb::mul(sqr_n(t24, 3), t3);  // x^(2^27 - 1)
-  const uint32_t v = sqr_n(bb::mul(t27, x), 1);     // x^(2^28)
-  const uint32_t v2 = sqr_n(v, 1);
-  return bb::mul(bb::mul(bb::mul(sqr_n(v2, 1), v2), v), t27);
-}
-
-// a^-1 through the quadratic subfield F_p[y], y = x^2, y^2 = W: with
-// a = A + x B (A = a0 + a2 y, B = a1 + a3 y), a (A - x B) = A^2 - y B^2 =
-// c0 + c1 y, whose inverse is (c0 - c1 y) / (c0^2 - W c1^2); then
-// a^-1 = (A - x B) (c0 - c1 y) / N.  21 products and the chain (the norm
-// through three Frobenius maps takes 33).  0 maps to 0.
-__device__ __forceinline__ ext::E inv_d(const ext::E& a) {
-  using bb::add;
-  using bb::mul;
-  using bb::sub;
-  const uint32_t w = ext::W_MONTY;
-  const uint32_t p13 = mul(a.c[1], a.c[3]);
-  const uint32_t c0 = add(mul(a.c[0], a.c[0]), mul(w, sub(mul(a.c[2], a.c[2]), add(p13, p13))));
-  const uint32_t p02 = mul(a.c[0], a.c[2]);
-  const uint32_t c1 = sub(add(p02, p02), add(mul(a.c[1], a.c[1]), mul(w, mul(a.c[3], a.c[3]))));
-  const uint32_t inv_n = bb_inv_chain(sub(mul(c0, c0), mul(w, mul(c1, c1))));
-  const uint64_t e0 = mul(c0, inv_n), e1 = mul(sub(0u, c1), inv_n);
-  const uint64_t a0 = a.c[0], a1 = a.c[1], a2 = a.c[2], a3 = a.c[3];
-  return ext::E{{bb::reduce_wide(a0 * e0 + (uint64_t)bb::reduce_wide(a2 * e1) * w),
-                 sub(0u, bb::reduce_wide(a1 * e0 + (uint64_t)bb::reduce_wide(a3 * e1) * w)),
-                 bb::reduce_wide(a0 * e1 + a2 * e0),
-                 sub(0u, bb::reduce_wide(a1 * e1 + a3 * e0))}};
-}
-
-__device__ __forceinline__ bool is_zero(const ext::E& a) {
-  return (a.c[0] | a.c[1] | a.c[2] | a.c[3]) == 0u;
-}
 
 // A column word, read through the non-coherent path with a 256-byte L2
 // prefetch (neighbouring warps read the next 128 bytes of the same row).

@@ -52,10 +52,8 @@ enum Job : int {
 // per-point arrays stay in registers.
 #define PER_POINT(p) _Pragma("unroll") for (int p = 0; p < MAX_PTS; ++p) if (p < npts)
 
-__device__ __forceinline__ ext::E to_e(const uint4& v) { return ext::E{{v.x, v.y, v.z, v.w}}; }
-__device__ __forceinline__ uint4 to_u4(const ext::E& e) {
-  return make_uint4(e.c[0], e.c[1], e.c[2], e.c[3]);
-}
+using ext::to_e;
+using ext::to_u4;
 
 __global__ void __launch_bounds__(THREADS)
 open_partial_kernel(const long long* __restrict__ jobs, int n_jobs,

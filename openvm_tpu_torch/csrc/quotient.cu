@@ -91,10 +91,8 @@ __device__ __forceinline__ uint32_t rev_bits(uint32_t x, int bits) {
   return bits ? __brev(x) >> (32 - bits) : 0u;
 }
 
-__device__ __forceinline__ ext::E to_e(const uint4& v) { return ext::E{{v.x, v.y, v.z, v.w}}; }
-__device__ __forceinline__ uint4 to_u4(const ext::E& e) {
-  return make_uint4(e.c[0], e.c[1], e.c[2], e.c[3]);
-}
+using ext::to_e;
+using ext::to_u4;
 
 // Slot files of one block: base slot s of lane l at bf[s L + l], extension
 // slot s at ef[s L + l]; a thread's lane is its thread index.

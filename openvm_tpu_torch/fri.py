@@ -77,7 +77,8 @@ def _inv_neg2y_np(log_half: int) -> np.ndarray:
 
 
 def _fold_tables(log_h: int, device) -> tuple:
-    """(y, 1/(-2y)) for a fold of height 2^log_h on ``device``.  The tables
+    """(y, 1/(-2y)) for a fold of height 2^log_h on ``device``, for the
+    plain version (K14 makes its points on the card).  The tables
     of a height are prefixes of those of any larger height
     (w_H^(2^k) rev_{H/2^(k+1)}(j) = w_H^rev_{H/2}(j) for j < H/2^(k+1)), so
     the largest fold's tables serve every level."""
@@ -104,12 +105,38 @@ def fold_evals_plain(evals: torch.Tensor, beta: torch.Tensor,
     return out.int()
 
 
+def _fold_model(evals: torch.Tensor, beta: torch.Tensor, ro=None) -> torch.Tensor:
+    """K14 modelled on the CPU: thread u folds rows 4u .. 4u+3 into outputs
+    2u and 2u+1; y_2u and 1/(-2 y_2u) from the on-card point split
+    (``ntt.rev_root_points`` of row 4u), y_(2u+1) = y_2u w_4 and its
+    inverse factor times w_4^-1; beta^2 ro added where given."""
+    h = int(evals.shape[0])
+    log_h, half = h.bit_length() - 1, h // 2
+    rows = 4 * np.arange(-(-half // 2))
+    y = ntt.rev_root_points(log_h, rows)
+    n = ntt.rev_root_points(log_h, rows, inverse=True) * (bb.P - pow(2, -1, bb.P)) % bb.P
+    w4 = bb.two_adic_generator_int(2)
+    y = np.stack([y, y * w4 % bb.P], axis=1).reshape(-1)[:half]
+    n = np.stack([n, n * pow(w4, -1, bb.P) % bb.P], axis=1).reshape(-1)[:half]
+    y, n = (torch.from_numpy(bb.to_monty_np(a).astype(np.int64)) for a in (y, n))
+    v = evals.long()
+    v0, v1 = v[0::2], v[1::2]
+    slope = ef.scale64(bb.sub64(v1, v0), n)
+    bmy = beta.long().expand_as(v0).clone()
+    bmy[:, 0] = bb.sub64(bmy[:, 0], y)
+    out = bb.add64(v0, ef.mul64(bmy, slope))
+    if ro is not None:
+        out = bb.add64(out, ef.mul64(ef.mul64(beta.long(), beta.long()), ro.long()))
+    return out.int()
+
+
 def fold_evals(evals: torch.Tensor, beta: torch.Tensor, ro=None) -> torch.Tensor:
     """v'[j] = v0 + (beta - y_j)(v1 - v0)/(-2 y_j) (fri.py:77-95), with
     + beta^2 * ro[j] fused when ``ro`` is given (fri.py:130-133).
 
-    Kernel K14 (csrc/fri.cu) on CUDA tensors: one thread per output, bound
-    by bytes; the plain version on CPU tensors."""
+    Kernel K14 (csrc/fri.cu) on CUDA tensors: two outputs a thread, 16-byte
+    loads and stores, the points made on the card (no host table); the
+    plain version on CPU tensors."""
     operands = (evals, beta) if ro is None else (evals, beta, ro)
     dev = _build.kernel_device(*operands)
     if dev.type == "cpu":
@@ -125,11 +152,14 @@ def fold_evals(evals: torch.Tensor, beta: torch.Tensor, ro=None) -> torch.Tensor
         _build.check_words(ro, "fold ro", dev)
         if tuple(ro.shape) != (h // 2, 4):
             raise ValueError(f"ro must be ({h // 2}, 4), got {tuple(ro.shape)}")
-    y, inv_neg2y = _fold_tables(h.bit_length() - 1, dev)
+    for t, name in ((evals, "evals"), (ro, "ro")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"fold {name} must start on a 16-byte boundary")
     out = torch.empty((h // 2, 4), dtype=torch.int32, device=dev)
-    _build.launch("fri_fold", "ovt_fri_fold", dev, evals.data_ptr(),
-                  beta.data_ptr(), y.data_ptr(), inv_neg2y.data_ptr(),
-                  None if ro is None else ro.data_ptr(), h // 2, out.data_ptr())
+    _build.launch("fri_fold", "ovt_fri_fold", dev, evals.data_ptr(), beta.data_ptr(),
+                  ntt.rev_root_table(dev).data_ptr(),
+                  None if ro is None else ro.data_ptr(), h // 2, h.bit_length() - 1,
+                  out.data_ptr())
     return out
 
 

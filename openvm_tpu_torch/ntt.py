@@ -107,6 +107,55 @@ def lde_points(log_n: int, device: torch.device) -> torch.Tensor:
     return prefix_table("lde_points", log_n, lde_points_np, device)
 
 
+# Points of a bit-reversed domain made on the card (K13, K14): for row
+# r = hi 2^t + lo of height 2^h (t = ROOT_BITS), w_H^rev_h(r) =
+# w_H^rev_(h-t)(hi) * w_(2^t)^rev_t(lo), a product of A(hi), made from the
+# powers w_H^(2^k) = w_(H/2^k), and B(lo), a 2^t table shared by every
+# height (for h <= t, B(r) = w_H^rev_h(r) itself: a prefix of the table).
+ROOT_BITS = 10
+
+
+@functools.lru_cache(maxsize=None)
+def rev_roots_np(bits: int = ROOT_BITS) -> np.ndarray:
+    """Montgomery words [B | B^-1 | gen | gen^-1]: B[j] = w_(2^bits)^rev(j)
+    and its inverse for j < 2^bits, then w_(2^j) and w_(2^j)^-1 for
+    j < 32 (0 past the field's two-adicity)."""
+    gens = [bb.two_adic_generator_int(j) if j <= bb.TWO_ADICITY else 0 for j in range(32)]
+    w = gens[bits]
+    rev = bitrev_perm(bits)
+    return np.concatenate([
+        bb.to_monty_np(bb.powers_np(w, 1 << bits)[rev]),
+        bb.to_monty_np(bb.powers_np(pow(w, -1, bb.P), 1 << bits)[rev]),
+        bb.to_monty_np(np.asarray(gens, dtype=np.uint64)),
+        bb.to_monty_np(np.asarray([pow(g, -1, bb.P) if g else 0 for g in gens],
+                                  dtype=np.uint64))])
+
+
+@functools.lru_cache(maxsize=None)
+def rev_root_table(device: torch.device) -> torch.Tensor:
+    """``rev_roots_np()`` on ``device``: 8.5 KB, the only table K13 and K14
+    read to make their points."""
+    return _table(rev_roots_np(), device)
+
+
+def rev_root_points(log_h: int, rows, inverse: bool = False,
+                    bits: int = ROOT_BITS) -> np.ndarray:
+    """Canonical w_H^(+-rev_h(r)) for ``rows`` r < 2^log_h, made as K13 and
+    K14 make them: A(r >> bits) from the set bits of rev(hi), one product a
+    bit, times B(r mod 2^bits) from ``rev_roots_np(bits)``."""
+    n = 1 << bits
+    tab = rev_roots_np(bits).astype(np.uint64) * bb.RINV_MOD_P % bb.P
+    b_tab, gen = (tab[n:2 * n], tab[2 * n + 32:]) if inverse else (tab[:n], tab[2 * n:2 * n + 32])
+    r = np.asarray(rows, dtype=np.int64)
+    a = np.ones(r.shape, dtype=np.uint64)
+    hb = log_h - bits
+    if hb > 0:
+        e = bitrev_perm(hb)[r >> bits]
+        for k in range(hb):
+            a = np.where((e >> k) & 1 == 1, a * gen[log_h - k] % bb.P, a)
+    return a * b_tab[r & (n - 1)] % bb.P
+
+
 def bitrev_rows(x: torch.Tensor) -> torch.Tensor:
     """Rows in bit-reversed order (plain gather; any device)."""
     log_n = _log2_exact(x.shape[0])

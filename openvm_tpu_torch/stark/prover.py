@@ -12,7 +12,7 @@ so ``codec.encode_proof`` gives equal bytes for equal inputs.  Host code
   quotient                   stark.quotient.evaluate_many (K7+K11)
   zeta power series          field.ext.powers (K2)
   out-of-domain openings     open_many (K12)
-  reduced openings           reduced_open (K13)
+  reduced openings           reduced_open_many (K13)
   FRI folds                  fri.fold_evals (K14)
   query gathers              merkle.GatherPlan (K6)
 
@@ -307,52 +307,300 @@ def open_many(jobs: list, zpows: torch.Tensor) -> list:
     return _open_outputs(out, jobs, out_off)
 
 
-def reduced_open_plain(ro: torch.Tensor, mat: torch.Tensor,
-                       apows: torch.Tensor, points: list) -> torch.Tensor:
-    """ro + sum_p alpha_pow_p * (p_p(z)_comb - comb) / (z_p - x), plain
-    PyTorch.  points: [(p(z)_comb, z, alpha_pow)] as (4,) Montgomery
-    tensors; ro (H, 4) bit-reversed; returns the new ro."""
-    h = mat.shape[0]
-    comb = _col_comb(mat, apows).long()
-    acc = ro.long()
-    for pz, z, ap in points:
-        num = bb.sub64(pz.long(), comb)
-        inv = _inv_z_minus_x(tuple(z.tolist()), h.bit_length() - 1, ro.device)
-        acc = bb.add64(acc, ef.mul64(ap.long(), ef.mul64(num, inv)))
-    return acc.int()
+def ext_powers_np(alpha, n: int) -> np.ndarray:
+    """(n, 4) canonical uint64 alpha^0 .. alpha^(n-1) of a canonical
+    extension element, by doubling."""
+    out = np.zeros((max(n, 1), 4), dtype=np.uint64)
+    out[0, 0] = 1
+    step, filled = np.asarray(alpha, dtype=np.uint64), 1
+    while filled < n:
+        k = min(filled, n - filled)
+        out[filled:filled + k] = nx.nmul(out[:k], step)
+        step, filled = nx.nmul(step, step), filled + k
+    return out[:n]
+
+
+def _monty_ext(v, device) -> torch.Tensor:
+    """A canonical extension element as (4,) int64 Montgomery words."""
+    return torch.from_numpy(bb.to_monty_np(np.asarray(v, dtype=np.uint64))
+                            .astype(np.int64)).to(device)
+
+
+def reduced_open_jobs(mats: list, alpha) -> list:
+    """``reduced_open_many``'s jobs for committed matrices in the
+    transcript's order (prover.py:773-792): mats [(LDE (H, W), canonical
+    points z, opened values (W, 4) canonical a point)].  Per (matrix,
+    point): alpha_pow, alpha^w advanced over the earlier pairs of its LDE
+    height, and p(z)_comb = sum_t alpha^t opened[t]; all pairs at once."""
+    pair_w, exps, seen = [], [], {}
+    for lde, points, _ in mats:
+        h, w = (int(v) for v in lde.shape)
+        for _ in points:
+            pair_w.append(w)
+            exps.append(seen.get(h, 0))
+            seen[h] = exps[-1] + w
+    apows = ext_powers_np(alpha, max(exps + pair_w + [0]) + 1)
+    terms = nx.nmul(np.concatenate([o for _, _, opened in mats for o in opened]),
+                    apows[np.concatenate([np.arange(w) for w in pair_w])])
+    pz = np.zeros((len(pair_w), 4), dtype=np.uint64)
+    np.add.at(pz, np.repeat(np.arange(len(pair_w)), pair_w), terms)
+    pz %= P
+    jobs, q = [], 0
+    for lde, points, _ in mats:
+        jobs.append((lde, [(z, pz[q + k], apows[exps[q + k]])
+                           for k, z in enumerate(points)]))
+        q += len(points)
+    return jobs
+
+
+def reduced_open_many_plain(jobs: list, alpha) -> dict:
+    """``reduced_open_many``'s plain version, matrix by matrix as the
+    reference adds them (prover.py:773-792): per matrix its column
+    combination, then per point alpha_pow (p(z) - comb) / (z - x) added
+    into its height's ro, 1/(z - x) over ``ntt.lde_points``."""
+    dev = jobs[0][0].device
+    w_max = max(int(m.shape[1]) for m, _ in jobs)
+    apows = torch.from_numpy(bb.to_monty_np(ext_powers_np(alpha, w_max))
+                             .astype(np.int64)).to(dev)
+    ro: dict = {}
+    for mat, points in jobs:
+        h = int(mat.shape[0])
+        lh = h.bit_length() - 1
+        acc = ro[lh] if lh in ro else torch.zeros((h, 4), dtype=torch.int64, device=dev)
+        comb = _col_comb(mat, apows).long()
+        for z, pz, ap in points:
+            num = bb.sub64(_monty_ext(pz, dev), comb)
+            inv = _inv_z_minus_x(tuple(int(v) for v in z), lh, dev)
+            acc = bb.add64(acc, ef.mul64(_monty_ext(ap, dev), ef.mul64(num, inv)))
+        ro[lh] = acc
+    return {lh: v.int() for lh, v in ro.items()}
 
 
 @functools.lru_cache(maxsize=16)
 def _inv_z_minus_x(z: tuple, log_h: int, device) -> torch.Tensor:
-    """1 / (z - x) over the bit-reversed LDE points of height 2^log_h,
-    int64 (H, 4); every matrix of that height opened at z shares it."""
+    """1 / (z - x) over the bit-reversed LDE points of height 2^log_h, for
+    a canonical z, int64 (H, 4); every matrix of that height opened at z
+    shares it."""
     xs = ntt.lde_points(log_h, device).long()
-    zmx = torch.tensor(z, dtype=torch.int64, device=device).expand(1 << log_h, 4).clone()
+    zmx = _monty_ext(z, device).expand(1 << log_h, 4).clone()
     zmx[:, 0] = bb.sub64(zmx[:, 0], xs)
     return ef.inv64(zmx)
 
 
-def reduced_open(ro: torch.Tensor, mat: torch.Tensor, apows: torch.Tensor,
-                 points: list) -> torch.Tensor:
-    """Kernel K13 (csrc/fri.cu) on CUDA tensors: the reduced-opening terms of
-    one matrix added into ``ro`` in place (and returned); the plain version
-    on CPU tensors.  See ``reduced_open_plain``."""
-    dev = _build.kernel_device(ro, mat, apows)
+# The reduced-openings kernel's job table (csrc/fri.cu): RH_WORDS int64 a
+# height, RM_WORDS a matrix.  A block takes RO_TILE rows of one height,
+# RO_ROWS a thread; a height has at most RO_MAX_PTS distinct points.
+RH_LOG, RH_NMAT, RH_MAT0, RH_NPTS, RH_PT0, RH_OUT, RH_BLOCK0 = range(7)
+RH_WORDS = 8
+RM_PTR, RM_STRIDE, RM_W, RM_VEC, RM_MASK, RM_ALPHA = range(6)
+RM_WORDS = 6
+RO_THREADS, RO_ROWS, RO_COLS, RO_MAX_PTS = 128, 2, 32, 4
+RO_TILE = RO_THREADS * RO_ROWS
+RO_PT_WORDS = 5  # a point's uint4s: f's coefficients, q0, q1, q2, C
+
+
+def _point_polys(zs) -> np.ndarray:
+    """(n, 4, 4) canonical uint64 [f, q0, q1, q2] of n extension points z:
+    f(x) = x^4 + a3 x^3 + a2 x^2 + a1 x + a0 = prod_k (x - z^(p^k)), the
+    norm of z - x as a polynomial in a base x (row f holds a0..a3, all in
+    the base field), and q(x) = x^3 + q2 x^2 + q1 x + q0 = f(x) / (x - z),
+    so 1/(z - x) = -q(x) / f(x) for every base x, f(x) = 0 exactly when
+    x = z."""
+    z = np.asarray(zs, dtype=np.uint64).reshape(-1, 4) % P
+    poly = [nx.from_base(np.ones(len(z)))]  # coefficients of x^0, x^1, ...
+    for scale in nx._frob_scales():
+        prods = [nx.nmul(z * scale % P, c) for c in poly] + [0]
+        poly = [nx.nsub(poly[i - 1] if i else 0, prods[i]) for i in range(len(poly) + 1)]
+    if any(c[:, 1:].any() for c in poly):
+        raise AssertionError("the norm polynomial is not in the base field")
+    q = [nx.nadd(z, nx.from_base(poly[3][:, 0]))]  # q2, q1, q0
+    for i in (2, 1):
+        q.append(nx.nadd(nx.nmul(z, q[-1]), nx.from_base(poly[i][:, 0])))
+    return np.stack([np.stack([c[:, 0] for c in poly[:4]], axis=1)] + q[::-1], axis=1)
+
+
+def _ro_table(jobs: list, alpha, ptrs: list, tile: int = RO_TILE) -> tuple:
+    """The reduced-openings kernel's tables over ``jobs`` (see
+    ``reduced_open_many``; ``ptrs``: each matrix's address): (heights
+    (n_h, RH_WORDS) int64, largest first, blocks by ``quotient.block_plan``;
+    mats (n_m, RM_WORDS) int64, a height's consecutive; consts (n_c, 4)
+    uint32 Montgomery: alpha^t for t < n_apow, per height RO_PT_WORDS rows
+    a distinct point z_p (``_point_polys``' f, q0, q1, q2, then C_p = sum
+    of its pairs' alpha_pow p(z)_comb), per matrix the sum of its
+    alpha_pows at each point of its height (a matrix of a one-row trace is
+    opened twice at zeta = zeta g_1); n_apow; blocks;
+    ro's row offset by log height; rows in all)."""
+    by_h: dict = {}
+    for k, (mat, _) in enumerate(jobs):
+        by_h.setdefault(int(mat.shape[0]).bit_length() - 1, []).append(k)
+    logs = list(by_h)
+    order, first, total = qmod.block_plan([1 << lh for lh in logs], tile)
+    # every (matrix, point) pair, height by height in the table's order, and
+    # each height's distinct points in the order they first appear
+    pair_mat, pair_pt, zs = [], [], {}
+    for o in order:
+        seen = zs.setdefault(logs[o], {})
+        for i, k in enumerate(by_h[logs[o]]):
+            for z, _, _ in jobs[k][1]:
+                pair_mat.append(i)
+                pair_pt.append(seen.setdefault(tuple(int(v) for v in z), len(seen)))
+        if len(seen) > RO_MAX_PTS:
+            raise ValueError(f"height 2^{logs[o]} has {len(seen)} distinct points, "
+                             f"more than {RO_MAX_PTS}")
+    pair_mat, pair_pt = np.asarray(pair_mat), np.asarray(pair_pt)
+    pairs = [(pz, ap) for o in order for k in by_h[logs[o]] for _, pz, ap in jobs[k][1]]
+    aps = np.asarray([ap for _, ap in pairs], dtype=np.uint64).reshape(-1, 4)
+    terms = nx.nmul(aps, np.asarray([pz for pz, _ in pairs], dtype=np.uint64).reshape(-1, 4))
+    polys = _point_polys([z for o in order for z in zs[logs[o]]])
+    n_apow = max(int(m.shape[1]) for m, _ in jobs)
+    consts = [ext_powers_np(alpha, n_apow)]
+    n_c = n_apow
+    heights = np.zeros((len(logs), RH_WORDS), dtype=np.int64)
+    mats = np.zeros((len(jobs), RM_WORDS), dtype=np.int64)
+    out_off, n_out, m_pos, q0, z0 = {}, 0, 0, 0, 0
+    for pos, o in enumerate(order):
+        lh, ks = logs[o], by_h[logs[o]]
+        npts = len(zs[lh])
+        q1 = q0 + sum(len(jobs[k][1]) for k in ks)
+        pidx, mat_of = pair_pt[q0:q1], pair_mat[q0:q1]
+        pts = np.zeros((npts, RO_PT_WORDS, 4), dtype=np.uint64)
+        pts[:, :4] = polys[z0:z0 + npts]
+        np.add.at(pts[:, 4], pidx, terms[q0:q1])
+        pts[:, 4] %= P
+        alphas = np.zeros((len(ks), npts, 4), dtype=np.uint64)
+        np.add.at(alphas, (mat_of, pidx), aps[q0:q1])
+        alphas %= P
+        heights[pos] = (lh, len(ks), m_pos, npts, n_c, n_out, first[pos], 0)
+        consts.append(pts.reshape(-1, 4))
+        n_c += RO_PT_WORDS * npts
+        for i, k in enumerate(ks):
+            mat = jobs[k][0]
+            w, stride = int(mat.shape[1]), int(mat.stride(0))
+            vec = w % 4 == 0 and stride % 4 == 0 and mat.data_ptr() % 16 == 0
+            mask = sum(1 << int(p) for p in set(pidx[mat_of == i].tolist()))
+            mats[m_pos] = (ptrs[k], stride, w, vec, mask, n_c)
+            consts.append(alphas[i])
+            n_c += npts
+            m_pos += 1
+        out_off[lh] = n_out
+        n_out += 1 << lh
+        q0, z0 = q1, z0 + npts
+    return (heights, mats, bb.to_monty_np(np.concatenate(consts)), n_apow, total,
+            out_off, n_out)
+
+
+def _reduced_open_model(jobs: list, alpha, threads: int = RO_THREADS,
+                        rows: int = RO_ROWS, cols: int = RO_COLS,
+                        root_bits: int = ntt.ROOT_BITS) -> dict:
+    """csrc/fri.cu's reduced_open_kernel modelled on the CPU over the same
+    tables (``_ro_table``, a job's index for its address): per block its
+    height by the first blocks and its tile of threads * rows rows; per
+    matrix its tile staged ``cols`` columns at a time, 4 columns' products
+    summed exactly, and the sums s_p += alpha_mp comb_m; x_r = g A(hi)
+    B(lo) (``ntt.rev_root_points``); per thread (rows t, t + threads, ...)
+    f_p(x) by Horner and one base batch inverse over its rows and points in
+    the kernel's order, a zero f (z = x) entering as 1 and contributing 0;
+    ro[r] = sum_p (s_p - C_p) q_p(x) / f_p(x) (``_point_polys``) written
+    once a row."""
+    tile = threads * rows
+    if tile > 1 << root_bits:
+        raise ValueError("a tile must lie inside one hi of the point split")
+    heights, mats, consts, n_apow, total, out_off, n_out = _ro_table(
+        jobs, alpha, list(range(len(jobs))), tile)
+    c = torch.from_numpy(consts.astype(np.int64))
+    out = torch.zeros((n_out, 4), dtype=torch.int64)
+    one = torch.tensor([bb.R_MOD_P, 0, 0, 0], dtype=torch.int64)
+    for blk in range(total):
+        hj = heights[max(i for i in range(len(heights)) if heights[i, RH_BLOCK0] <= blk)]
+        log_h, npts = int(hj[RH_LOG]), int(hj[RH_NPTS])
+        r0 = (blk - int(hj[RH_BLOCK0])) * tile
+        n_rows = min(tile, (1 << log_h) - r0)
+        s = torch.zeros((npts, n_rows, 4), dtype=torch.int64)
+        for mj in mats[int(hj[RH_MAT0]):int(hj[RH_MAT0] + hj[RH_NMAT])]:
+            mat = jobs[int(mj[RM_PTR])][0]
+            comb = torch.zeros((n_rows, 4), dtype=torch.int64)
+            for c0 in range(0, int(mj[RM_W]), cols):
+                staged = mat[r0:r0 + n_rows, c0:c0 + cols].long()
+                for t0 in range(0, staged.shape[1], 4):
+                    part = torch.zeros((n_rows, 4), dtype=torch.int64)
+                    for t in range(t0, min(t0 + 4, staged.shape[1])):
+                        part = bb.add64(part, bb.mul64(staged[:, t, None], c[c0 + t][None]))
+                    comb = bb.add64(comb, part)
+            for p in range(npts):
+                if int(mj[RM_MASK]) >> p & 1:
+                    s[p] = bb.add64(s[p], ef.mul64(c[int(mj[RM_ALPHA]) + p], comb))
+        pts = c[int(hj[RH_PT0]):int(hj[RH_PT0]) + RO_PT_WORDS * npts].view(npts, RO_PT_WORDS, 4)
+        x = torch.from_numpy(bb.to_monty_np(
+            ntt.rev_root_points(log_h, np.arange(r0, r0 + n_rows), bits=root_bits)
+            * bb.GENERATOR % P).astype(np.int64))
+        res = torch.zeros((n_rows, 4), dtype=torch.int64)
+        thr = torch.arange(threads)
+        acc, pre, fs = torch.full((threads,), bb.R_MOD_P, dtype=torch.int64), [], []
+        for k in range(rows):  # f(x) by Horner, then the base batch inverse
+            r = thr + k * threads
+            valid = r < n_rows
+            xr = torch.where(valid, x[r.clamp(max=n_rows - 1)], 0)
+            for p in range(npts):
+                a = pts[p, 0]
+                f = bb.add64(xr, a[3])
+                for c_ in (a[2], a[1], a[0]):
+                    f = bb.add64(bb.mul64(f, xr), c_)
+                f = torch.where(valid, f, 0)
+                acc = torch.where(f != 0, bb.mul64(acc, f), acc)
+                pre.append(acc)
+                fs.append((p, f, r, xr))
+        inv = ef.bb_inv64(acc)
+        for i in range(len(fs) - 1, -1, -1):
+            p, f, r, xr = fs[i]
+            inv_f = bb.mul64(inv, pre[i - 1]) if i else inv
+            inv = torch.where(f != 0, bb.mul64(inv, f), inv)
+            live = f != 0
+            q = pts[p, 3].expand(threads, 4).clone()
+            q[:, 0] = bb.add64(q[:, 0], xr)
+            q = bb.add64(ef.scale64(q, xr), pts[p, 2])
+            q = bb.add64(ef.scale64(q, xr), pts[p, 1])
+            rl = r[live]
+            num = bb.sub64(s[p][rl], pts[p, 4].expand(len(rl), 4))
+            res[rl] = bb.add64(res[rl], ef.mul64(num, ef.scale64(q[live], inv_f[live])))
+        out[out_off[log_h] + r0:out_off[log_h] + r0 + n_rows] = res
+    return {lh: out[o:o + (1 << lh)].int() for lh, o in out_off.items()}
+
+
+def reduced_open_many(jobs: list, alpha) -> dict:
+    """Every reduced opening of a prove (prover.py:773-792): {log height:
+    (2^log_h, 4) int32 ro}, ro[r] = sum over the height's matrices and
+    their points of alpha_pow (p(z)_comb - comb[r]) / (z - x_r).  jobs:
+    [(matrix (H, W) int32 Montgomery words, unit column stride, any row
+    stride, bit-reversed LDE rows; [(z, p(z)_comb, alpha_pow)] canonical
+    extension 4-sequences in the transcript's order)]; alpha: the canonical
+    FRI alpha, whose powers weight the columns.
+
+    Kernel K13 (csrc/fri.cu) on CUDA tensors: one launch over the tables of
+    ``_ro_table``, sent in one non-blocking copy; ``reduced_open_many_plain``
+    on CPU tensors."""
+    if not jobs:
+        return {}
+    dev = _build.kernel_device(*(m for m, _ in jobs))
     if dev.type == "cpu":
-        return reduced_open_plain(ro, mat, apows, points)
-    h, w = (int(s) for s in mat.shape)
-    if mat.stride(1) != 1 or mat.dtype != torch.int32:
-        raise ValueError("reduced_open takes an int32 matrix with unit column stride")
-    _build.check_words(ro, "ro", dev)
-    if tuple(ro.shape) != (h, 4) or apows.shape[0] < w:
-        raise ValueError("ro must be (H, 4) and apows hold W powers")
-    apows = apows.contiguous()
-    pts = torch.stack([torch.stack(p) for p in points]).contiguous()
-    xs = ntt.lde_points(h.bit_length() - 1, dev)
-    _build.launch("fri_reduced_open", "ovt_reduced_open", dev, mat.data_ptr(),
-                  mat.stride(0), w, h, apows.data_ptr(), len(points),
-                  pts.data_ptr(), xs.data_ptr(), ro.data_ptr())
-    return ro
+        return reduced_open_many_plain(jobs, alpha)
+    for m, _ in jobs:
+        h = int(m.shape[0])
+        if (m.dim() != 2 or m.dtype != torch.int32 or h < 1 or h & (h - 1)
+                or (m.shape[1] > 1 and m.stride(1) != 1)):
+            raise ValueError("reduced_open_many takes (H, W) int32 matrices, H a "
+                             "power of two, with unit column stride")
+    heights, mats, consts, n_apow, total, out_off, n_out = _ro_table(
+        jobs, alpha, [m.data_ptr() for m, _ in jobs])
+    out = torch.empty((n_out, 4), dtype=torch.int32, device=dev)
+    tables, offs = _build.upload([heights, mats, consts], dev)
+    base = tables.data_ptr()
+    _build.launch("fri_reduced_open", "ovt_reduced_open", dev, base + offs[0],
+                  len(heights), base + offs[1], base + offs[2], n_apow,
+                  ntt.rev_root_table(dev).data_ptr(), bb.to_monty_int(bb.GENERATOR),
+                  total, out.data_ptr())
+    # the tables must outlive the launch: the caching allocator holds a
+    # freed block for the stream's later work, and the kernel runs first
+    return {lh: out[o:o + (1 << lh)] for lh, o in out_off.items()}
 
 
 def _to_device_monty(m, device) -> torch.Tensor:
@@ -643,30 +891,11 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     # ---- reduced opening polynomials (K13) -----------------------------
     log_max = max(log_degrees)
     log_max_lde = log_max + lb
-    max_width = max(int(m.lde_bitrev.shape[1]) for r in rounds for m in r.mats)
-    apows_host = np.zeros((max_width + 1, 4), dtype=np.uint64)
-    apows_host[0] = (1, 0, 0, 0)
-    for t in range(1, max_width + 1):
-        apows_host[t] = nx.nmul(apows_host[t - 1], np.asarray(fri_alpha_c))
-    apows = bb.monty(apows_host, device=dev)
-    ro_polys: dict = {}
-    ro_alpha_pow: dict = {}
-    for rnd in rounds:
-        for mat in rnd.mats:
-            lh = mat.log_lde
-            w = int(mat.lde_bitrev.shape[1])
-            if lh not in ro_polys:
-                ro_polys[lh] = torch.zeros((1 << lh, 4), dtype=torch.int32,
-                                           device=dev)
-                ro_alpha_pow[lh] = np.asarray([1, 0, 0, 0], dtype=np.uint64)
-            points = []
-            for z, opened in zip(mat.points, mat.opened):
-                pz_comb = nx.nmul(opened, apows_host[:w]).sum(axis=0) % P
-                points.append(tuple(ef.from_canonical(v, device=dev) for v in
-                                    (pz_comb, z, ro_alpha_pow[lh])))
-                ro_alpha_pow[lh] = nx.nmul(ro_alpha_pow[lh], apows_host[w])
-            ro_polys[lh] = reduced_open(ro_polys[lh], mat.lde_bitrev, apows,
-                                        points)
+    ro_jobs = reduced_open_jobs([(m.lde_bitrev, m.points, m.opened) for m in all_mats],
+                                fri_alpha_c)
+    if record is not None:
+        record["reduced_openings"] = (ro_jobs, fri_alpha_c)
+    ro_polys = reduced_open_many(ro_jobs, fri_alpha_c)
     mark("reduced_openings")
 
     # ---- FRI commit phase + PoW + queries ------------------------------
@@ -674,8 +903,9 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
         ro_polys, log_max_lde, lb, challenger)
     for felt in final_poly_ct:
         challenger.observe(felt)
+    mark("fri_commit")
     pow_witness = challenger.grind(cfg.fri.proof_of_work_bits)
-    mark("fri_commit_pow")
+    mark("pow")
 
     # every index is sampled before any opening is observed, so one gather
     # (K6) and one copy to the host serve the whole query phase
