@@ -30,7 +30,11 @@ Phases, each printing one JSON line:
             table of heights 2^1 to 2^12 (1 to 6 matrices a height, widths
             1 to 64, 1 to 3 distinct points, column slices, one zero
             denominator); K14 at every height 2^1 to 2^23, with and without
-            ro; K9 in one launch over a job
+            ro; K2's power series at n = 0 to 2^22 + 3 around its blocks,
+            u random, 0 and 1, one launch a series; K6 on mixed heights,
+            column slices, widths 0 to 20, flips and shifts at q = 1 and 84,
+            a 2^23-row source, no jobs and 2,100 jobs, through run_device
+            and through run's pinned copy; K9 in one launch over a job
             table of heights 1 to 2^21 (0 to 9 fields, m = 1 to 13 chunks,
             zero denominators at a row's first, middle and last
             interaction and on a whole row) and with
@@ -54,21 +58,25 @@ Phases, each printing one JSON line:
             84 queries and 16 PoW bits; the proof's SHA-256 pinned
             (PROVE_PROOF_SHA256); one K13 launch, and no host table of the
             FRI fold or of LDE points past the tallest quotient domain built
-            by the prove; the prove's own quotient inputs and query gather
-            are run again through the plain versions
+            by the prove; one K2 power series and one K6 launch a prove, no
+            elementwise K2 launch (nor on paths 1 and 3); the prove's own
+            quotient inputs and query gather are run again through the
+            plain versions
   vm        path 3, the RV32IM VM proof: VirtualMachine keygen -> prove ->
             verify of the fibonacci guest build_fib_program(200,000), about
             1.0 M instructions (rv32_base_alu 800 k rows, padded to 2^20),
             with FIB_EXECUTORS and the production profile (84 queries, 16
             PoW bits, log_blowup 1); stage seconds, insn/s, trace cells/s;
-            the proof's SHA-256 pinned (VM_PROOF_SHA256); one K8, one K9
-            and one K13 launch a prove; then K8's tables and every AIR's K9
+            the proof's SHA-256 pinned (VM_PROOF_SHA256); one K8, one K9,
+            one K13, one K2 power series and one K6 launch a prove; then
+            K8's tables and every AIR's K9
             columns
             and K10 scan from the prove against plain, K7
             on all 15 AIRs' quotient in one launch (LogUp roots included)
             K12 on every matrix's openings in one table and K13 on every
             matrix's reduced openings in one launch against their plain
-            versions, on the prove's own inputs
+            versions, and K6 on the prove's whole query gather, on the
+            prove's own inputs
   vm_profile one more warm prove of path 3 under torch.profiler: each
             kernel's summed device ms and launches, the device's busy and
             idle share of the prove, and each kernel's path-3 bound: the
@@ -82,7 +90,10 @@ Phases, each printing one JSON line:
             one launch over all 15 AIRs, and in its global-memory mode at
             2^16 rows; K12 and K13 on path 3's own tables; K8 and K9 on
             path 3's own one-launch inputs, with the skew of its sends and
-            the host seconds of compiling the columns programs; K10's
+            the host seconds of compiling the columns programs; K2's power
+            series at path 3's length and K6 on path 2's and path 3's
+            plans, with the host ms of one whole run and of building the
+            plan; K10's
             yardstick
             torch.cumsum on the inner dimension of the (4, N) row sums (and
             on the outer dimension of (N, 4), the earlier reading); each
@@ -179,8 +190,10 @@ FRI_TREE_LOG = 20
 # columns mode of K7.
 PATH2_KERNELS = ("bb_elementwise", "ntt", "poseidon2_hash_rows",
                  "poseidon2_compress_layer", "poseidon2_compress_tail",
-                 "ext_elementwise", "gather",
+                 "ext_powers", "gather",
                  "quotient", "open_dot", "fri_reduced_open", "fri_fold")
+# Kept for its tests and variants; no path launches it.
+OFF_PATH = ("ext_elementwise",)
 
 # Bounds.  Bytes: each input read once, each output written once, over the
 # H100's 3.35 TB/s.  Operations: the fewest 32-bit integer ALU operations
@@ -659,8 +672,7 @@ def phase_variants(dev, rng) -> dict:
     errs["ext_scale/bcast"] = max_abs_err(ef.scale(ea, es[5]), ef.scale_plain(ea, es[5]))
     errs["ext_inv"] = max_abs_err(ef.inv(ea), ef.inv_plain(ea))
     require(int(ef.inv(ea)[:7].abs().max()) == 0, "ext inv(0) != 0")
-    errs["ext_powers/4099"] = max_abs_err(ef.powers(eb[9], 4099),
-                                          ef.powers_plain(eb[9], 4099))
+    errs.update(series_variants(dev, eb[9]))
 
     # K7+K11: random DAGs at 2^12 rows, next_step 2: ~2,000 nodes, and one
     # whose slots come within 10% of the kernel's limit beside its code (a
@@ -787,15 +799,8 @@ def phase_variants(dev, rng) -> dict:
                                                      fri.fold_evals_plain(ev, beta, ro))
     ev = words(rng, dev, 4096, 4)
 
-    # K6 on a mixed-height tree: rows, paths and fold-style siblings
-    mats = [words(rng, dev, h, w) for h, w in ((4096, 5), (1024, 3), (4096, 2), (256, 9))]
-    tree = merkle.commit(mats)
-    plan = merkle.GatherPlan()
-    plan.add_tree(tree)
-    plan.add_tree(tree, 3, rows=False)
-    plan.add(ev, 1, 1)
-    idx = rng.integers(0, 4096, size=84).tolist()
-    errs["gather"] = max_abs_err(plan.run_device(idx), plan.run_plain(idx))
+    # K6: see gather_variants
+    errs.update(gather_variants(dev, rng, ev))
 
     # K7 columns mode: a random DAG's base roots over 2^12 natural rows;
     # base-valued DAGs past the slot limit and past the code limit, each in
@@ -867,6 +872,76 @@ def phase_variants(dev, rng) -> dict:
           "perm_cols_jobs": perm_jobs, "lookup_hist_heights": hist_heights})
     require(not bad, f"kernel and plain disagree: {bad}")
     return qprogs
+
+
+def series_variants(dev, u) -> dict:
+    """K2's power series against its plain version, one launch a series:
+    u random, 0 and 1, n around its blocks of POW_T x POW_E powers, up to
+    path 2's 2^22 and past it, and once from a tensor."""
+    errs = {}
+    before = _build.LAUNCHES["ext_powers"]
+    n_pows = 0
+    for which, x in (("random", u), ("zero", torch.zeros_like(u)),
+                     ("one", ef.ones((), device=dev))):
+        for n in (0, 1, 2, 3, 255, 256, 257, 4099, 1 << 20, (1 << 22) + 3):
+            got = ef.powers_host(x.tolist(), n, dev)
+            errs[f"ext_powers/{which}/{n}"] = max_abs_err(got, ef.powers_plain(x, n))
+            n_pows += n > 0
+            del got
+    errs["ext_powers/tensor"] = max_abs_err(ef.powers(u, 4099), ef.powers_plain(u, 4099))
+    require(_build.LAUNCHES["ext_powers"] == before + n_pows + 1,
+            "K2's power series: one launch a series")
+    return errs
+
+
+def gather_variants(dev, rng, ev) -> dict:
+    """K6 against its plain version, in one launch a plan, through
+    ``run_device`` and through ``run`` (its pinned copy): a mixed-height
+    tree of widths 1, 3, 4, 8 (digests) and 13 with its paths, shifted;
+    column slices whose row stride exceeds their width, off and on 16-byte
+    boundaries, with flips and shifts, and a width-0 slice; fold-style
+    siblings; at q = 1 and q = 84; a table of 0 jobs; a 2^23-row source;
+    and a table of 2,100 jobs at q = 1 (a block's one-word units span 256
+    jobs)."""
+    errs = {}
+    mats = [words(rng, dev, h, w) for h, w in ((4096, 3), (1024, 1), (4096, 4),
+                                               (256, 13), (4096, 8))]
+    tree = merkle.commit(mats)
+    big = words(rng, dev, 4096, 20)
+    tall = words(rng, dev, 1 << 23, 4)
+
+    def check(name, plan, idx):
+        before = _build.LAUNCHES["gather"]
+        want = plan.run_plain(idx)
+        errs[f"gather/{name}"] = max_abs_err(plan.run_device(idx), want)
+        flat = [torch.from_numpy(b.reshape(-1).astype(np.int64)) for b in plan.run(idx)]
+        errs[f"gather/{name}/run"] = max_abs_err(
+            torch.cat(flat) if flat else torch.zeros(0, dtype=torch.int64), want.cpu())
+        live = any(int(m.shape[1]) for m, _, _ in plan.jobs) and len(idx)
+        require(_build.LAUNCHES["gather"] == before + (2 if live else 0),
+                f"K6 {name}: one launch a run")
+
+    for q in (1, 84):
+        idx = rng.integers(0, 4096, size=q).tolist()
+        plan = merkle.GatherPlan()
+        plan.add_tree(tree)
+        plan.add_tree(tree, 3, rows=False)
+        for m, s, f in ((big, 0, 0), (big[:, 4:8], 1, 1), (big[:, 3:16], 2, 0),
+                        (big[:, 8:9], 0, 1), (big[:, 0:0], 0, 0), (big[:2048, 1:4], 1, 1),
+                        (big[:, 12:20], 3, 1), (ev, 1, 1)):
+            plan.add(m, s, f)
+        check(f"mixed/q{q}", plan, idx)
+        plan = merkle.GatherPlan()
+        plan.add(tall, 0, 1)
+        plan.add(tall[:, 1:4], 2, 0)
+        check(f"2^23/q{q}", plan, rng.integers(0, 1 << 23, size=q).tolist())
+    check("no_jobs", merkle.GatherPlan(), [1, 2, 3])
+    plan = merkle.GatherPlan()
+    for k in range(2100):
+        plan.add(mats[k % 5] if k % 7 else big[:, k % 20:k % 20 + 1], k % 3, k % 2)
+    check("2100_jobs/q1", plan, [int(rng.integers(0, 256))])
+    check("2100_jobs/q84", plan, rng.integers(0, 256, size=84).tolist())
+    return errs
 
 
 def ro_variant_jobs(rng, dev) -> tuple:
@@ -1166,15 +1241,19 @@ def check_vm_kernels(vm, record: dict) -> dict:
     rjobs = record["reduced_openings"]
     got, want = pv.reduced_open_many(*rjobs), pv.reduced_open_many_plain(*rjobs)
     require(sorted(got) == sorted(want), "K13: heights")
+    # K6 on the prove's whole query gather
+    gplan, gidx = record["gather"]
     errs = {"quotient_columns": max(cols_err.values()), "lookup_hist": hist_err,
             "perm_cols": max(perm_err.values()), "perm_scan": max(scan_err.values()),
             "quotient": max(q_err.values()), "open_dot": open_err,
-            "fri_reduced_open": max(max_abs_err(got[k], want[k]) for k in want)}
+            "fri_reduced_open": max(max_abs_err(got[k], want[k]) for k in want),
+            "gather": max_abs_err(gplan.run_device(gidx), gplan.run_plain(gidx))}
     require(all(v == 0 for v in errs.values()),
             f"kernel and plain differ on the VM prove's inputs: {cols_err} "
             f"{perm_err} {scan_err} {q_err} {errs}")
     return {"max": errs, "columns_airs": len(cols_err), "perm_airs": len(perm_err),
             "open_jobs": len(ojobs), "reduced_open_jobs": len(rjobs[0]),
+            "gather_jobs": len(gplan.jobs),
             "quotient_airs": {vm.airs[i].name: {"log_n": r[2], "lqd": r[3],
                                                 "lane_words": r[0].lane_words}
                               for i, r in enumerate(qrec)}}
@@ -1194,7 +1273,8 @@ GLOBALS = {"bb_elementwise": ("bb_elementwise_kernel",), "ntt": ("ntt_pass_kerne
            "poseidon2_hash_rows": ("poseidon2_hash_rows_kernel",),
            "poseidon2_compress_layer": ("poseidon2_compress_layer_kernel",),
            "poseidon2_compress_tail": ("poseidon2_compress_tail_kernel",),
-           "ext_elementwise": ("ext_elementwise_kernel",), "gather": ("gather_kernel",),
+           "ext_elementwise": ("ext_elementwise_kernel",),
+           "ext_powers": ("ext_powers_kernel",), "gather": ("gather_kernel",),
            "quotient": ("quotient_kernel", "quotient_global_kernel"),
            "open_dot": ("open_partial_kernel", "open_reduce_kernel"),
            "fri_reduced_open": ("reduced_open_kernel",), "fri_fold": ("fri_fold_kernel",),
@@ -1311,6 +1391,8 @@ def path3_bounds(calls: list, record: dict) -> dict:
             reads = 1 if code in (0, 1) else 2
             add(kernel, n * 4 * (reads + 1),
                 n * (MUL_OPS if code in (0, 2) else RED_OPS if code == 1 else ADD_OPS))
+        elif fn == "ovt_ext_powers":  # u0, u1, u2, u3, out, n
+            add(kernel, a[5] * 16, a[5] * EXT_MUL_D)
         elif fn == "ovt_ext_elementwise":  # op, a, b, out, n, bcast
             code, b, n, bcast = a[0], a[2], a[4], a[5]
             b_words = 0 if b is None or bcast else (1 if code == 3 else 4)
@@ -1355,8 +1437,7 @@ def path3_bounds(calls: list, record: dict) -> dict:
     add("lookup_hist", *hist_cost(scatter, lk["tables"]))
     add("open_dot", *open_cost(*record["openings"]))
     add("fri_reduced_open", *reduced_open_cost(record["reduced_openings"][0]))
-    plan, idx = record["gather"]
-    add("gather", len(idx) * sum(int(m.shape[1]) for m, _, _ in plan.jobs) * 8, 0)
+    add("gather", *gather_cost(*record["gather"]))
     return out
 
 
@@ -1426,6 +1507,8 @@ def run(dev: torch.device) -> int:
     path1 = ("bb_elementwise", "ntt", "poseidon2_hash_rows",
              "poseidon2_compress_layer", "poseidon2_compress_tail", "gather")
     require(all(launches[k] for k in path1), f"a path-1 kernel never ran: {launches}")
+    require(launches["gather"] == 1 and not any(launches[k] for k in OFF_PATH),
+            f"path 1 takes one K6 launch and no elementwise K2: {launches}")
     log_max = max(lh for _, lh, _ in SEGMENT) + cfg.fri.log_blowup
     require(len(main["indices"]) == cfg.fri.num_queries
             and main["log_max"] == log_max, "queries")
@@ -1486,8 +1569,10 @@ def run(dev: torch.device) -> int:
     require(not {"fold_y", "fold_inv_neg2y"} & set(p_tables)
             and p_tables.get("lde_points", 0) <= 1 << log_q,
             f"path 2 built host tables of K13 or K14: {p_tables}")
-    require(p_launches["fri_reduced_open"] == 1,
-            f"path 2 takes one K13 launch a prove: {p_launches}")
+    require(p_launches["fri_reduced_open"] == 1 and p_launches["ext_powers"] == 1
+            and p_launches["gather"] == 1 and not any(p_launches[k] for k in OFF_PATH),
+            f"path 2 takes one K13, one K2 power series and one K6 launch a prove "
+            f"and no elementwise K2: {p_launches}")
     p_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     require(all(p_launches[k] for k in PATH2_KERNELS),
             f"a kernel of path 2 never ran: {p_launches}")
@@ -1524,11 +1609,13 @@ def run(dev: torch.device) -> int:
     vmr = run_vm(dev, cfg)
     v_launches = vmr["launches"]
     v_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    require(all(v_launches.values()), f"a kernel of path 3 never ran: {v_launches}")
+    require(all(v for k, v in v_launches.items() if k not in OFF_PATH),
+            f"a kernel of path 3 never ran: {v_launches}")
     require(v_launches["lookup_hist"] == 1 and v_launches["perm_cols"] == 1
-            and v_launches["fri_reduced_open"] == 1,
-            f"path 3 takes one lookup_hist, perm_cols and fri_reduced_open "
-            f"launch a prove: {v_launches}")
+            and v_launches["fri_reduced_open"] == 1 and v_launches["ext_powers"] == 1
+            and v_launches["gather"] == 1 and not any(v_launches[k] for k in OFF_PATH),
+            f"path 3 takes one lookup_hist, perm_cols, fri_reduced_open, "
+            f"ext_powers and gather launch a prove and no elementwise K2: {v_launches}")
     vm, vproof, pre = vmr["vm"], vmr["proof"], vmr["pre"]
     x2 = (0, 1)
     for _ in range(VM_FIB_N):
@@ -1583,6 +1670,15 @@ def batched_plain_ldes(mats: list, log_blowup: int) -> list:
             ldes[k] = y[:, off:off + mats[k].shape[1]]
             off += mats[k].shape[1]
     return ldes
+
+
+def gather_cost(plan, idx) -> tuple:
+    """(bytes, operations) of K6's function over a plan: each gathered word
+    read once and written once and the indices read once; a reduction (from
+    Montgomery form) a word.  The job table, the jobs' first units and the
+    blocks' first jobs are the kernel's own design and are not counted."""
+    total = len(idx) * sum(int(m.shape[1]) for m, _, _ in plan.jobs)
+    return total * 8 + len(idx) * 8, total * RED_OPS
 
 
 def quotient_ops(prog) -> int:
@@ -1779,14 +1875,15 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     # gather; K7 the prove's own quotient inputs of FibonacciAir at 2^22;
     # the others on FibonacciAir at 2^22
     gplan, gidx = proved["record"]["gather"]
-    g_words = len(gidx) * sum(int(m.shape[1]) for m, _, _ in gplan.jobs)
     qargs = proved["record"]["quotient"][0]
     prog, nq = qargs[0], 1 << (qargs[2] + qargs[3])
     fib_dev = bb.to_monty(bb.from_numpy(ctxs[0].common_main.astype(np.uint32), device=dev))
     log_n = int(fib_dev.shape[0]).bit_length() - 1
     fib_lde, fib_coeffs = ntt.coset_lde(fib_dev, 1, return_coeffs=True)
     zeta = words(rng, dev, 4)
-    zpows = ef.powers(zeta, nq)
+    zeta_words = zeta.tolist()
+    zpows = ef.powers_host(zeta_words, nq, dev)
+    ext_a = words(rng, dev, nq, 4)
     open_jobs = [(fib_coeffs, [1, bb.two_adic_generator_int(log_n)])]
     # K13 on FibonacciAir's LDE (2^23 x 2) opened at two points
     k13 = ([(fib_lde, [tuple(tuple(int(v) for v in rng.integers(0, P, size=4))
@@ -1795,7 +1892,8 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     k13_got, k13_want = pv.reduced_open_many(*k13), pv.reduced_open_many_plain(*k13)
     fold_in, beta = words(rng, dev, 2 * nq, 4), words(rng, dev, 4)
     errs = {
-        "ext_elementwise": max_abs_err(zpows, ef.powers_plain(zeta, nq)),
+        "ext_powers": max_abs_err(zpows, ef.powers_plain(zeta, nq)),
+        "ext_elementwise": max_abs_err(ef.mul(ext_a, zeta), ef.mul_plain(ext_a, zeta)),
         "open_dot": max_abs_err(pv.open_many(open_jobs, zpows)[0],
                                 pv.open_many_plain(open_jobs, zpows)[0]),
         "fri_reduced_open": max(max_abs_err(k13_got[k], k13_want[k]) for k in k13_want),
@@ -1859,11 +1957,14 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
          (2 * h_tail + 2 * h_tail - 1) * 32, (2 * h_tail - 1) * PERM_OPS,
          [2 * h_tail, 8]),
         ("ext_elementwise", "ext.cu", "openvm_tpu/field/ext.py:72",
-         lambda: ef.powers(zeta, nq), lambda: ef.powers_plain(zeta, nq), 5, 1,
-         nq * 16, nq * EXT_MUL, [nq, 4]),
+         lambda: ef.mul(ext_a, zeta), lambda: ef.mul_plain(ext_a, zeta), 10, 1,
+         nq * 32, nq * EXT_MUL, [nq, 4]),
+        ("ext_powers", "ext.cu", "openvm_tpu/stark/prover.py:220",
+         lambda: ef.powers_host(zeta_words, nq, dev), lambda: ef.powers_plain(zeta, nq),
+         20, 1, nq * 16, nq * EXT_MUL_D, [nq, 4]),
         ("gather", "gather.cu", "openvm_tpu/merkle.py:118",
          lambda: gplan.run_device(gidx), lambda: gplan.run_plain(gidx), 20, 3,
-         g_words * 8, 0, [len(gidx), len(gplan.jobs)]),
+         *gather_cost(gplan, gidx), [len(gidx), len(gplan.jobs)]),
         ("quotient", "quotient.cu", "openvm_tpu/stark/evaluator.py:29",
          lambda: qmod.evaluate(*qargs), lambda: qmod.evaluate_plain(*qargs), 5, 1,
          nq * (w_f * 4 + 16 + 4), nq * quotient_ops(prog),
@@ -1943,6 +2044,11 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     for k in kernels:
         k["path3_bound_ms"] = path3_bounds[k["name"]]["bound_ms"]
         k["path3_ms"] = path3_ms.get(k["name"])
+    series_gather = series_gather_timing(dev, proved, vmr, zeta_words)
+    by_name["ext_powers"]["path3_launch"] = series_gather["ext_powers_path3"]
+    by_name["gather"].update(run_host_ms=series_gather["gather_path2"]["run_host_ms"],
+                             kernel_ms=series_gather["gather_path2"]["kernel_ms"],
+                             path3_launch=series_gather["gather_path3"])
     # K3 in the prove path's form (stark/prover.py: every LDE returns its
     # raw coefficients too, one more n x w output), and its launches per LDE
     k3 = by_name["ntt"]
@@ -1996,9 +2102,92 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
           "compress_phase": compress, "quotient_vm": quotient_vm,
           "quotient_global": quotient_global,
           "open_dot_path3": open_path3, "reduced_open_path3": ro_path3,
-          "lookup_logup_path3": hist_perm,
+          "lookup_logup_path3": hist_perm, "series_gather": series_gather,
           "path3_bounds": path3_bounds})
     return kernels
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean wall ms of fn() on the host clock, after one warm-up call, each
+    call ended by a synchronisation (``fn``'s own, or this one's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def kernel_only_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device ms of one ``kernel`` (a __global__ name) over reps calls
+    of fn() under torch.profiler, without the copies fn enqueues.  A
+    warm-up step runs one call with the device trace already on: without
+    it the trace lost one of the measured launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    require(len(spans) == reps, f"{kernel}: {len(spans)} launches profiled, {reps} made")
+    return sum(spans) / 1e3 / reps
+
+
+def series_gather_timing(dev, proved, vmr, zeta_words) -> dict:
+    """K2's power series at path 3's length and K6 on path 2's and path
+    3's own plans: device ms (card kept busy; K6's with its upload, and its
+    kernel alone under the profiler), the host ms to enqueue one call, and
+    for K6 the wall ms of one whole ``run`` (table, upload, launch, pinned
+    copy, wait), of building the prove's plan, and of cutting the output
+    into per-job views by width runs and job by job."""
+    n3 = int(vmr["record"]["openings"][1].shape[0])
+    ms, enq = cuda_ms(lambda: ef.powers_host(zeta_words, n3, dev), 20, host=True)
+    out = {"ext_powers_path3": {"n": n3, "ms": ms, "host_enqueue_ms": enq,
+                                "ms_host": cuda_ms(lambda: ef.powers_host(zeta_words, n3, dev),
+                                                   20, busy=False),
+                                "bound_ms": bound(n3 * 16, n3 * EXT_MUL_D)[0]}}
+    for key, rec in (("path2", proved["record"]), ("path3", vmr["record"])):
+        plan, idx = rec["gather"]
+        ms, enq = cuda_ms(lambda: plan.run_device(idx), 20, host=True)
+        row = {"jobs": len(plan.jobs), "queries": len(idx), "words": plan.table(idx)[4],
+               "ms": ms, "host_enqueue_ms": enq,
+               "run_host_ms": host_ms(lambda: plan.run(idx), 20),
+               "bound_ms": bound(*gather_cost(plan, idx))[0]}
+        row["kernel_ms"] = kernel_only_ms(lambda: plan.run_device(idx), "gather_kernel", 20)
+        words, q = np.zeros(row["words"], dtype=np.uint32), len(idx)
+
+        def split(by_runs):
+            # run's last step, the host buffer cut into per-job views
+            views, o = [], 0
+            if by_runs:  # as GatherPlan.run does
+                for w, k in plan._runs:
+                    views.extend(words[o:o + k * q * w].reshape(k, q, w))
+                    o += k * q * w
+            else:  # a view a job
+                for m, _, _ in plan.jobs:
+                    w = int(m.shape[1])
+                    views.append(words[o:o + q * w].reshape(q, w))
+                    o += q * w
+            return views
+        row["split_host_ms"] = {"width_runs": host_ms(lambda: split(True), 50),
+                                "per_job": host_ms(lambda: split(False), 50)}
+
+        def rebuild():
+            again = merkle.GatherPlan()
+            for m, s, f in plan.jobs:
+                again.add(m, s, f)
+        row["plan_add_host_ms"] = host_ms(rebuild, 20)
+        out[f"gather_{key}"] = row
+    return out
 
 
 def compress_phase(leaf, inj: dict, tail_max) -> None:

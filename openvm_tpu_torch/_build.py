@@ -37,7 +37,7 @@ CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # where it launches its kernel and nowhere else.
 LAUNCHES = {"bb_elementwise": 0, "ntt": 0, "poseidon2_hash_rows": 0,
             "poseidon2_compress_layer": 0, "poseidon2_compress_tail": 0,
-            "ext_elementwise": 0, "gather": 0,
+            "ext_elementwise": 0, "ext_powers": 0, "gather": 0,
             "quotient": 0, "open_dot": 0, "fri_reduced_open": 0,
             "fri_fold": 0, "quotient_columns": 0, "perm_cols": 0,
             "perm_scan": 0, "lookup_hist": 0}
@@ -51,7 +51,8 @@ _SIGNATURES = {
     "ovt_poseidon2_compress_layer": (_V, _V, _V, _U, _V),
     "ovt_poseidon2_compress_tail": (_V, _V, _V, _I, _U, _V),
     "ovt_ext_elementwise": (_I, _V, _V, _V, _LL, _I, _V),
-    "ovt_gather": (_V, _I, _V, _I, _I, _V, _V),
+    "ovt_ext_powers": (_U, _U, _U, _U, _V, _LL, _V),
+    "ovt_gather": (_V, _V, _V, _I, _V, _LL, _V, _V),
     "ovt_quotient": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _V, _LL, _V),
     "ovt_open_partial": (_V, _I, _I, _V, _V, _V),
     "ovt_open_reduce": (_V, _I, _V, _LL, _V, _V),

@@ -8,7 +8,9 @@ Two versions:
   * ``*64`` helpers and ``*_plain``: plain PyTorch in int64, any device.
   * ``mul``/``add``/``sub``/``scale``/``inv``: kernel K2 (csrc/ext.cu) on
     CUDA tensors, the plain version on CPU tensors.  ``neg``, ``exp_u64``,
-    ``sum_mod``, ``dot`` and ``powers`` are built from those.
+    ``sum_mod`` and ``dot`` are built from those.
+  * ``powers_host``/``powers``: K2's power series, one launch (the prover's
+    zeta powers); ``powers_plain`` on the CPU.
 ``ext.inv(0)`` is 0, like ``bb.inv(0)``.
 """
 
@@ -249,8 +251,11 @@ def dot(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
     return sum_mod(mul(a, b), axis=axis)
 
 
-def _powers(u: torch.Tensor, n: int, mul_fn) -> torch.Tensor:
-    """Doubling into one buffer: step k writes u^k * out[:k] into out[k:2k]."""
+def powers_plain(u: torch.Tensor, n: int) -> torch.Tensor:
+    """u^0 .. u^(n-1) of one element u (4,) by doubling through the plain
+    product, (n, 4), any device: log2 n steps of two products each, as
+    _ext_pows_jit (prover.py:220) does; step k writes u^k * out[:k] into
+    out[k:2k]."""
     out = torch.empty((n, D), dtype=torch.int32, device=u.device)
     if n:
         out[0] = ones((), device=u.device)
@@ -258,19 +263,91 @@ def _powers(u: torch.Tensor, n: int, mul_fn) -> torch.Tensor:
     k = 1
     while k < n:
         m = min(k, n - k)
-        out[k:k + m] = mul_fn(out[:m], cur)
+        out[k:k + m] = mul_plain(out[:m], cur)
         k += m
         if k < n:
-            cur = mul_fn(cur, cur)
+            cur = mul_plain(cur, cur)
+    return out
+
+
+# The power series kernel (csrc/ext.cu ext_powers_kernel): POW_T threads a
+# block, POW_E powers a thread.
+POW_T, POW_E = 256, 16
+POW_MAX = 1 << 31  # warp 0 makes the u^(2^j) of a block's first power, j < 31
+
+
+def powers_host(u_words, n: int, device=None) -> torch.Tensor:
+    """u^0 .. u^(n-1), (n, 4) int32 Montgomery words on ``device``, of one
+    element given as four host Montgomery words.
+
+    Kernel K2's power series (csrc/ext.cu) on CUDA: one launch, u's words
+    passed by value, so nothing goes up; ``powers_plain`` on the CPU."""
+    dev = resolve_device(device)
+    words = [int(w) for w in u_words]
+    if len(words) != D or not all(0 <= w < P for w in words):
+        raise ValueError(f"u must be four Montgomery words below p, got {words}")
+    if dev.type == "cpu":
+        return powers_plain(torch.tensor(words, dtype=torch.int32), n)
+    if not 0 <= n <= POW_MAX:
+        raise ValueError(f"the power series takes 0 <= n <= 2^31, got {n}")
+    out = torch.empty((n, D), dtype=torch.int32, device=dev)
+    if n:
+        _build.launch("ext_powers", "ovt_ext_powers", dev, *words, out.data_ptr(), n)
     return out
 
 
 def powers(u: torch.Tensor, n: int) -> torch.Tensor:
-    """u^0 .. u^(n-1) of one element u (4,) by doubling, (n, 4): log2 n
-    steps of two products each, as _ext_pows_jit (prover.py:220) does."""
-    return _powers(u, n, mul)
+    """``powers_host`` of an element (4,) held in a tensor, on its device:
+    on CUDA its words make one copy to the host before the launch."""
+    return powers_host(u.reshape(D).tolist(), n, u.device)
 
 
-def powers_plain(u: torch.Tensor, n: int) -> torch.Tensor:
-    """``powers`` through the plain product, any device."""
-    return _powers(u, n, mul_plain)
+def _mul_pre_model(a: np.ndarray, b) -> np.ndarray:
+    """csrc/ext.cuh mul_pre on numpy uint64 words (..., 4) by one fixed b
+    (4,): b's W-multiples made once, each coefficient's four products
+    summed unreduced (below 4 p^2 < 2^64, so uint64 holds them exactly)
+    and reduced once, x R^-1 mod p."""
+    b = [int(v) for v in b]
+    bw = [0] + [b[k] * W_MONTY * bb.RINV_MOD_P % P for k in (1, 2, 3)]
+    a = np.asarray(a, dtype=np.uint64)
+    a0, a1, a2, a3 = (a[..., k] for k in range(4))
+    u = np.uint64
+    sums = [a0 * u(b[0]) + a1 * u(bw[3]) + a2 * u(bw[2]) + a3 * u(bw[1]),
+            a0 * u(b[1]) + a1 * u(b[0]) + a2 * u(bw[3]) + a3 * u(bw[2]),
+            a0 * u(b[2]) + a1 * u(b[1]) + a2 * u(b[0]) + a3 * u(bw[3]),
+            a0 * u(b[3]) + a1 * u(b[2]) + a2 * u(b[1]) + a3 * u(b[0])]
+    return np.stack([s % u(P) * u(bb.RINV_MOD_P) % u(P) for s in sums], axis=-1)
+
+
+def _powers_model(u, n: int, threads: int = POW_T, per_thread: int = POW_E) -> torch.Tensor:
+    """ext_powers_kernel modelled on the CPU in int64: per block of
+    ``threads`` x ``per_thread`` powers, u^(2^j) by repeated squaring, the
+    block's first power as the product of those of its exponent's bits,
+    the table u^0 .. u^(threads-1) in log2 threads rounds, and each thread's
+    column from u^(first + t), stepping by u^threads (``_mul_pre_model``)."""
+    log_t = threads.bit_length() - 1
+    if threads != 1 << log_t:
+        raise ValueError("threads must be a power of two")
+    u = torch.as_tensor(np.asarray(u, dtype=np.int64))
+    one = torch.tensor([bb.R_MOD_P, 0, 0, 0], dtype=torch.int64)
+    span = threads * per_thread
+    blocks = -(-n // span)
+    firsts = torch.arange(blocks, dtype=torch.int64) * span
+    bits = max(log_t + 1, int(firsts[-1]).bit_length() if blocks else 0)
+    sq = [u]
+    for _ in range(1, bits):
+        sq.append(mul64(sq[-1], sq[-1]))
+    first_pow = one.expand(blocks, D)
+    for j in range(bits):
+        bit = ((firsts >> j) & 1).bool()[:, None]
+        first_pow = torch.where(bit, mul64(first_pow, sq[j].expand(blocks, D)), first_pow)
+    tab = one[None].clone()
+    for j in range(log_t):  # tab[k:2k] = tab[:k] u^k
+        tab = torch.cat([tab, mul64(tab, sq[j].expand(tab.shape[0], D))])
+    x = mul64(first_pow[:, None], tab[None]).numpy().astype(np.uint64)
+    cols = []  # (blocks, threads, 4) a step
+    for e in range(per_thread):
+        cols.append(x)
+        x = _mul_pre_model(x, sq[log_t].tolist())
+    out = np.stack(cols, axis=1).reshape(-1, D)[:n]  # (block, e, thread)
+    return torch.from_numpy(out.astype(np.int32))

@@ -231,21 +231,41 @@ def open_row(tree: MerkleTree, index: int):
 # Batched gathers at query indices (kernel K6)
 # ---------------------------------------------------------------------------
 
+# K6's job table (csrc/gather.cu GJ_*): a job's int64 words.
+GJ_PTR, GJ_STRIDE, GJ_WIDTH, GJ_SHIFT, GJ_FLIP, GJ_OUT, GJ_VEC, GJ_ROW_UNITS = range(8)
+GJ_WORDS = 8
+GATHER_THREADS = 256  # threads a block of csrc/gather.cu
+
+
 class GatherPlan:
     """The gathers of a batched opening, run as one launch of kernel K6
     (csrc/gather.cu) and brought to the host in one copy.
 
     A job reads row ``(index >> shift) ^ flip`` of one (H, W) matrix for
     every query index, in canonical form.  ``run`` returns one (Q, W)
-    uint64 array per job, in the order the jobs were added."""
+    uint32 array per job, in the order the jobs were added.  Every job's
+    matrix lies on one device."""
 
     def __init__(self):
         self.jobs: list = []  # (matrix, shift, flip)
+        self.device = None
+        # [width, jobs] of consecutive jobs of one width: ``run`` splits the
+        # output into one view a run, not one a job
+        self._runs: list = []
 
     def add(self, matrix: torch.Tensor, shift: int, flip: int = 0) -> int:
         if matrix.dim() != 2:
             raise ValueError(f"gather source must be (H, W), got {tuple(matrix.shape)}")
+        if matrix.device != self.device:
+            if self.device is not None:
+                raise ValueError(f"gather sources on {self.device} and {matrix.device}")
+            self.device = _build.kernel_device(matrix)
         self.jobs.append((matrix, int(shift), int(flip)))
+        w = int(matrix.shape[1])
+        if self._runs and self._runs[-1][0] == w:
+            self._runs[-1][1] += 1
+        else:
+            self._runs.append([w, 1])
         return len(self.jobs) - 1
 
     def add_tree(self, tree: MerkleTree, shift: int = 0, rows: bool = True):
@@ -259,62 +279,164 @@ class GatherPlan:
                 for k, layer in enumerate(tree.digest_layers[:-1])]
         return mats, sibs
 
-    def _layout(self, q: int):
-        offs, total = [], 0
-        for m, _, _ in self.jobs:
-            offs.append(total)
-            total += q * int(m.shape[1])
-        return offs, total
+    def table(self, indices) -> tuple:
+        """K6's inputs for these query indices, with numpy: the job table
+        (one ``GJ_WORDS`` row a job that has output, in job order), each
+        such job's first unit and the total units after them, each block's
+        first job (blocks of ``GATHER_THREADS`` units), the query indices
+        and the output's words.  A job's units are 16 bytes where its
+        width, row stride, address and offset are multiples of 16 bytes,
+        else 4.  Raises on a source the kernel does not take and on a row
+        outside its matrix."""
+        idx = np.asarray(indices, dtype=np.int64).reshape(-1)
+        q = len(idx)
+        meta = []  # a flat list into np.fromiter: the cheapest walk of the jobs
+        for m, s, f in self.jobs:
+            meta += (m.data_ptr(), *m.stride(), *m.shape, s, f, m.dtype == torch.int32)
+        meta = np.fromiter(meta, np.int64, len(meta)).reshape(-1, 8)
+        ptr, stride, col_stride, height, width, shift, flip, int32 = meta.T
+        offs = np.zeros(len(meta) + 1, dtype=np.int64)
+        np.cumsum(q * width, out=offs[1:])
+        vec = ((width % 4 == 0) & (stride % 4 == 0) & (ptr % 16 == 0)
+               & (offs[:-1] % 4 == 0))
+        step = np.where(vec, 4, 1)
+        live = (width > 0) & (q > 0)
+        if ((col_stride != 1) & (width > 1))[live].any() or not int32[live].all():
+            raise ValueError("gather sources must be int32 with unit column stride")
+        if live.any():
+            if idx.min() < 0:
+                raise ValueError("query indices must be non-negative")
+            # (y ^ f) <= (y_max | f) for a flip of 0 or 1; any other job
+            # is checked row by row
+            hi = ((idx.max() >> shift) | flip) >= height
+            slow = live & (hi | (flip > 1))
+            rows = (idx[None, :] >> shift[slow, None]) ^ flip[slow, None]
+            if (rows.max(axis=1, initial=0) >= height[slow]).any():
+                raise ValueError("a query index reads past a gather source's rows")
+        tab = np.stack([ptr, stride, width, shift, flip, offs[:-1], step,
+                        width // step], axis=1)[live]
+        first = np.zeros(len(tab) + 1, dtype=np.int64)
+        np.cumsum(q * tab[:, GJ_ROW_UNITS], out=first[1:])
+        if first[-1] >= 1 << 31:
+            raise ValueError("a gather of 2^31 units or more")
+        starts = np.arange(0, first[-1], GATHER_THREADS, dtype=np.int64)
+        block_job = np.searchsorted(first[:-1], starts, side="right") - 1
+        return tab, first, block_job, idx, int(offs[-1])
 
     def run_plain(self, indices) -> torch.Tensor:
         """Every job's (Q, W) block of canonical words, flattened in job
         order, through plain PyTorch on the matrices' device."""
         if not self.jobs:
             return torch.zeros(0, dtype=torch.int32)
-        dev = self.jobs[0][0].device
-        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=dev)
+        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=self.device)
         return torch.cat([bb.from_monty_plain(m[(idx >> s) ^ f]).reshape(-1)
                           for m, s, f in self.jobs])
 
     def run_device(self, indices) -> torch.Tensor:
         """``run_plain``'s result: kernel K6 on CUDA matrices, the plain
-        version on CPU ones.  Bound by bytes and by launch latency: one
-        launch for every job."""
+        version on CPU ones.  On CUDA the job table, the jobs' first units
+        and the indices go up in one non-blocking copy from pinned memory
+        and one launch covers the whole output."""
         if not self.jobs:
             return torch.zeros(0, dtype=torch.int32)
-        dev = _build.kernel_device(*(m for m, _, _ in self.jobs))
+        dev = self.device
         if dev.type == "cpu":
             return self.run_plain(indices)
-        q = len(indices)
-        offs, total = self._layout(q)
-        table = []
-        for (m, s, f), off in zip(self.jobs, offs):
-            if m.dtype != torch.int32 or m.stride(1) != 1:
-                raise ValueError("gather sources must be int32 with unit "
-                                 "column stride")
-            table.append([m.data_ptr(), m.stride(0), int(m.shape[1]), s, f, off])
-        jobs = torch.tensor(table, dtype=torch.int64, device=dev)
-        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=dev)
+        tab, first, block_job, idx, total = self.table(indices)
         out = torch.empty(total, dtype=torch.int32, device=dev)
-        max_total = max(q * int(m.shape[1]) for m, _, _ in self.jobs)
-        _build.launch("gather", "ovt_gather", dev, jobs.data_ptr(),
-                      len(self.jobs), idx.data_ptr(), q, max_total,
-                      out.data_ptr())
+        if len(tab):
+            buf, offs = _build.upload([tab, first, block_job, idx], dev)
+            base = buf.data_ptr()
+            _build.launch("gather", "ovt_gather", dev, base + offs[0], base + offs[1],
+                          base + offs[2], len(tab), base + offs[3], int(first[-1]),
+                          out.data_ptr())
+            # the caching allocator holds buf's block for the stream's later
+            # work, so it outlives the launch
         return out
 
     def run(self, indices) -> list:
-        """One launch, one copy to the host: per job a (Q, W) uint64 array."""
+        """One launch, one copy to the host (pinned, non-blocking, one wait
+        on the stream): per job a (Q, W) uint32 array of canonical words,
+        views of one host buffer, as the reference's gathers hold them."""
+        if not self.jobs:
+            return []
         q = len(indices)
-        flat = self.run_device(indices).cpu().numpy().astype(np.uint64)
-        offs, _ = self._layout(q)
-        return [flat[o:o + q * int(m.shape[1])].reshape(q, int(m.shape[1]))
-                for (m, _, _), o in zip(self.jobs, offs)]
+        flat = self.run_device(indices)
+        if flat.device.type == "cuda":
+            host = torch.empty(flat.shape, dtype=torch.int32, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            torch.cuda.current_stream(flat.device).synchronize()
+            flat = host
+        words = flat.numpy().view(np.uint32)
+        out, o = [], 0
+        for w, k in self._runs:
+            out.extend(words[o:o + k * q * w].reshape(k, q, w))
+            o += k * q * w
+        return out
+
+
+def _find_job(first: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+              g: np.ndarray) -> np.ndarray:
+    """csrc/gather.cu find_job for every unit g: the last j in [lo, hi) with
+    first[j] <= g, by bisection."""
+    lo, hi = lo.copy(), hi.copy()
+    while True:
+        act = hi - lo > 1
+        if not act.any():
+            return lo
+        mid = (lo + hi) >> 1
+        left = first[np.where(act, mid, lo)] <= g
+        lo = np.where(act & left, mid, lo)
+        hi = np.where(act & ~left, mid, hi)
+
+
+def _gather_model(plan: GatherPlan, indices, threads: int = GATHER_THREADS) -> torch.Tensor:
+    """gather_kernel modelled on the CPU in int64 over the plan's own table
+    and blocks of ``threads`` units (the kernel's ``GATHER_THREADS``, or
+    fewer to spread blocks across many jobs): each block's first job by a
+    search over the jobs' first units, one thread a unit, its job by a
+    search between its block's first job and the next block's, its (query,
+    unit) in the job's rows, the row (index >> shift) ^ flip, and 4 words
+    where the unit is 16 bytes (its source and output addresses asserted on
+    16-byte boundaries) or 1; returns ``run_plain``'s flat result."""
+    tab, first, _, idx, total = plan.table(indices)
+    # the table's rows are the jobs with output, in job order
+    mats = [m for m, _, _ in plan.jobs if m.shape[1] and len(idx)]
+    assert [m.data_ptr() for m in mats] == tab[:, GJ_PTR].tolist()
+    out = np.zeros(total, dtype=np.int64)
+    n, units = len(tab), int(first[-1])
+    block_job = np.searchsorted(first[:-1], np.arange(0, units, threads), side="right") - 1
+    g = np.arange(units, dtype=np.int64)
+    blk = g // threads
+    j0 = block_job[blk]
+    j1 = np.where(blk + 1 < len(block_job),
+                  block_job[np.minimum(blk + 1, len(block_job) - 1)] + 1, n)
+    j = _find_job(first, j0, j1, g)
+    job = tab[j]
+    u = g - first[j]
+    qi = u // job[:, GJ_ROW_UNITS]
+    c = u - qi * job[:, GJ_ROW_UNITS]
+    row = (idx[qi] >> job[:, GJ_SHIFT]) ^ job[:, GJ_FLIP]
+    col = c * job[:, GJ_VEC]
+    dst = job[:, GJ_OUT] + qi * job[:, GJ_WIDTH] + col
+    for k in np.unique(j):
+        sel = j == k
+        m = mats[k]
+        step = int(tab[k, GJ_VEC])
+        if step == 4:
+            src = m.data_ptr() + (row[sel] * int(tab[k, GJ_STRIDE]) + col[sel]) * 4
+            assert (src % 16 == 0).all() and (dst[sel] % 4 == 0).all()
+        r, cc, d = row[sel], col[sel], dst[sel]
+        for t in range(step):
+            words = m[torch.from_numpy(r), torch.from_numpy(cc + t)]
+            out[d + t] = bb.from_monty_plain(words).long().numpy()
+    return torch.from_numpy(out).int()
 
 
 def gather_rows_device(tree: MerkleTree, indices) -> dict:
     """All matrix rows and path sibling digests at ``indices``, canonical,
     as openvm_tpu/merkle.py:118 gathers them: one K6 launch and one copy to
-    the host.  Returns {"mats": [(Q, w)], "sibs": [(Q, 8)]} uint64 arrays."""
+    the host.  Returns {"mats": [(Q, w)], "sibs": [(Q, 8)]} uint32 arrays."""
     plan = GatherPlan()
     mats, sibs = plan.add_tree(tree)
     blocks = plan.run(indices)

@@ -10,7 +10,7 @@ so ``codec.encode_proof`` gives equal bytes for equal inputs.  Host code
   interaction fields         stark.quotient.evaluate_columns (K7, columns)
   LogUp permutation trace    stark.logup.perm_cols_many, perm_scan (K9, K10)
   quotient                   stark.quotient.evaluate_many (K7+K11)
-  zeta power series          field.ext.powers (K2)
+  zeta power series          field.ext.powers_host (K2)
   out-of-domain openings     open_many (K12)
   reduced openings           reduced_open_many (K13)
   FRI folds                  fri.fold_evals (K14)
@@ -859,7 +859,7 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     # every matrix in one launch.
     all_mats = [m for rnd in rounds for m in rnd.mats]
     n_max = 1 << max(log_degrees)
-    zpows = ef.powers(ef.from_canonical(zeta_c, device=dev), n_max)
+    zpows = ef.powers_host([bb.to_monty_int(c) for c in zeta_c], n_max, dev)
     jobs = []
     for m in all_mats:
         if m.in_shift == 1:
@@ -919,6 +919,7 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     if record is not None:
         record["gather"] = (plan, indices)
     blocks = plan.run(indices)
+    mark("query_gather")
     nq = len(indices)
     round_openings = [merkle.format_gathered_rows(
         {"mats": [blocks[k] for k in mats], "sibs": [blocks[k] for k in sibs]}, nq)
@@ -933,7 +934,7 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
             for ri in range(len(rounds))]
         query_proofs.append(fri.QueryProof(
             input_proof=input_proof, commit_phase_openings=steps_per_query[qi]))
-    mark("queries")
+    mark("query_format")
     fri_proof = fri.FriProof(
         commit_phase_commits=[t.root for t in trees],
         query_proofs=query_proofs, final_poly=[final_poly_ct],

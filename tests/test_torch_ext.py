@@ -85,3 +85,52 @@ def test_scale_and_dot_equal_jax():
 def test_powers_equal_jax_ext_pows(n):
     u = _elems(8, n=1)[-1]
     _same(_ext_pows_jit(jnp.asarray(u), n), ef.powers(_port(u), n))
+
+
+# K2's power series kernel, modelled on the CPU (ext._powers_model: blocks
+# of POW_T x POW_E powers, and of 4 x 3 so that n = 1000 has 84 blocks
+# whose first powers take every low exponent bit) and run through
+# powers_host / powers on CPU tensors, against _ext_pows_jit.  JAX compiles
+# one program per n (seconds each), so it runs once, at n = 1000, per u:
+# its doubling's first n rows are its result at n.
+POW_U = {"random": _elems(9, n=1)[-1], "zero": np.zeros(4, dtype=np.uint32),
+         "one": np.array([bb.R_MOD_P, 0, 0, 0], dtype=np.uint32)}
+
+
+@pytest.fixture(scope="module")
+def jax_pows():
+    return {k: np.asarray(_ext_pows_jit(jnp.asarray(u), 1000)) for k, u in POW_U.items()}
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 255, 256, 257, 1000])
+@pytest.mark.parametrize("which", ["random", "zero", "one"])
+def test_powers_model_equal_jax_ext_pows(jax_pows, n, which):
+    u = POW_U[which]
+    want = jax_pows[which][:n]
+    _same(want, ef._powers_model(u, n))
+    _same(want, ef._powers_model(u, n, threads=4, per_thread=3))
+    _same(want, ef.powers_host(u.tolist(), n, "cpu"))
+    _same(want, ef.powers(_port(u), n))
+    if which == "zero":  # u^0 = 1, the rest 0
+        assert want[0].tolist() == [bb.R_MOD_P, 0, 0, 0] and not want[1:].any()
+
+
+def test_mul_pre_model_equals_mul():
+    """The series' step product (csrc/ext.cuh mul_pre: b's W-multiples made
+    once, four products a coefficient summed in 64 bits, one reduction)."""
+    a, b = _elems(11), _elems(12)[::-1].copy()
+    a[-1] = b[-1] = P - 1  # the largest sums: 4 (p - 1)^2 < 2^64
+    for k in range(len(b)):
+        _same(jef.mul(jnp.asarray(a), jnp.asarray(np.broadcast_to(b[k], a.shape))),
+              torch.from_numpy(ef._mul_pre_model(a, b[k]).astype(np.int32)))
+
+
+def test_powers_of_zero_length_and_bad_words():
+    u = _elems(10, n=1)[-1]
+    for got in (ef._powers_model(u, 0), ef.powers_host(u.tolist(), 0, "cpu"),
+                ef.powers_plain(_port(u), 0)):
+        assert tuple(got.shape) == (0, 4) and got.dtype == torch.int32
+    with pytest.raises(ValueError, match="below p"):
+        ef.powers_host([P, 0, 0, 0], 4, "cpu")
+    with pytest.raises(ValueError, match="four"):
+        ef.powers_host([1, 2, 3], 4, "cpu")

@@ -128,3 +128,108 @@ def test_gather_rows_equal_jax_on_mixed_heights():
         assert [p.tolist() for p in wp] == [p.tolist() for p in gp]
     assert all(got[k][0][i].tolist() == merkle.open_row(ttree, idx)[0][i].tolist()
                for k, idx in enumerate(indices) for i in range(len(words)))
+
+
+# K6 redesigned: the numpy job table and the kernel's indexing modelled on
+# the CPU (merkle._gather_model: block and thread job searches, row groups,
+# 16-byte units) against run_plain and JAX's gathers
+
+def _flat(blocks):
+    return np.concatenate([np.asarray(b, dtype=np.uint64).reshape(-1) for b in blocks])
+
+
+def _model_equals_plain(plan, indices, threads=merkle.GATHER_THREADS):
+    got = merkle._gather_model(plan, indices, threads)
+    assert torch.equal(got, plan.run_plain(indices))
+    return got.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("q", [1, 84])
+def test_gather_model_equal_jax_gather_rows(q):
+    rng = np.random.default_rng(5)
+    shapes = ((32, 3), (8, 1), (32, 4), (16, 13), (32, 8), (4, 3))
+    words = [_words(rng, h, w) for h, w in shapes]
+    jtree = jm.commit([jnp.asarray(w) for w in words])
+    ttree = merkle.commit([_t(w) for w in words])
+    indices = rng.integers(0, 32, size=q).tolist()
+    plan = merkle.GatherPlan()
+    mats, sibs = plan.add_tree(ttree)
+    want = jax.device_get(jm.gather_rows_device(jtree, indices))
+    flat = _model_equals_plain(plan, indices)
+    np.testing.assert_array_equal(flat, _flat(want["mats"] + want["sibs"]))
+    for threads in (1, 4, 32):  # blocks across many jobs
+        _model_equals_plain(plan, indices, threads)
+    blocks = plan.run(indices)
+    np.testing.assert_array_equal(_flat(blocks), flat)
+    assert [b.shape for b in blocks] == [(q, w) for _, w in shapes] + [(q, 8)] * 5
+    assert all(b.dtype == np.uint32 for b in blocks)
+
+
+@pytest.mark.parametrize("q", [1, 84])
+def test_gather_model_equal_jax_gather_queries(committed, q):
+    (jtrees, _, _, jevals), (ttrees, _, _, tevals), _, _ = committed
+    indices = np.random.default_rng(6).integers(0, 16, size=q).tolist()
+    plan = merkle.GatherPlan()
+    ids = fri.add_query_jobs(plan, ttrees, tevals)
+    want = jax.device_get(jfri.gather_queries_device(indices, jtrees, jevals))
+    flat = _model_equals_plain(plan, indices)
+    order = []
+    for lv in want:
+        order += [lv["sibs"]] + list(lv["paths"]["sibs"])
+    np.testing.assert_array_equal(flat, _flat(order))
+    got = fri.collect_queries(plan.run(indices), ids)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["sibs"], np.asarray(w["sibs"]))
+
+
+@pytest.mark.parametrize("q", [1, 84])
+def test_gather_table_slices_flips_shifts(q):
+    rng = np.random.default_rng(7)
+    big = _t(_words(rng, 64, 20))
+    plan = merkle.GatherPlan()
+    plan.add(big, 0)                  # 16-byte units
+    plan.add(big[:, 4:8], 1, 1)       # a slice, row stride 20 > width 4
+    plan.add(big[:, 3:16], 2, 0)      # width 13, off a 16-byte boundary
+    plan.add(big[:, 8:9], 0, 1)       # width 1
+    plan.add(big[:, 0:0], 0)          # no output
+    plan.add(big[:32, 1:4], 1, 1)     # width 3, half the rows
+    plan.add(big[:, 12:20], 3, 1)     # width 8
+    indices = rng.integers(0, 64, size=q).tolist()
+    tab, first, block_job, idx, total = plan.table(indices)
+    assert len(tab) == 6 and total == q * (20 + 4 + 13 + 1 + 3 + 8)
+    # the width-8 job's output starts at word 41 q: 16 bytes only for q = 84
+    vec8 = q % 4 == 0
+    assert tab[:, merkle.GJ_VEC].tolist() == [4, 4, 1, 1, 1, 4 if vec8 else 1]
+    assert tab[:, merkle.GJ_ROW_UNITS].tolist() == [5, 1, 13, 1, 3, 2 if vec8 else 8]
+    assert tab[:, merkle.GJ_STRIDE].tolist() == [20] * 6
+    assert first.tolist() == np.concatenate([[0], np.cumsum(
+        q * tab[:, merkle.GJ_ROW_UNITS])]).tolist()
+    assert tab[:, merkle.GJ_OUT].tolist() == (q * np.array(
+        [0, 20, 24, 37, 38, 41])).tolist()
+    assert idx.tolist() == indices
+    starts = np.arange(0, first[-1], merkle.GATHER_THREADS)
+    assert block_job.tolist() == [int(np.nonzero(first[:-1] <= g)[0][-1]) for g in starts]
+    flat = _model_equals_plain(plan, indices)
+    for threads in (1, 8):
+        _model_equals_plain(plan, indices, threads)
+    rows = [(big, 0, 0), (big[:, 4:8], 1, 1), (big[:, 3:16], 2, 0), (big[:, 8:9], 0, 1),
+            (big[:, 0:0], 0, 0), (big[:32, 1:4], 1, 1), (big[:, 12:20], 3, 1)]
+    want = [bb.canonical_np(m[(np.asarray(indices) >> s) ^ f]) for m, s, f in rows]
+    np.testing.assert_array_equal(flat, _flat(want))
+    with pytest.raises(ValueError, match="past"):
+        plan.table([64])
+    plan.add(big.long(), 0)
+    with pytest.raises(ValueError, match="int32"):
+        plan.table(indices)
+
+
+def test_gather_model_more_jobs_than_a_block():
+    rng = np.random.default_rng(8)
+    mats = [_t(_words(rng, 16, w)) for w in (1, 3, 8)]
+    plan = merkle.GatherPlan()
+    for k in range(700):  # q = 1: a block of 256 one-word units spans 256 jobs
+        plan.add(mats[k % 3 if k % 5 else 0], k % 4, k % 2)
+    for indices in ([9], [3, 15, 0]):
+        _model_equals_plain(plan, indices)
+        _model_equals_plain(plan, indices, 16)
+    assert [b.shape for b in plan.run([])] == [(0, int(m.shape[1])) for m, _, _ in plan.jobs]
