@@ -60,8 +60,11 @@
 // Columns mode (ovt_quotient_columns): the same interpreter over the natural
 // trace domain for a list of base-valued roots, the counterpart of
 // dag.eval(DeviceOps, ...) in logup.stack_interactions (logup.py:155) and
-// evaluator.jit_dag_lookup_hist (evaluator.py:283-289).  Lane l is trace
-// row j, its next row is j + 1 mod N, selectors read as zero, and STORE_B
+// evaluator.jit_dag_lookup_hist (evaluator.py:283-289), and of the
+// constraint checker's natural-domain evaluation (stark/debug.py:60-138).
+// Lane l is trace row j, its next row is j + 1 mod N, selectors read as
+// zero (or, for a program compiled with them, as the natural domain's 0/1
+// is_first_row, is_last_row and is_transition), and STORE_B
 // writes root k's value to out[k * N + j] (coalesced across threads).  Its
 // bound is bytes: interaction fields are columns and small expressions, so
 // each row reads its cells and writes 4 bytes per root.
@@ -302,7 +305,12 @@ __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, in
     c.rows[0] = r;
     c.rows[1] = (r + 1) & (c.nq - 1);
     c.orow = r;
-    c.sel[0] = c.sel[1] = c.sel[2] = 0u;
+    // a program compiled with selectors (the constraint checker) reads the
+    // natural domain's 0/1 selectors; the others read zero
+    const bool last_row = r == c.nq - 1;
+    c.sel[0] = (sel_mask & 1) && r == 0 ? bb::ONE : 0u;
+    c.sel[1] = (sel_mask & 2) && last_row ? bb::ONE : 0u;
+    c.sel[2] = (sel_mask & 4) && !last_row ? bb::ONE : 0u;
   }
   c.acc = ext::zero();
   if constexpr (!GLOBAL) __syncthreads();

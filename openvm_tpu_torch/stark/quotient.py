@@ -318,24 +318,29 @@ def compile_dag_code(dag, *, n_main: int, has_preprocessed: bool,
 
 
 def compile_columns(dag, roots, *, n_main: int, has_preprocessed: bool,
-                    publics=()) -> Program:
+                    publics=(), selectors: bool = False) -> Program:
     """Compile ``roots`` (base-valued node ids, repeats allowed) to bytecode
-    that writes root k's value as output row k (``evaluate_columns``)."""
+    that writes root k's value as output row k (``evaluate_columns``).  The
+    selectors read as zero, unless ``selectors``: then as the natural
+    domain's 0/1 is_first_row, is_last_row and is_transition (the
+    constraint checker, ``stark.debug``)."""
     return bind(compile_columns_code(dag, roots, n_main=n_main,
-                                     has_preprocessed=has_preprocessed),
+                                     has_preprocessed=has_preprocessed,
+                                     selectors=selectors),
                 publics=publics)
 
 
-def compile_columns_code(dag, roots, *, n_main: int,
-                         has_preprocessed: bool) -> Program:
+def compile_columns_code(dag, roots, *, n_main: int, has_preprocessed: bool,
+                         selectors: bool = False) -> Program:
     """``compile_columns`` without the values: the same code for every
     prove."""
     return _compile(dag, list(roots), True, n_main=n_main,
-                    has_preprocessed=has_preprocessed, has_perm=False)
+                    has_preprocessed=has_preprocessed, has_perm=False,
+                    selectors=selectors)
 
 
 def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
-             has_perm: bool) -> Program:
+             has_perm: bool, selectors: bool = False) -> Program:
     tags = _reachable_tags(dag, roots)
     if columns and any(tags[r] != "b" for r in roots):
         raise ValueError("a columns program takes base-valued roots only")
@@ -498,7 +503,7 @@ def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
                 raise KeyError(entry)
     prog = Program(code=np.asarray(code, dtype=np.int32).reshape(-1, 4),
                    n_base=count["b"], n_ext=count["e"],
-                   sel_mask=0 if columns else sel_mask,
+                   sel_mask=0 if columns and not selectors else sel_mask,
                    n_sources=len(sources), n_roots=n_roots if columns else 0,
                    n_folds=0 if columns else n_roots, pool_spec=tuple(spec))
     prog.global_memory = prog.lane_words > max_lane_words(int(prog.code.shape[0]))
@@ -996,14 +1001,18 @@ def evaluate_columns_plain(prog: Program, sources: list,
                            log_n: int) -> torch.Tensor:
     """A columns program over the natural trace domain with int64 torch
     operations.  ``sources``: natural-order (2^log_n, W) Montgomery
-    matrices in the program's source order.  Returns (R, 2^log_n) int32."""
+    matrices in the program's source order.  Returns (R, 2^log_n) int32.
+    A selector the program's ``sel_mask`` names reads as the natural
+    domain's 0/1 value, the others as zero."""
     n = 1 << log_n
     dev = sources[0].device
     local = torch.arange(n, device=dev)
-    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    one = bb.to_monty_int(1)
+    natural = (local == 0, local == n - 1, local != n - 1)
+    sels = [torch.where(natural[k], one, 0) if prog.sel_mask >> k & 1
+            else torch.zeros(n, dtype=torch.int64, device=dev) for k in range(3)]
     out = torch.empty((prog.n_roots, n), dtype=torch.int64, device=dev)
-    _run_plain(prog, sources, (local, torch.roll(local, -1)), [zero] * 3, n,
-               out=out)
+    _run_plain(prog, sources, (local, torch.roll(local, -1)), sels, n, out=out)
     return out.int()
 
 

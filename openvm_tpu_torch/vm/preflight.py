@@ -1,8 +1,12 @@
 """Preflight (E3) execution: the record-generating interpreter, RV32IM.
 
 Copy of openvm_tpu/vm/preflight.py:45-510 (records, memory, the RV32IM
-dispatch loop) and :1365-1476 (phantom, terminate, finalize), without the
-continuation state and metered segmentation.  With a
+dispatch loop), :1365-1476 (phantom, terminate, finalize) and the
+continuation half: ``PreflightResult.suspended_state`` and ``segment_full``,
+``SegmentCtx`` (:46-70), ``PreflightMemory(initial_words=...)`` (:72-86),
+the resume and ``py_stats`` logic of ``execute`` (:133-200), its
+``max_insns`` suspend and metered boundary, and the suspended-state dicts
+(:1440-1476).  With a
 ``native.NativeVmHandle`` the C++ core (csrc/host/preflight.cpp) runs the
 RV32IM instruction runs and this loop dispatches what it yields on.  The
 extension opcodes (int256, modular, ecc, fp2, native, keccak, sha256 and
@@ -17,7 +21,7 @@ Timestamp discipline mirrors the AIRs exactly: each instruction starts at
 from __future__ import annotations
 
 from collections import defaultdict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -30,7 +34,7 @@ from .instructions import (BaseAluOpcode, BranchEqualOpcode,
                            Rv32LoadStoreOpcode, Rv32Phantom, ShiftOpcode,
                            SystemOpcode, VmExe)
 from .interpreter import ExecutionError, Streams, _imm16, _imm24, _s32
-from .native import PF_INSN_LIMIT, PF_MEM_ERROR
+from .native import PF_INSN_LIMIT, PF_MEM_ERROR, PF_SEGMENT_FULL
 
 M32 = 0xFFFFFFFF
 
@@ -57,14 +61,35 @@ class PreflightResult:
     exit_code: int = 0
     instret: int = 0
     public_values: list = None  # 4*num_pv_words bytes
+    suspended_state: dict = None  # set when max_insns hit (segment suspend)
+    segment_full: bool = False  # suspend cause was a metered limit
+    # persistent memory: the SparseMemoryTree after this segment's writes
+    # (set by VirtualMachine's persistent tracegen)
+    final_memory_tree: object = None
+
+
+@dataclass
+class SegmentCtx:
+    """Python-side extension-chip accounting for metered segmentation.
+
+    Mirrors the reference's SegmentationCtx widths/interactions vectors
+    (crates/vm/src/arch/execution_mode/metered/segment_ctx.rs:40-67): the
+    C++ core owns the RV32IM chips' accounting; these dicts cover the
+    chips whose records are produced by the Python dispatch loop."""
+    widths: dict = field(default_factory=dict)   # chip -> trace width
+    inters: dict = field(default_factory=dict)   # chip -> msgs per row
 
 
 class PreflightMemory:
     """Word-granular memory with last-access timestamps."""
 
-    def __init__(self, init_memory: dict):
+    def __init__(self, init_memory: dict, initial_words: dict | None = None):
         self.words: dict = {}
         self.init_words: dict = {}
+        if initial_words is not None:
+            # continuation segment: start from carried word state
+            self._image = {k: list(v) for k, v in initial_words.items()}
+            return
         # group byte image into words
         grouped = defaultdict(lambda: [0, 0, 0, 0])
         for (a_s, addr), byte in init_memory.items():
@@ -113,24 +138,46 @@ class PreflightInterpreter:
         self.num_pv_words = num_pv_words
 
     def execute(self, inputs=None, max_insns: int | None = None,
-                nvm=None) -> PreflightResult:
-        """When `max_insns` is reached the run suspends (reference exit
-        code 42 convention): exit_code stays None.  Continuation state and
-        metered segmentation (preflight.py:133-196) wait for the port's
-        continuations slice.
+                state: dict | None = None, nvm=None,
+                seg_ctx: SegmentCtx | None = None) -> PreflightResult:
+        """state (continuation segments): {"pc", "memory_words", "streams"}.
+
+        When `max_insns` is reached the run SUSPENDS (reference exit code
+        42 convention): exit_code stays None and the result carries the
+        resumable state in `.suspended_state`.
 
         nvm (hybrid mode): a native.NativeVmHandle.  RV32IM instruction
         runs execute in C++ on the handle's memory/records; this loop only
         dispatches the opcodes the core yields on (extensions, phantom,
         hints, terminate).  Word memory lives in the handle (shared via
-        the shim).
+        the shim), so state dicts carry no memory_words.
+
+        seg_ctx (metered segmentation): trace widths/interactions for the
+        Python-side chips; combined with the handle's own accounting in the
+        reference's should_segment check (segment_ctx.rs:135-217).  On a
+        boundary the run suspends with `segment_full` set.
         """
         exe = self.exe
-        mem = nvm.shim if nvm is not None else PreflightMemory(exe.init_memory)
-        streams = Streams()
-        if inputs:
-            streams.input_stream = [list(x) for x in inputs]
-        pc = exe.pc_start
+        if nvm is not None:
+            mem = nvm.shim
+            if state is not None:
+                streams = state["streams"]
+                pc = state["pc"]
+            else:
+                streams = Streams()
+                if inputs:
+                    streams.input_stream = [list(x) for x in inputs]
+                pc = exe.pc_start
+        elif state is not None:
+            mem = PreflightMemory({}, initial_words=state["memory_words"])
+            streams = state["streams"]
+            pc = state["pc"]
+        else:
+            mem = PreflightMemory(exe.init_memory)
+            streams = Streams()
+            if inputs:
+                streams.input_stream = [list(x) for x in inputs]
+            pc = exe.pc_start
         recs: dict = defaultdict(lambda: defaultdict(list))
         exec_counts: dict = defaultdict(int)
         ts = B.INITIAL_TIMESTAMP
@@ -142,13 +189,33 @@ class PreflightInterpreter:
             data, pts = mem.read(1, idx, ts + tick)
             return data, pts
 
+        def py_stats():
+            if seg_ctx is None:
+                return 0, 0, 0
+            cells = inters = maxh = 0
+            for chip, cols in recs.items():
+                n = len(next(iter(cols.values())))
+                cells += n * seg_ctx.widths.get(chip, 0)
+                inters += (n + 1) * seg_ctx.inters.get(chip, 0)
+                maxh = max(maxh, n)
+            return cells, inters, maxh
+
+        suspended = False
+        segment_full = False
         while exit_code is None:
             if max_insns is not None and instret >= max_insns:
-                break  # segment boundary (reference exit code 42)
+                suspended = True  # segment boundary (reference exit code 42)
+                break
             if nvm is not None:
-                r = nvm.run(pc, ts, instret, max_insns or 0)
+                cells, inters, maxh = py_stats()
+                r = nvm.run(pc, ts, instret, max_insns or 0, cells, inters,
+                            maxh)
                 pc, ts, instret = int(r.pc), int(r.ts), int(r.instret)
                 if r.status == PF_INSN_LIMIT:
+                    suspended = True
+                    break
+                if r.status == PF_SEGMENT_FULL:
+                    suspended = segment_full = True
                     break
                 if r.status == PF_MEM_ERROR:
                     raise ExecutionError("memory access out of bounds")
@@ -495,10 +562,23 @@ class PreflightInterpreter:
             w = touched.get((3, i))
             if w:
                 pvs[4 * i:4 * i + 4] = w[:4]
-        return PreflightResult(
+        result = PreflightResult(
             records=out, touched=touched, init_words=init_words,
             exec_counts=counts, final_pc=pc, final_ts=ts,
-            exit_code=exit_code, instret=instret, public_values=pvs)
+            exit_code=exit_code, instret=instret, public_values=pvs,
+            segment_full=segment_full)
+        if suspended:
+            if nvm is not None:
+                # memory stays in the handle across segments; the state
+                # dict carries only control flow + streams
+                result.suspended_state = {"pc": pc, "streams": streams}
+            else:
+                carried = {k: list(v) for k, v in mem._image.items()}
+                for (a_s, wa), w in mem.words.items():
+                    carried[(a_s, wa)] = list(w[:4])
+                result.suspended_state = {"pc": pc, "memory_words": carried,
+                                          "streams": streams}
+        return result
 
 
 def _append(__rec, **kwargs):

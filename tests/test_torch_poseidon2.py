@@ -47,6 +47,15 @@ def test_permute_matches_jax():
     _same(jp2.permute(js), p2.permute(ts))
 
 
+def test_permute_lane_major_matches_jax():
+    """From LANE_MAJOR_STATES states on, the plain permutation keeps each
+    lane contiguous (``_permute_lanes``); a (2, 2050, 16) batch takes that
+    path."""
+    js, ts = _inputs((2, 2050, 16), 2)
+    assert ts[..., 0].numel() >= p2.LANE_MAJOR_STATES
+    _same(jp2.permute(js), p2.permute(ts))
+
+
 @pytest.mark.parametrize("w", [1, 7, 8, 9, 45])
 def test_hash_rows_matches_jax(w):
     jm, tm = _inputs((4, w), 10 + w)

@@ -198,3 +198,22 @@ def test_jax_prove_reproduces_pinned_hash():
     proof, _ = vm.prove(jax_build_fib_program(10))
     assert hashlib.sha256(jcodec.encode_proof(proof)).hexdigest() == \
         FIB10_PROOF_SHA256
+
+
+def test_fib2000_proof_equals_jax():
+    """Path 3's guest at ~10^4 instructions held against the JAX package:
+    both prove build_fib_program(2000) (the two guests agree below 2048)
+    with TEST_STARK and give the same proof bytes (minutes of XLA:CPU
+    compiles and a JAX prove; run with OPENVM_SLOW=1)."""
+    if not os.environ.get("OPENVM_SLOW"):
+        pytest.skip("set OPENVM_SLOW=1 to prove fib(2000) in both packages")
+    jvm = jmachine.VirtualMachine(jmachine.Rv32Config(stark=JAX_TEST_STARK,
+                                                      executors=FIB_EXECUTORS))
+    jvm.keygen(cache=False)
+    jproof, _ = jvm.prove(jax_build_fib_program(2000))
+    vm = VirtualMachine(Rv32Config(stark=TEST_STARK, executors=FIB_EXECUTORS),
+                        device="cpu")
+    vm.keygen()
+    proof, pre = vm.prove(build_fib_program(2000))
+    assert pre.instret == 5 * 2000 + 15
+    assert codec.encode_proof(proof) == jcodec.encode_proof(jproof)
