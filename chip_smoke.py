@@ -122,8 +122,33 @@ Phases, each printing one JSON line:
             device time with the card
             kept busy while the host enqueues, and beside it the reading
             whose events span the host's enqueue (ms_host)
+  keccak    path 5, the keccak256 extension through continuations:
+            VirtualMachine(keccak=True, persistent=True) keygen ->
+            execute_metered -> prove_continuations -> verify_segments of
+            build_keccak_iter_program(30,000), 90,009 instructions, at a cap
+            of 80 M trace cells (the metered count's: one keccakf row a hash):
+            2 segments, keccakf 2^19 and 2^18 rows; the final public values
+            (digest words 0 and 7 of the iterated keccak256) through the
+            memory tree's public-values proof; stages, insn/s and blocks/s
+            cold and warm (the same bytes twice), peak memory, the segment
+            proofs' SHA-256 (KECCAK_PROOF_SHA256); two quotient launches a
+            segment (keccakf and keccak_sponge in K7's global-memory mode) and
+            one K8, K9, K13, K2 series and K6 launch; K7's launch plan; every
+            kernel against plain on segment 0's own inputs (keccakf's
+            quotient on its first and last 2^14 rows, the last block's next
+            rows wrapping to the first); K7's global-memory launch timed on
+            segment 0's keccakf and keccak_sponge jobs beside its bound
+  sha256    path 6, the sha256 extension: VirtualMachine(sha256=True)
+            keygen -> prove -> verify of build_sha256_iter_program(4,000),
+            12,009 instructions (Sha256Air 2^18 rows), one cold prove; the
+            public values against hashlib, the proof's SHA-256
+            (SHA_PROOF_SHA256), stages, insn/s, blocks/s, peak memory, K7's
+            one launch with and without sha256's two programs (its block
+            size), every kernel against plain on the prove's own inputs
 
-then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+then a {"kernels": [...]} line (each kernel's launches on paths 1 to 6, and
+K7's global-memory launch on path 5's shapes) and, last,
+{"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
 compute over integers, so every comparison is exact equality.
 """
@@ -150,7 +175,9 @@ from openvm_tpu_torch.stark.config import FriParameters, StarkConfig
 from openvm_tpu_torch.stark.debug import check_constraints
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
 from openvm_tpu_torch.vm.circuit.poseidon2_chip import Poseidon2Air
-from openvm_tpu_torch.vm.guest import FIB_EXECUTORS, build_fib_program, fib
+from openvm_tpu_torch.vm.guest import (FIB_EXECUTORS, build_fib_program,
+                                       build_keccak_iter_program,
+                                       build_sha256_iter_program, fib, iter_insns)
 from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
 from openvm_tpu_torch.vm.memory_tree import pv_proof, verify_pv_proof
 
@@ -221,6 +248,45 @@ CONTINUATION_PROOF_SHA256 = (
     "fe61a5df2b66e5485e8824190318993f5e51898dc44c6c6caada3c1ff49a7a68",
     "c59c9351528c43f97929662855edcbb33cae5eaffc0d30c4240ed7084d2f560c",
     "dca8f075362035ea89b85630d335c05db55dcac836446fe5ee62c913a8af15c2")
+# Path 5: the keccak-iteration guest in persistent memory through
+# continuations, the reference's keccak workload (bench.py:161-182 proves
+# its keccak256 guest ELF, not in this repository, that way): 30,000
+# keccak256 hashes of a 32-byte buffer in place, 90,009 instructions.  The
+# metered segmentation (the JAX package's, copied) counts one keccakf row a
+# hash where the trace has 24 (2,633 + 1,253 + 74 cells a hash counted), so
+# the cells' cap splits the run: 2 segments, 20,332 hashes in the first
+# (keccakf 487,968 rows, padded to 2^19), 9,668 in the second (2^18).
+KECCAK_ITER_N = 30_000
+KECCAK_LIMITS = {"max_height": (1 << 20) - 10_000, "max_cells": 80_000_000}
+KECCAK_SEGMENTS = 2
+KECCAK_LOG_HEIGHTS = ({"keccakf": 19, "keccak_sponge": 15}, {"keccakf": 18, "keccak_sponge": 14})
+# Digest words 0 and 7 after keccak256 is applied KECCAK_ITER_N times to 32
+# zero bytes (vm.circuit.keccak.keccak256): the guest's public values.
+KECCAK_ITER_PVS = [132, 23, 18, 116, 127, 16, 149, 150]
+# The SHA-256 of path 5's segment proofs (3,126,097 and 3,065,249 bytes) as
+# this script's first run of path 5 on the H100 made them: every later
+# change is held to the same bytes.
+KECCAK_PROOF_SHA256 = (
+    "887e3d9b9489f34f960ef1afd774945945c295116c169d96f0843956397b3925",
+    "2911754e62ec3322891ecefeb179843e9c810252020dc3a2bf4cb36ca1d5f81b")
+# Path 6: the sha256-iteration guest in volatile memory, one cold prove (no
+# warm one: the script's time): 4,000 sha256 hashes of a 32-byte buffer in
+# place (Sha256Air 256,000 rows, sha256_sponge 4,000: 2^18 and 2^12).
+SHA_ITER_N = 4_000
+SHA_LOG_HEIGHTS = {"sha256": 18, "sha256_sponge": 12}
+# The SHA-256 of path 6's proof (1,612,265 bytes) as this script's first
+# run of path 6 on the H100 made it.
+SHA_PROOF_SHA256 = "66d9903b23013e70426123364fbcf18984eca0bdb57529d1830fb052a031e3a8"
+# The plain K7 keeps every slot of a program over every row it evaluates:
+# a job whose slots over its whole quotient domain take more than this is
+# held to the kernel on blocks of QUOTIENT_BLOCK rows (keccakf's 2,890
+# words over 2^20 rows would take 24 GB).  The row hashes (K4) of a VM
+# prove's tallest committed matrices are held to plain on their first and
+# last QUOTIENT_BLOCK rows too, and its widest main LDE (K3) on all its
+# columns, PLAIN_LDE_COLUMNS at a time.
+PLAIN_SLOT_BYTES = 4 << 30
+QUOTIENT_BLOCK = 1 << 14
+PLAIN_LDE_COLUMNS = 128
 # The constraint checker on the card: the segments of a short run at a
 # 2^14-row cap; one Poseidon2Air cell of a segment is changed for the
 # failing case.
@@ -282,7 +348,13 @@ EXT_MUL_D = 19 * WIDE_MAC_OPS + 7 * RED_OPS
 NO_LIBRARY = "no single PyTorch call computes this function"
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1241,11 +1313,13 @@ def run_prove(dev, cfg: StarkConfig, airs, ctxs) -> dict:
             "s": {"keygen": t1 - t0, "prove": t2 - t1, "verify": t3 - t2}}
 
 
-def run_vm(dev, cfg: StarkConfig) -> dict:
-    """Path 3: VirtualMachine keygen -> prove -> verify of the fibonacci
-    guest through the port's entry points."""
-    vm = VirtualMachine(Rv32Config(stark=cfg, executors=FIB_EXECUTORS), device=dev)
-    exe = build_fib_program(VM_FIB_N)
+def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, **flags) -> dict:
+    """Path 3 (path 6 with ``exe`` and the config's extension ``flags``):
+    VirtualMachine keygen -> prove -> verify of the guest through the
+    port's entry points, the fibonacci guest by default; then, with
+    ``warm``, a warm prove that must give the same bytes."""
+    vm = VirtualMachine(Rv32Config(stark=cfg, executors=FIB_EXECUTORS, **flags), device=dev)
+    exe = exe or build_fib_program(VM_FIB_N)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     vm.keygen()
@@ -1259,28 +1333,31 @@ def run_vm(dev, cfg: StarkConfig) -> dict:
     result = vm.verify(proof, expected_exe_commit=commit, exe=exe)
     t3 = time.perf_counter()
     launches = dict(_build.LAUNCHES)  # keygen, cold prove and verify
-    # again, warm, as bench.py:91-96 re-measures a prove that took under a
-    # third of its budget: the domain tables are built by now
-    warm_stages: dict = {}
-    warm, _ = vm.prove(exe, stages=warm_stages)
-    t4 = time.perf_counter()
-    require(codec.encode_proof(warm) == codec.encode_proof(proof),
-            "a second prove of the same guest gave other bytes")
-    return {"vm": vm, "exe": exe, "proof": proof, "pre": pre, "result": result,
-            "stages_s": stages, "warm_stages_s": warm_stages, "record": record,
-            "launches": launches,
-            "s": {"keygen_and_commit_exe": t1 - t0, "prove": t2 - t1,
-                  "verify": t3 - t2, "prove_warm": t4 - t3}}
+    out = {"vm": vm, "exe": exe, "proof": proof, "pre": pre, "result": result,
+           "stages_s": stages, "record": record, "launches": launches,
+           "s": {"keygen_and_commit_exe": t1 - t0, "prove": t2 - t1, "verify": t3 - t2}}
+    if warm:
+        # again, warm, as bench.py:91-96 re-measures a prove that took under
+        # a third of its budget: the domain tables are built by now
+        out["warm_stages_s"] = {}
+        again, _ = vm.prove(exe, stages=out["warm_stages_s"])
+        out["s"]["prove_warm"] = time.perf_counter() - t3
+        require(codec.encode_proof(again) == codec.encode_proof(proof),
+                "a second prove of the same guest gave other bytes")
+    return out
 
 
 def check_vm_kernels(vm, record: dict) -> dict:
-    """K7 (columns mode), K8, K9, K10, K7 (quotient), K12, K13 and K6 of a
-    VM prove (path 3's, or one segment's of path 4) against their plain
-    versions on the prove's own inputs: the tables of
+    """K1, K3, K4 and K5 (``check_commit_kernels``), K7 (columns mode),
+    K8, K9, K10, K7 (quotient), K12, K2, K13, K14 and K6 of a VM prove
+    (path 3's or 6's, or one segment's of path 4 or 5) against their plain
+    versions on the prove's own inputs: the main commit, the tables of
     the prove's one K8 launch over every AIR's sends, each AIR's chunk
     columns from its one K9 launch and its permutation trace, every AIR's
     quotient from one launch, every matrix's openings from one table and
     every matrix's reduced openings from one launch."""
+    t0 = time.perf_counter()
+    blocks: dict = {}
     lk = record["lookup"]
     range_h, tuple_total, sizes1 = lk["sizes"]
     p_tabs = lookup.new_tables(range_h, tuple_total, lk["tables"][0].device)
@@ -1302,11 +1379,23 @@ def check_vm_kernels(vm, record: dict) -> dict:
                                      logup.perm_cols_plain(*entry["perm_cols"]))
         got, want = logup.perm_scan(entry["perm_scan"]), logup.perm_scan_plain(entry["perm_scan"])
         scan_err[name] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    # K7 on every AIR in one launch, as the prove ran it
+    # K7 on every AIR in one call, as the prove ran it (a second launch for
+    # the global-memory programs); a job too large for the plain version's
+    # slot file is compared on its first and last QUOTIENT_BLOCK rows
     qrec = record["quotient"]
     got = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))
-    q_err = {vm.airs[i].name: max_abs_err(g, qmod.evaluate_plain(*qrec[i]))
-             for i, g in enumerate(got)}
+    q_err = {}
+    for i, g in enumerate(got):
+        name, (prog, _, log_n, lqd) = vm.airs[i].name, qrec[i]
+        nq = 1 << (log_n + lqd)
+        if 8 * prog.lane_words * nq <= PLAIN_SLOT_BYTES:
+            q_err[name] = max_abs_err(g, qmod.evaluate_plain(*qrec[i]))
+            continue
+        ranges = [(0, QUOTIENT_BLOCK), (nq - QUOTIENT_BLOCK, nq)]
+        q_err[name] = max(max_abs_err(g[lo:hi], qmod.evaluate_plain(*qrec[i], lo, hi))
+                          for lo, hi in ranges)
+        blocks[name] = {"rows": nq, "compared": ranges,
+                        "next_wraps_to": [0, (1 << lqd) - 1]}
     # K12 on every matrix of the openings in one table, as the prove ran it
     ojobs, zpows = record["openings"]
     open_err = max(max_abs_err(a, b) for a, b in
@@ -1315,22 +1404,121 @@ def check_vm_kernels(vm, record: dict) -> dict:
     rjobs = record["reduced_openings"]
     got, want = pv.reduced_open_many(*rjobs), pv.reduced_open_many_plain(*rjobs)
     require(sorted(got) == sorted(want), "K13: heights")
+    # K2's zeta power series, and K14 on every fold of the FRI commit phase
+    zpows = record["openings"][1]
+    folds, betas, ro_polys = record["fri_folds"]
+    fold_err = max(max_abs_err(
+        fri.fold_evals(e, b, ro_polys.get(int(e.shape[0]).bit_length() - 2)),
+        fri.fold_evals_plain(e, b, ro_polys.get(int(e.shape[0]).bit_length() - 2)))
+        for e, b in zip(folds, betas))
     # K6 on the prove's whole query gather
     gplan, gidx = record["gather"]
     errs = {"quotient_columns": max(cols_err.values()), "lookup_hist": hist_err,
             "perm_cols": max(perm_err.values()), "perm_scan": max(scan_err.values()),
             "quotient": max(q_err.values()), "open_dot": open_err,
+            "ext_powers": max_abs_err(zpows, ef.powers_plain(zpows[1], int(zpows.shape[0]))),
+            "fri_fold": fold_err,
             "fri_reduced_open": max(max_abs_err(got[k], want[k]) for k in want),
             "gather": max_abs_err(gplan.run_device(gidx), gplan.run_plain(gidx))}
+    commit = check_commit_kernels(vm, record)
+    errs.update(commit.pop("max"))
     require(all(v == 0 for v in errs.values()),
             f"kernel and plain differ on the VM prove's inputs: {cols_err} "
             f"{perm_err} {scan_err} {q_err} {errs}")
-    return {"max": errs, "columns_airs": len(cols_err), "perm_airs": len(perm_err),
+    return {"max": errs, "main_commit": commit, "s": time.perf_counter() - t0,
+            "columns_airs": len(cols_err), "perm_airs": len(perm_err),
             "open_jobs": len(ojobs), "reduced_open_jobs": len(rjobs[0]),
-            "gather_jobs": len(gplan.jobs),
+            "gather_jobs": len(gplan.jobs), "quotient_blocks": blocks,
             "quotient_airs": {vm.airs[i].name: {"log_n": r[2], "lqd": r[3],
-                                                "lane_words": r[0].lane_words}
+                                                "lane_words": r[0].lane_words,
+                                                "global_memory": r[0].global_memory}
                               for i, r in enumerate(qrec)}}
+
+
+def check_commit_kernels(vm, record: dict) -> dict:
+    """K1, K3, K4 and K5 of a VM prove's main commit against their plain
+    versions on the prove's own inputs.  K1: the widest AIR's trace made
+    Montgomery again from its canonical words.  K3: its main LDE, as
+    the prove's batched call made it, against the plain LDE of its trace,
+    PLAIN_LDE_COLUMNS columns at a time.  K4 and K5: the main tree built
+    again as the prove builds it (``merkle.commit_layers``); the row hashes
+    of the matrices of each height (every column) against plain on their
+    first and last QUOTIENT_BLOCK rows, and every layer above the leaves
+    against the plain compression of the layer below and those hashes."""
+    lb = vm.pk.vk.config.fri.log_blowup
+    ctxs = record["ctxs"]
+    # an AIR's quotient sources start with its cached mains' LDEs, then its
+    # common main's: the LDEs the main commit took
+    commons = [src[len(c.cached_mains)] for c, (_, src, _, _) in zip(ctxs, record["quotient"])]
+    w = max(range(len(ctxs)), key=lambda i: int(ctxs[i].common_main.shape[1]))
+    trace, lde = ctxs[w].common_main, commons[w]
+    # K1 on the whole canonical trace, as ``bb.monty`` ran it on the upload
+    rows = range(0, int(trace.shape[0]), QUOTIENT_BLOCK)
+    canon = torch.empty_like(trace)
+    for r in rows:
+        canon[r:r + QUOTIENT_BLOCK] = bb.from_monty_plain(trace[r:r + QUOTIENT_BLOCK])
+    got = bb.to_monty(canon)
+    monty_err = max(max(max_abs_err(got[r:r + QUOTIENT_BLOCK], bb.to_monty_plain(
+        canon[r:r + QUOTIENT_BLOCK])), max_abs_err(got[r:r + QUOTIENT_BLOCK],
+                                                   trace[r:r + QUOTIENT_BLOCK]))
+                    for r in rows)
+    del canon, got
+    lde_err = max(max_abs_err(lde[:, c:c + PLAIN_LDE_COLUMNS], ntt.coset_lde_plain(
+        trace[:, c:c + PLAIN_LDE_COLUMNS].contiguous(), lb))
+        for c in range(0, int(trace.shape[1]), PLAIN_LDE_COLUMNS))
+    by_h: dict = {}
+    for m in commons:
+        by_h.setdefault(int(m.shape[0]), []).append(m)
+    layers = merkle.commit_layers(commons)
+    hash_err, widths = 0, {}
+
+    def row_hashes(h):
+        nonlocal hash_err
+        ms = by_h[h]
+        m = (ms[0] if len(ms) == 1 else torch.cat(ms, dim=1)).contiguous()
+        digests, b = p2.hash_rows(m), min(QUOTIENT_BLOCK, h)
+        hash_err = max([hash_err] + [max_abs_err(digests[lo:hi], p2.hash_rows_plain(m[lo:hi]))
+                                     for lo, hi in ((0, b), (h - b, h))])
+        widths[h] = int(m.shape[1])
+        return digests
+
+    top = int(layers[0].shape[0])
+    leaves = row_hashes(top)
+    hash_err = max(hash_err, max_abs_err(layers[0], leaves))
+    single, _ = merkle.commit_plan(top, merkle.TAIL_MAX)
+    layer_err = {True: 0, False: 0}  # by whether the layer had a launch of its own
+    for below, layer in zip(layers, layers[1:]):
+        h = int(layer.shape[0])
+        inj = row_hashes(h) if h in by_h else None
+        layer_err[h in single] = max(layer_err[h in single], max_abs_err(
+            layer, merkle.compress_layer_plain(below, inj)))
+    return {"lde_air": vm.airs[w].name, "lde_shape": [int(lde.shape[0]), int(lde.shape[1])],
+            "hash_rows_widths": widths, "hash_rows_block": QUOTIENT_BLOCK,
+            "layers_compared": len(layers) - 1,
+            "max": {"bb_elementwise": monty_err, "ntt": lde_err,
+                    "poseidon2_hash_rows": hash_err,
+                    "poseidon2_compress_layer": layer_err[True],
+                    "poseidon2_compress_tail": layer_err[False]}}
+
+
+def launch_summary(names: list, qrec: list) -> list:
+    """K7's launches over quotient jobs (``names`` their AIRs): the AIRs of
+    each, its mode, slot words a row, threads, and for the global-memory
+    launch its rows in flight and scratch bytes."""
+    progs = [r[0] for r in qrec]
+    heights = [1 << (r[2] + r[3]) for r in qrec]
+    out = []
+    for idx, is_global, lane_words, _, code_cap, threads in qmod.launch_plan(progs):
+        total = qmod.block_plan([heights[k] for k in idx], threads)[2]
+        entry = {"airs": [names[k] for k in idx], "global_memory": is_global,
+                 "lane_words": lane_words, "code_words": code_cap, "threads": threads,
+                 "blocks": total}
+        if is_global:
+            rows = qmod.global_rows(lane_words, total, threads)
+            entry.update(rows_in_flight=rows, scratch_bytes=4 * lane_words * rows,
+                         waves=-(-total * threads // rows))
+        out.append(entry)
+    return out
 
 
 def fib_u32(n: int) -> int:
@@ -1357,16 +1545,19 @@ def summed_stages(per_segment: list) -> dict:
     return out
 
 
-def run_continuations(dev, cfg: StarkConfig) -> dict:
-    """Path 4: the persistent VM's keygen -> execute_metered ->
-    prove_continuations -> verify_segments of the fibonacci guest through
-    the port's entry points, then a warm prove_continuations that must give
-    the same bytes and records segment 0's kernel inputs.  Every segment's
-    device tensors are freed before the next segment starts: the peak is
-    read over the cold run, before the record holds segment 0's."""
-    vm = VirtualMachine(Rv32Config(stark=cfg, executors=FIB_EXECUTORS, persistent=True),
-                        device=dev)
-    exe = build_fib_program(CONT_FIB_N)
+def run_continuations(dev, cfg: StarkConfig, exe=None, limits=CONT_LIMITS,
+                      **flags) -> dict:
+    """Path 4 (path 5 with ``exe``, its ``limits`` and the config's
+    extension ``flags``): the persistent VM's keygen -> execute_metered ->
+    prove_continuations -> verify_segments of the guest through the port's
+    entry points, the fibonacci guest by default, then a warm
+    prove_continuations that must give the same bytes and records segment
+    0's kernel inputs.  Every segment's device tensors are freed before the
+    next segment starts: the peak is read over the cold run, before the
+    record holds segment 0's."""
+    vm = VirtualMachine(Rv32Config(stark=cfg, executors=FIB_EXECUTORS, persistent=True,
+                                   **flags), device=dev)
+    exe = exe or build_fib_program(CONT_FIB_N)
     torch.cuda.synchronize()
     start_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1379,7 +1570,7 @@ def run_continuations(dev, cfg: StarkConfig) -> dict:
     metered = vm.execute_metered(exe)
     t2 = time.perf_counter()
     stages: list = []
-    proofs, tree = vm.prove_continuations(exe, segment_limits=CONT_LIMITS, stages=stages)
+    proofs, tree = vm.prove_continuations(exe, segment_limits=limits, stages=stages)
     t3 = time.perf_counter()
     result = vm.verify_segments(proofs, exe, expected_exe_commit=commit)
     t4 = time.perf_counter()
@@ -1387,7 +1578,7 @@ def run_continuations(dev, cfg: StarkConfig) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     warm_stages: list = []
     record: dict = {}
-    warm, warm_tree = vm.prove_continuations(exe, segment_limits=CONT_LIMITS,
+    warm, warm_tree = vm.prove_continuations(exe, segment_limits=limits,
                                              stages=warm_stages, records={0: record})
     t5 = time.perf_counter()
     blobs = [codec.encode_proof(p) for p in proofs]
@@ -1449,6 +1640,189 @@ def quotient_path4_timing(dev, rng, vm, heights: dict) -> dict:
                 "launches": len(plan_wo), "threads": plan_wo[0][-1],
                 "lane_words": plan_wo[0][2],
                 "ms": cuda_ms(lambda: qmod.evaluate_many(*sub), 5)}}
+
+
+def run_keccak(dev, cfg: StarkConfig) -> dict:
+    """Path 5: the keccak-iteration guest's continuations (run_continuations
+    with the keccak extension), held to its segments' shapes, its public
+    values and pinned proofs; K7's launch plan of segment 0, every kernel
+    against plain on segment 0's own inputs, and K7's global-memory
+    launches on segment 0's keccakf and keccak_sponge jobs."""
+    kc = run_continuations(dev, cfg, build_keccak_iter_program(KECCAK_ITER_N),
+                           KECCAK_LIMITS, keccak=True)
+    launches, vm = kc["launches"], kc["vm"]
+    n_seg = len(kc["proofs"])
+    require(all(v for k, v in launches.items() if k not in OFF_PATH),
+            f"a kernel of path 5 never ran: {launches}")
+    require(launches["quotient"] == 2 * n_seg
+            and all(launches[k] == n_seg for k in ("lookup_hist", "perm_cols",
+                                                    "fri_reduced_open", "ext_powers",
+                                                    "gather"))
+            and not any(launches[k] for k in OFF_PATH),
+            f"path 5 takes two quotient launches (shared and global memory) and one "
+            f"lookup_hist, perm_cols, fri_reduced_open, ext_powers and gather launch "
+            f"a segment, and no elementwise K2: {launches}")
+    instret = kc["metered"]["instret"]
+    require(instret == iter_insns(KECCAK_ITER_N) and kc["metered"]["exit_code"] == 0,
+            f"path 5's guest ran {instret} instructions")
+    seg_heights = [{vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in proof.per_air}
+                   for proof in kc["proofs"]]
+    require(n_seg == KECCAK_SEGMENTS and kc["result"]["num_segments"] == n_seg
+            and all(hs[name] == 1 << lh for hs, want in zip(seg_heights, KECCAK_LOG_HEIGHTS)
+                    for name, lh in want.items()),
+            f"path 5's segments: {seg_heights}")
+    pv = pv_proof(kc["tree"])
+    require(verify_pv_proof(pv) and pv["root"].tolist() == list(kc["result"]["final_root"]),
+            "the public-values proof does not open the final root")
+    pvs = [int(b) for b in pv["public_values"][:8]]
+    require(pvs == KECCAK_ITER_PVS, f"path 5's public values {pvs}")
+    shas = tuple(hashlib.sha256(b).hexdigest() for b in kc["blobs"])
+    require(shas == KECCAK_PROOF_SHA256, f"path 5's segment proofs sha {shas}")
+    record = kc.pop("record")
+    plan = launch_summary([a.name for a in vm.airs], record["quotient"])
+    require([set(e["airs"]) for e in plan if e["global_memory"]]
+            == [{"keccakf", "keccak_sponge"}],
+            f"path 5's global-memory launch: {plan}")
+    kc.update(launches=launches, heights=seg_heights, public_values=pvs, shas=shas,
+              launch_plan=plan, plain_checks=check_vm_kernels(vm, record),
+              global_mode=global_mode_timing(vm, record["quotient"]))
+    return kc
+
+
+def global_mode_timing(vm, qrec: list) -> dict:
+    """K7's global-memory launch on a segment's own keccakf and keccak_sponge
+    jobs, each alone and the two together (one launch), beside their bound;
+    the segment's whole quotient call (both launches); keccak_sponge's plain
+    version, and keccakf's on one block of QUOTIENT_BLOCK rows."""
+    idx = {vm.airs[i].name: i for i in range(len(qrec))}
+    out = {}
+    for name in ("keccakf", "keccak_sponge"):
+        prog, _, log_n, lqd = rec = qrec[idx[name]]
+        b_ms, b_by = bound(*quotient_cost([rec]))
+        out[name] = {"rows": 1 << (log_n + lqd), "instructions": int(prog.code.shape[0]),
+                     "lane_words": prog.lane_words,
+                     "launch": launch_summary([name], [rec])[0],
+                     "ms": cuda_ms(lambda: qmod.evaluate(*rec), 3),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    sp = qrec[idx["keccak_sponge"]]
+    out["keccak_sponge"]["plain_ms"] = cuda_ms(lambda: qmod.evaluate_plain(*sp), 1)
+    kf = qrec[idx["keccakf"]]
+    out["keccakf"]["plain_ms_block"] = cuda_ms(
+        lambda: qmod.evaluate_plain(*kf, 0, QUOTIENT_BLOCK), 1)
+    out["keccakf"]["plain_block_rows"] = QUOTIENT_BLOCK
+    both = [kf, sp]
+    cols = [list(col) for col in zip(*both)]
+    b_ms, b_by = bound(*quotient_cost(both))
+    out["global_launch"] = {"ms": cuda_ms(lambda: qmod.evaluate_many(*cols), 3),
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "launch": launch_summary(["keccakf", "keccak_sponge"], both)[0]}
+    every = [list(col) for col in zip(*qrec)]
+    out["segment_quotient_ms"] = cuda_ms(lambda: qmod.evaluate_many(*every), 3)
+    shared = [r for i, r in enumerate(qrec) if not r[0].global_memory]
+    out["shared_launch_ms"] = cuda_ms(
+        lambda: qmod.evaluate_many(*(list(col) for col in zip(*shared))), 3)
+    return out
+
+
+def run_sha(dev, cfg: StarkConfig) -> dict:
+    """Path 6: the sha256-iteration guest's volatile VM proof (run_vm with
+    the sha256 extension), held to its heights, its public values and its
+    pinned proof; K7's one launch and its block size with and without
+    sha256's two programs, and every kernel against plain on the prove's
+    own inputs."""
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    r = run_vm(dev, cfg, build_sha256_iter_program(SHA_ITER_N), warm=False, sha256=True)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches, vm, pre = r["launches"], r["vm"], r["pre"]
+    require(all(v for k, v in launches.items() if k not in OFF_PATH),
+            f"a kernel of path 6 never ran: {launches}")
+    require(all(launches[k] == 1 for k in ("quotient", "lookup_hist", "perm_cols",
+                                           "fri_reduced_open", "ext_powers", "gather"))
+            and not any(launches[k] for k in OFF_PATH),
+            f"path 6 takes one quotient, lookup_hist, perm_cols, fri_reduced_open, "
+            f"ext_powers and gather launch a prove and no elementwise K2: {launches}")
+    require(pre.exit_code == 0 and pre.instret == iter_insns(SHA_ITER_N),
+            f"path 6's guest ran {pre.instret} instructions")
+    heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
+    require(all(heights[name] == 1 << lh for name, lh in SHA_LOG_HEIGHTS.items()),
+            f"path 6's heights: {heights}")
+    digest = bytes(32)
+    for _ in range(SHA_ITER_N):
+        digest = hashlib.sha256(digest).digest()
+    pvs = list(r["result"]["public_values"][:8])
+    require(pvs == list(digest[:4]) + list(digest[28:32]), f"path 6's public values {pvs}")
+    blob = codec.encode_proof(r["proof"])
+    sha = hashlib.sha256(blob).hexdigest()
+    require(sha == SHA_PROOF_SHA256, f"path 6's proof sha {sha}")
+    qrec = r["record"]["quotient"]
+    keep = [i for i, a in enumerate(vm.airs) if a.name not in ("sha256", "sha256_sponge")]
+    sub = [qrec[i] for i in keep]
+    alu = vm.air_index["rv32_base_alu"]
+    with_sha = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))[alu]
+    without = qmod.evaluate_many(*(list(col) for col in zip(*sub)))[keep.index(alu)]
+    require(max_abs_err(with_sha, without) == 0, "K7's rv32_base_alu job depends on the launch")
+    names = [a.name for a in vm.airs]
+    quotient = {"launch": launch_summary(names, qrec),
+                "ms": cuda_ms(lambda: qmod.evaluate_many(*(list(c) for c in zip(*qrec))), 5),
+                "bound_ms": bound(*quotient_cost(qrec))[0],
+                "without_sha256": {"launch": launch_summary([names[i] for i in keep], sub),
+                                   "ms": cuda_ms(
+                    lambda: qmod.evaluate_many(*(list(c) for c in zip(*sub))), 5)}}
+    require(len(quotient["launch"]) == 1, f"path 6's K7 plan: {quotient['launch']}")
+    r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
+             peak_gb=peak_gb, start_gb=start_gb, quotient=quotient,
+             plain_checks=check_vm_kernels(vm, r.pop("record")))
+    return r
+
+
+def phase_keccak(dev, cfg: StarkConfig, err: dict) -> tuple:
+    """Path 5 (``run_keccak``) and its line; folds its plain checks into
+    ``err``.  Returns its launches and K7's global-memory timing."""
+    kc = run_keccak(dev, cfg)
+    ks = kc["s"]
+    err.update({k: max(v, err.get(k, 0)) for k, v in kc["plain_checks"]["max"].items()})
+    emit({"phase": "keccak", "guest": f"build_keccak_iter_program({KECCAK_ITER_N})",
+          "executors": list(FIB_EXECUTORS), "keccak": True, "persistent": True,
+          "limits": KECCAK_LIMITS, "insns": kc["metered"]["instret"],
+          "keccak_blocks": KECCAK_ITER_N, "segments": len(kc["proofs"]),
+          "metered": kc["metered"], "heights": kc["heights"],
+          "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
+          "s": ks, "stage_s": summed_stages(kc["stages"]),
+          "warm_stage_s": summed_stages(kc["warm_stages"]),
+          "segment_stage_s": kc["stages"], "segment_warm_stage_s": kc["warm_stages"],
+          "insn_per_s": kc["metered"]["instret"] / ks["prove_warm"],
+          "insn_per_s_cold": kc["metered"]["instret"] / ks["prove"],
+          "blocks_per_s": KECCAK_ITER_N / ks["prove_warm"],
+          "blocks_per_s_cold": KECCAK_ITER_N / ks["prove"],
+          "verified": True, "public_values": kc["public_values"],
+          "proof_bytes": [len(b) for b in kc["blobs"]], "proof_sha256": list(kc["shas"]),
+          "peak_gb": kc["peak_gb"], "peak_above_start_gb": kc["peak_gb"] - kc["start_gb"],
+          "launches": kc["launches"], "quotient_launch_plan": kc["launch_plan"],
+          "plain_checks": kc["plain_checks"], "quotient_global_mode": kc["global_mode"]})
+    return kc["launches"], kc["global_mode"]
+
+
+def phase_sha(dev, cfg: StarkConfig, err: dict) -> dict:
+    """Path 6 (``run_sha``) and its line; folds its plain checks into
+    ``err``.  Returns its launches."""
+    sr = run_sha(dev, cfg)
+    err.update({k: max(v, err.get(k, 0)) for k, v in sr["plain_checks"]["max"].items()})
+    s_insns, s_prove = sr["pre"].instret, sr["s"]["prove"]
+    emit({"phase": "sha256", "guest": f"build_sha256_iter_program({SHA_ITER_N})",
+          "executors": list(FIB_EXECUTORS), "sha256": True, "insns": s_insns,
+          "sha256_blocks": SHA_ITER_N, "heights": sr["heights"],
+          "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
+          "s": sr["s"], "stage_s": sr["stages_s"],
+          "insn_per_s_cold": s_insns / s_prove, "blocks_per_s_cold": SHA_ITER_N / s_prove,
+          "verified": True, "public_values": sr["public_values"],
+          "proof_bytes": len(sr["blob"]), "proof_sha256": sr["sha"],
+          "peak_gb": sr["peak_gb"], "peak_above_start_gb": sr["peak_gb"] - sr["start_gb"],
+          "launches": sr["launches"], "quotient": sr["quotient"],
+          "plain_checks": sr["plain_checks"]})
+    return sr["launches"]
 
 
 def tamper_poseidon2(vm, ctxs: list, device) -> list:
@@ -1956,6 +2330,15 @@ def run(dev: torch.device) -> int:
 
     kernels = timing(dev, setup, rng, main, err, traces, launches, proved,
                      ctxs, cfg, p_launches, vmr, v_launches, qprogs, profile, c_launches)
+    del vmr, proved
+
+    # ---- paths 5 and 6: the keccak and sha256 extensions -------------------
+    k_launches, k_global = phase_keccak(dev, cfg, err)
+    s_launches = phase_sha(dev, cfg, err)
+    for k in kernels:
+        k["launches_path5"], k["launches_path6"] = k_launches[k["name"]], s_launches[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"], err.get(k["name"], 0))
+    next(k for k in kernels if k["name"] == "quotient")["global_mode_path5"] = k_global
     print(setup["nvidia_smi"].splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -112,12 +112,23 @@ class AirProvingContext:
 # ---------------------------------------------------------------------------
 
 
+# The plain K12 and K13 take this many columns of a matrix at a time, so
+# that their (N, columns, 4) int64 products stay a few GB on a matrix of
+# keccakf's 2,633 columns at 2^20 rows.
+PLAIN_COLUMNS = 64
+
+
 def _col_comb(matrix: torch.Tensor, alpha_pows: torch.Tensor) -> torch.Tensor:
     """sum_t alpha^t * M[:, t] -> (N, 4) ext Montgomery, plain PyTorch
-    (prover.py:194); K13 computes it inside its pass."""
+    (prover.py:194), PLAIN_COLUMNS columns at a time; K13 computes it
+    inside its pass."""
     w = matrix.shape[1]
-    prod = bb.mul64(matrix.long()[:, :, None], alpha_pows[:w].long()[None])
-    return (prod.sum(dim=1) % P).int()
+    acc = torch.zeros((matrix.shape[0], 4), dtype=torch.int64, device=matrix.device)
+    for c in range(0, w, PLAIN_COLUMNS):
+        part = matrix[:, c:c + PLAIN_COLUMNS].long()
+        prod = bb.mul64(part[:, :, None], alpha_pows[c:c + part.shape[1]].long()[None])
+        acc = (acc + prod.sum(dim=1)) % P
+    return acc.int()
 
 
 def _open_dot_plain(coeffs: torch.Tensor, zpows: torch.Tensor,
@@ -125,12 +136,16 @@ def _open_dot_plain(coeffs: torch.Tensor, zpows: torch.Tensor,
     """out[p, t] = sum_i coeffs[i, t] * zpows[i] * geos[p, i], plain
     PyTorch; (Pts, W, 4) Montgomery words."""
     n = coeffs.shape[0]
-    c = coeffs.long()
     out = []
     for p in range(geos.shape[0]):
         u = ef.scale64(zpows[:n].long(), geos[p, :n].long())  # (N, 4)
-        prod = bb.mul64(c[:, :, None], u[:, None, :])  # (N, W, 4)
-        out.append(prod.sum(dim=0) % P)
+        parts = []
+        for k in range(0, coeffs.shape[1], PLAIN_COLUMNS):
+            c = coeffs[:, k:k + PLAIN_COLUMNS].long()
+            prod = bb.mul64(c[:, :, None], u[:, None, :])  # (N, columns, 4)
+            parts.append(prod.sum(dim=0) % P)
+        out.append(torch.cat(parts) if parts else
+                   torch.zeros((0, 4), dtype=torch.int64, device=coeffs.device))
     return torch.stack(out).int()
 
 
@@ -646,8 +661,10 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     a dict, the inputs of the quotient interpreter (``"quotient"``: per AIR
     (bound program, sources, log_n, lqd)), of the LogUp kernels
     (``"logup"``: per AIR with interactions, see ``logup.build_perm_trace``),
-    of the openings (``"openings"``: (jobs, zpows), see ``open_many``) and
-    of the query gather (``"gather"``: (plan, indices)) are kept in it,
+    of the openings (``"openings"``: (jobs, zpows), see ``open_many``), of
+    the FRI folds (``"fri_folds"``: (each fold's input, its beta, the
+    reduced openings by log height), see ``fri.commit_phase``) and of the
+    query gather (``"gather"``: (plan, indices)) are kept in it,
     so that a caller can run those kernels' plain versions at this prove's
     own shapes."""
     dev = resolve_device(device)
@@ -899,8 +916,10 @@ def prove(pk: MultiStarkProvingKey, ctxs: list, device=None,
     mark("reduced_openings")
 
     # ---- FRI commit phase + PoW + queries ------------------------------
-    trees, _, final_poly_ct, evals_per_step = fri.commit_phase(
+    trees, betas, final_poly_ct, evals_per_step = fri.commit_phase(
         ro_polys, log_max_lde, lb, challenger)
+    if record is not None:
+        record["fri_folds"] = (evals_per_step, betas, ro_polys)
     for felt in final_poly_ct:
         challenger.observe(felt)
     mark("fri_commit")

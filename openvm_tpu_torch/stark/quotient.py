@@ -722,20 +722,24 @@ def _run_plain(prog: Program, sources: list, rows: tuple, sel_vals: list,
 
 
 def evaluate_plain(prog: Program, sources: list, log_n: int,
-                   lqd: int) -> torch.Tensor:
-    """The bound program over every row of the quotient domain with int64
-    torch operations.  ``sources``: bit-reversed LDE matrices (at least
-    2^log_q rows) in the program's source order.  Returns (2^log_q, 4)
-    int32: the alpha-folded constraints over Z_H, in natural row order."""
+                   lqd: int, lo: int = 0, hi: int | None = None) -> torch.Tensor:
+    """The bound program over rows lo..hi-1 (natural order; the whole
+    quotient domain by default) with int64 torch operations.  ``sources``:
+    bit-reversed LDE matrices (at least 2^log_q rows) in the program's
+    source order.  Each row reads its local LDE row and its next, which
+    wraps past the domain's last row to its first.  Returns (hi - lo, 4)
+    int32: the alpha-folded constraints over Z_H."""
     log_q = log_n + lqd
     nq = 1 << log_q
+    hi = nq if hi is None else hi
     dev = sources[0].device
     rev = torch.from_numpy(ntt.bitrev_perm(log_q)).to(dev)
-    rows = (rev, torch.roll(rev, -(1 << lqd), 0))  # local, next
+    idx = torch.arange(lo, hi, device=dev)
+    rows = (rev[idx], rev[(idx + (1 << lqd)) % nq])  # local, next
     sels = selectors_on_domain(log_n, log_q, bb.GENERATOR, dev)
-    sel_vals = [sels[name].long() for name in SELECTORS]
-    acc = _run_plain(prog, sources, rows, sel_vals, nq)
-    return ef.scale64(acc, sels["inv_zeroifier"].long()).int()
+    sel_vals = [sels[name][lo:hi].long() for name in SELECTORS]
+    acc = _run_plain(prog, sources, rows, sel_vals, hi - lo)
+    return ef.scale64(acc, sels["inv_zeroifier"][lo:hi].long()).int()
 
 
 def evaluate_many_plain(progs: list, sources: list, log_ns: list,

@@ -1,8 +1,14 @@
-"""The hand-assembled RV32IM fibonacci guest and its assembler helpers.
+"""The hand-assembled guests: fibonacci, keccak256 and sha256.
 
 Copy of tests/test_vm_prove.py:20-96 (``build_fib_program``, the ``asm_*``
-encoders, ``fib``, ``FIB_EXECUTORS``), so that chip_smoke.py and the tests
-reach the repo's VM workload without importing the JAX package.
+encoders, ``fib``, ``FIB_EXECUTORS``), tests/test_vm_keccak.py:23-56
+(``build_keccak_program``, ``keccak_r``, ``hint_storew``, ``SRC``, ``DST``)
+and tests/test_vm_sha256.py:23-52 (``build_sha_program``, ``sha_r``), so
+that chip_smoke.py and the tests reach the repo's VM workloads without
+importing the JAX package.  ``build_keccak_iter_program(n)`` and
+``build_sha256_iter_program(n)`` are this package's own: the reference's
+``keccak256_iter`` and ``sha256_iter`` benchmark guests (SURVEY.md:337)
+reduced to a loop that hashes its own 32-byte buffer in place n times.
 ``build_fib_program(n)`` runs about 5n + 20 instructions.  The original
 loads the loop count n with one addi, whose immediate is 12 bits signed:
 from n = 2048 on, the count wraps negative and the loop runs about 2^32
@@ -106,3 +112,118 @@ def fib(n):
 
 FIB_EXECUTORS = ("alu", "lt", "beq", "blt", "jal_lui", "jalr", "auipc",
                  "loadstore")
+
+
+# ADDI immediates are 12-bit signed: the copied guests keep their addresses
+# below 2^11 (tests/test_vm_keccak.py:25-27)
+SRC = 0x400
+DST = 0x7C0
+
+
+def keccak_r(rd, rs1, rs2):
+    return ((0 << 25) | (rs2 << 20) | (rs1 << 15) | (0b100 << 12)
+            | (rd << 7) | 0x0B)
+
+
+def sha_r(rd, rs1, rs2):
+    return ((1 << 25) | (rs2 << 20) | (rs1 << 15) | (0b100 << 12)
+            | (rd << 7) | 0x0B)
+
+
+def hint_storew(rd):
+    return (0b001 << 12) | (rd << 7) | 0x0B
+
+
+def hinted_input_words(n_bytes):
+    """Words that read the hinted input of n_bytes into memory at SRC."""
+    words = [(0 << 20) | (0b011 << 12) | 0x0B]          # phantom hint_input
+    words += [asm_i(0x13, 1, 0, SRC - 4, 0), hint_storew(1)]  # len header
+    for k in range(0, n_bytes, 4):
+        words += [asm_i(0x13, 1, 0, SRC + k, 0), hint_storew(1)]
+    return words
+
+
+def _program(words):
+    prog = Program(instructions=Transpiler().transpile(words), pc_base=0)
+    return VmExe(program=prog, pc_start=0)
+
+
+def build_keccak_program(n_bytes):
+    """keccak256 of the n_bytes of hinted input; reveals digest words 0
+    and 7.  Executors: alu, loadstore, hintstore."""
+    words = hinted_input_words(n_bytes) + [
+        asm_i(0x13, 5, 0, DST, 0),     # x5 = dst
+        asm_i(0x13, 6, 0, SRC, 0),     # x6 = src
+        asm_i(0x13, 7, 0, n_bytes, 0),  # x7 = len
+        keccak_r(5, 6, 7),
+        asm_i(0x03, 8, 5, 0, 2),       # lw x8, 0(x5): digest word 0
+        asm_i(0x03, 9, 5, 28, 2),      # lw x9, 28(x5): digest word 7
+        reveal(8, 0, 0),
+        reveal(9, 0, 4),
+        TERMINATE,
+    ]
+    return _program(words)
+
+
+def build_sha_program(n_bytes):
+    """sha256 of the n_bytes of hinted input; reveals digest word 0.
+    Executors: alu, loadstore, hintstore."""
+    words = hinted_input_words(n_bytes) + [
+        asm_i(0x13, 5, 0, DST, 0),
+        asm_i(0x13, 6, 0, SRC, 0),
+        asm_i(0x13, 7, 0, n_bytes, 0),
+        sha_r(5, 6, 7),
+        asm_i(0x03, 8, 5, 0, 2),
+        reveal(8, 0, 0),
+        TERMINATE,
+    ]
+    return _program(words)
+
+
+def hint_inputs(data: bytes) -> list:
+    """The input stream of the hinted guests: data padded to whole words."""
+    return [list(data + bytes(-len(data) % 4))]
+
+
+# The iterated guests' buffer: past 12 bits, so loaded with lui + addi.
+ITER_BUF = 0x10000
+
+
+def iter_words(kind, n):
+    """The words of the iterated guest: kind "keccak" or "sha256"."""
+    if n < 1:
+        raise ValueError("the loop runs at least once")
+    hash_r = {"keccak": keccak_r, "sha256": sha_r}[kind]
+    return [
+        *load_imm(5, ITER_BUF),      # x5 = buf
+        *load_imm(7, 32),            # x7 = 32
+        *load_imm(3, n),             # x3 = n
+        # loop:
+        hash_r(5, 5, 7),             # buf = hash(buf[0..32))
+        asm_i(0x13, 3, 3, -1, 0),    # n -= 1
+        asm_b(1, 3, 0, -8),          # bne n, x0, loop
+        asm_i(0x03, 8, 5, 0, 2),     # lw x8, 0(x5): digest word 0
+        asm_i(0x03, 9, 5, 28, 2),    # lw x9, 28(x5): digest word 7
+        reveal(8, 0, 0),
+        reveal(9, 0, 4),
+        TERMINATE,
+    ]
+
+
+def build_keccak_iter_program(n):
+    """Hashes a 32-byte buffer, zero at the start, in place n times with
+    keccak256 (one block a hash) and reveals digest words 0 and 7.  Needs
+    only FIB_EXECUTORS and the keccak extension; runs iter_insns(n)
+    instructions."""
+    return _program(iter_words("keccak", n))
+
+
+def build_sha256_iter_program(n):
+    """build_keccak_iter_program with sha256 (one 64-byte block a hash)."""
+    return _program(iter_words("sha256", n))
+
+
+def iter_insns(n):
+    """The instructions an iterated guest runs: 3 a hash, 4 to 5 to load
+    its registers (n past 2047 takes lui + addi), 4 after the loop."""
+    return 3 * n + 4 + (n >= 2048) + 4

@@ -1,8 +1,10 @@
 """VirtualMachine: config, keygen, prove, verify, for RV32IM on the card.
 
 Port of openvm_tpu/vm/machine.py for the volatile- and persistent-memory
-configurations: ``Rv32Config`` (with ``persistent``) and ``VirtualMachine``
-(:44-96, :135-193, the persistent system AIRs :150-158), ``keygen``
+configurations: ``Rv32Config`` (with ``keccak``, ``sha256`` and
+``persistent``) and ``VirtualMachine`` (:44-96, :104-119 the keccak and
+sha256 AIRs and executor names, :135-193 with the executors appended at
+:171-176, the persistent system AIRs :150-158), ``keygen``
 without the disk cache (:195), ``commit_exe`` (:211) on the port's ``ntt``
 and ``merkle``, ``_segment_ctx`` (:242), ``execute_metered`` (:279),
 ``_initial_tree`` (:305), ``_persistent_traces`` (:316), ``prove``
@@ -14,7 +16,7 @@ interpreter's columns mode), the continuations ``_segment_sweep`` (:663),
 ``segment_height_profile`` (:698), ``prove_continuations`` (:718) and
 ``verify_segments`` (:745), ``verify`` (:790-833, the persistent branch
 :819-826) and ``commit_init_memory`` (:834).  The native (recursion) VM
-and the extension chips are later slices of the port.
+and the other extension chips are later slices of the port.
 
 Every trace goes to the device once, as Montgomery words: the histograms
 read the executor traces there, and the prover takes the same tensors.
@@ -53,9 +55,11 @@ from .circuit.system import (BitwiseLookupAir, ConnectorAir, PhantomAir,
                              ProgramAir, PublicValuesAir, RangeCheckerAir,
                              RangeTupleCheckerAir, VolatileBoundaryAir,
                              connector_trace, program_cached_trace)
+from .circuit.keccak import KECCAK_AIRS
 from .circuit.merkle_chip import MemoryMerkleAir
 from .circuit.persistent_boundary import PersistentBoundaryAir
 from .circuit.poseidon2_chip import Poseidon2Air
+from .circuit.sha256 import SHA256_AIRS
 from .instructions import VmExe
 from .memory_tree import SparseMemoryTree, hash_leaf, leaf_index
 from .native import NativeVmHandle
@@ -80,6 +84,10 @@ class Rv32Config:
     # executor chip families to include (reference VmConfig's modular
     # extension list, config.rs:60-103); tests can use a reduced set
     executors: tuple = FULL_EXECUTORS
+    # keccak256 extension (reference extensions/keccak256, SURVEY.md 2.6)
+    keccak: bool = False
+    # sha256 extension (reference extensions/sha256, SURVEY.md 2.7)
+    sha256: bool = False
     # persistent memory: Merkle-committed memory state (continuations mode,
     # reference SystemConfig.continuation_enabled)
     persistent: bool = False
@@ -98,7 +106,12 @@ _EXECUTOR_AIRS = {
     "blt": BranchLtAir, "jal_lui": JalLuiAir, "jalr": JalrAir,
     "auipc": AuipcAir, "loadstore": LoadStoreAir, "shift": ShiftAir,
     "mul": MulAir, "divrem": DivRemAir, "hintstore": HintStoreAir,
+    **KECCAK_AIRS, **SHA256_AIRS,
 }
+
+KECCAK_EXECUTORS = ("keccak_sponge", "keccakf")
+
+SHA256_EXECUTORS = ("sha256_sponge", "sha256")
 
 
 class VirtualMachine:
@@ -123,6 +136,12 @@ class VirtualMachine:
             ]
         self.NUM_SYSTEM_AIRS = len(system)
         executors = tuple(self.config.executors)
+        if self.config.keccak:
+            executors += tuple(n for n in KECCAK_EXECUTORS
+                               if n not in executors)
+        if self.config.sha256:
+            executors += tuple(n for n in SHA256_EXECUTORS
+                               if n not in executors)
         self.airs = system + [_EXECUTOR_AIRS[name]() for name in executors]
         if "mul" in executors:
             # mul chips check (product limb, carry) pairs via the tuple

@@ -1,7 +1,9 @@
-"""Preflight (E3) execution: the record-generating interpreter, RV32IM.
+"""Preflight (E3) execution: the record-generating interpreter, RV32IM,
+keccak256 and sha256.
 
 Copy of openvm_tpu/vm/preflight.py:45-510 (records, memory, the RV32IM
-dispatch loop), :1365-1476 (phantom, terminate, finalize) and the
+dispatch loop), :1199-1364 (the KECCAK256 and SHA256 handlers, their
+record layouts unchanged), :1365-1476 (phantom, terminate, finalize) and the
 continuation half: ``PreflightResult.suspended_state`` and ``segment_full``,
 ``SegmentCtx`` (:46-70), ``PreflightMemory(initial_words=...)`` (:72-86),
 the resume and ``py_stats`` logic of ``execute`` (:133-200), its
@@ -26,12 +28,19 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .circuit import buses as B
+from .circuit.keccak import RATE_BYTES, TS_PER_BLOCK, W_WINDOW, keccak_f
+from .circuit.sha256 import BLOCK_BYTES as SB
+from .circuit.sha256 import BLOCK_WORDS as SW
+from .circuit.sha256 import H0, sha_compress
+from .circuit.sha256 import TS_PER_BLOCK as STS
+from .circuit.sha256 import W_WINDOW as SWW
 from .instructions import (BaseAluOpcode, BranchEqualOpcode,
                            BranchLessThanOpcode, DivRemOpcode,
                            LessThanOpcode, MulHOpcode, MulOpcode, P,
                            Rv32AuipcOpcode, Rv32HintStoreOpcode,
                            Rv32JalLuiOpcode, Rv32JalrOpcode,
-                           Rv32LoadStoreOpcode, Rv32Phantom, ShiftOpcode,
+                           Rv32KeccakOpcode, Rv32LoadStoreOpcode,
+                           Rv32Phantom, Rv32Sha256Opcode, ShiftOpcode,
                            SystemOpcode, VmExe)
 from .interpreter import ExecutionError, Streams, _imm16, _imm24, _s32
 from .native import PF_INSN_LIMIT, PF_MEM_ERROR, PF_SEGMENT_FULL
@@ -40,9 +49,11 @@ M32 = 0xFFFFFFFF
 
 
 def _is_extension(op: int) -> bool:
-    """Native (0x100-0x1ff) and keccak, sha256, int256, modular, ecc, fp2
-    opcodes (0x300 and above; instructions.py): a later slice of the port."""
-    return 0x100 <= op < 0x200 or op >= 0x300
+    """Native (0x100-0x1ff) and int256, modular, ecc, fp2 opcodes (0x300
+    and above but KECCAK256 and SHA256; instructions.py): a later slice of
+    the port."""
+    return (0x100 <= op < 0x200 or op >= 0x300) and op not in (
+        Rv32KeccakOpcode.KECCAK256, Rv32Sha256Opcode.SHA256)
 
 
 # NativePhantom (0x10-0x14), PairingPhantom (0x30), ModularPhantom (0x50,
@@ -511,6 +522,166 @@ class PreflightInterpreter:
                             prevw=prevw)
                 del hs[:4 * num_words]
                 pc, ts = pc + 4, ts + 2 + num_words
+
+            elif op == Rv32KeccakOpcode.KECCAK256:
+                r = recs["keccak_sponge"]
+                rf = recs["keccakf"]
+                a_idx, b_idx, c_idx = a // 4, b // 4, c // 4
+                dstp, p_rd = reg_read(a_idx, 0)
+                srcp, p_rs = reg_read(b_idx, 1)
+                lenp, p_rl = reg_read(c_idx, 2)
+                dst = _from_limbs(dstp)
+                src = _from_limbs(srcp)
+                ln = _from_limbs(lenp)
+                if src + ln >= (1 << 29) or dst + 32 >= (1 << 29):
+                    raise ExecutionError(
+                        f"keccak256 range out of bounds at pc {pc:#x}")
+                off = src % 4  # sources may be byte-aligned (word window)
+                nblocks = ln // RATE_BYTES + 1
+                lanes = [0] * 25
+                for bi in range(nblocks):
+                    ts_b = ts + TS_PER_BLOCK * bi
+                    is_first = int(bi == 0)
+                    is_last = int(bi == nblocks - 1)
+                    rem = ln - RATE_BYTES * bi
+                    real = min(rem, RATE_BYTES)
+                    pad_start = real if is_last else RATE_BYTES
+                    src_cur = src + RATE_BYTES * bi
+                    win_bytes = [0] * (4 * W_WINDOW)
+                    pts_w = [0] * W_WINDOW
+                    nw = (off + real + 3) // 4 if real else 0
+                    for w in range(nw):
+                        data_w, pw = mem.read(2, src_cur // 4 + w,
+                                              ts_b + 3 + w)
+                        win_bytes[4 * w:4 * w + 4] = data_w
+                        pts_w[w] = pw
+                    mem_bytes = [win_bytes[off + j] if j < real else 0
+                                 for j in range(RATE_BYTES)]
+                    block = bytearray(mem_bytes[:real])
+                    block += bytearray(RATE_BYTES - real)
+                    if is_last:
+                        block[real] ^= 0x01
+                        block[RATE_BYTES - 1] ^= 0x80
+                    state_in = list(lanes)
+                    for i in range(RATE_BYTES // 8):
+                        lanes[i] ^= int.from_bytes(
+                            block[8 * i:8 * i + 8], "little")
+                    absorbed = list(lanes)
+                    lanes = keccak_f(lanes)
+                    prevw = [[0] * 4 for _ in range(9)]
+                    pts_wr = [0] * 9
+                    wrb = [0] * 36
+                    if is_last:
+                        digest = b"".join(lanes[i].to_bytes(8, "little")
+                                          for i in range(4))
+                        doff = dst % 4
+                        n_wr = 8 + (1 if doff else 0)
+                        for w in range(n_wr):
+                            word = mem.peek(2, dst // 4 + w)
+                            for k in range(4):
+                                i = 4 * w + k - doff
+                                if 0 <= i < 32:
+                                    word[k] = digest[i]
+                            pv_, pz = mem.write(2, dst // 4 + w, word,
+                                                ts_b + 3 + W_WINDOW + w)
+                            prevw[w], pts_wr[w] = pv_, pz
+                            wrb[4 * w:4 * w + 4] = word
+                    _append(r, pc=pc, ts=ts_b, is_first=is_first,
+                            is_last=is_last, a_idx=a_idx, b_idx=b_idx,
+                            c_idx=c_idx, dstp=dstp, srcp=srcp, lenp=lenp,
+                            pts_regs=[p_rd, p_rs, p_rl]
+                            if is_first else [0, 0, 0],
+                            src_cur=src_cur, rem=rem, mem_bytes=mem_bytes,
+                            win_bytes=win_bytes,
+                            pad_start=pad_start, pts_w=pts_w,
+                            # copy: the next block's in-place absorb
+                            # (`lanes[i] ^= ...`) must not mutate this
+                            # row's recorded output through the reference
+                            state_in=state_in, state_out=list(lanes),
+                            prevw=prevw, pts_wr=pts_wr, wrb=wrb)
+                    _append(rf, state_in=absorbed)
+                pc, ts = pc + 4, ts + TS_PER_BLOCK * nblocks
+
+            elif op == Rv32Sha256Opcode.SHA256:
+                r = recs["sha256_sponge"]
+                rf = recs["sha256"]
+                a_idx, b_idx, c_idx = a // 4, b // 4, c // 4
+                dstp, p_rd = reg_read(a_idx, 0)
+                srcp, p_rs = reg_read(b_idx, 1)
+                lenp, p_rl = reg_read(c_idx, 2)
+                dst = _from_limbs(dstp)
+                src = _from_limbs(srcp)
+                ln = _from_limbs(lenp)
+                if src + ln >= (1 << 29) or dst + 32 >= (1 << 29):
+                    raise ExecutionError(
+                        f"sha256 range out of bounds at pc {pc:#x}")
+                s_off = src % 4  # sources may be byte-aligned (word window)
+                nblocks = (ln + 9 + SB - 1) // SB
+                state = list(H0)
+                pad80_done = False
+                for bi in range(nblocks):
+                    ts_b = ts + STS * bi
+                    is_first = int(bi == 0)
+                    is_last = int(bi == nblocks - 1)
+                    rem = max(ln - SB * bi, 0)
+                    real = min(rem, SB)
+                    is_c = int(not is_last and 56 <= rem <= 63)
+                    p80 = int(pad80_done and is_last)
+                    src_cur = src + SB * bi
+                    win_bytes = [0] * (4 * SWW)
+                    pts_w = [0] * SWW
+                    nw = (s_off + real + 3) // 4 if real else 0
+                    for w in range(nw):
+                        data_w, pw = mem.read(2, src_cur // 4 + w,
+                                              ts_b + 3 + w)
+                        win_bytes[4 * w:4 * w + 4] = data_w
+                        pts_w[w] = pw
+                    mem_bytes = [win_bytes[s_off + j] if j < real else 0
+                                 for j in range(SB)]
+                    block = bytearray(mem_bytes[:real])
+                    block += bytearray(SB - real)
+                    if real < SB and not pad80_done:
+                        block[real] = 0x80
+                        pad80_done = True
+                    if is_last:
+                        block[SB - 8:] = (8 * ln).to_bytes(8, "big")
+                    words = [int.from_bytes(block[4 * i:4 * i + 4], "big")
+                             for i in range(SW)]
+                    state_in = list(state)
+                    state, _, _ = sha_compress(state, words)
+                    prevw = [[0] * 4 for _ in range(9)]
+                    pts_wr = [0] * 9
+                    wrb = [0] * 36
+                    if is_last:
+                        digest = b"".join(v_.to_bytes(4, "big")
+                                          for v_ in state)
+                        d_off = dst % 4
+                        n_wr = 8 + (1 if d_off else 0)
+                        for w in range(n_wr):
+                            word = mem.peek(2, dst // 4 + w)
+                            for k in range(4):
+                                i = 4 * w + k - d_off
+                                if 0 <= i < 32:
+                                    word[k] = digest[i]
+                            pv_, pz = mem.write(2, dst // 4 + w, word,
+                                                ts_b + 3 + SWW + w)
+                            prevw[w], pts_wr[w] = pv_, pz
+                            wrb[4 * w:4 * w + 4] = word
+                    _append(r, pc=pc, ts=ts_b, is_first=is_first,
+                            is_last=is_last, is_c=is_c, pad80prev=p80,
+                            a_idx=a_idx, b_idx=b_idx, c_idx=c_idx,
+                            dstp=dstp, srcp=srcp, lenp=lenp,
+                            pts_regs=[p_rd, p_rs, p_rl]
+                            if is_first else [0, 0, 0],
+                            src_cur=src_cur, rem=rem, total_len=ln,
+                            mem_bytes=mem_bytes, win_bytes=win_bytes,
+                            block_bytes=list(block), pad_start=real,
+                            pts_w=pts_w, state_in=state_in,
+                            state_out=list(state), prevw=prevw,
+                            pts_wr=pts_wr, wrb=wrb)
+                    _append(rf, state=state_in, words=words)
+                pc, ts = pc + 4, ts + STS * nblocks
+
 
             elif op == SystemOpcode.PHANTOM:
                 r = recs["phantom"]

@@ -1,11 +1,13 @@
-"""RISC-V -> VM instruction transpiler, the RV32IM and IO extensions.
+"""RISC-V -> VM instruction transpiler: RV32IM, IO, keccak256 and sha256.
 
 Copy of openvm_tpu/vm/transpiler.py:1-306 (decoder, ``Rv32ITranspiler-
-Extension``, ``Rv32MTranspilerExtension``, ``Rv32IoTranspilerExtension``)
-and :507-557 (``Transpiler``, ``transpile_elf``).  The default extension
-list is the three RV32IM ones: the extension opcodes (int256, modular,
-ecc, fp2, keccak, pairing) wait for the slice that ports their chips, and a
-word only they would claim transpiles to ``unimp`` here.
+Extension``, ``Rv32MTranspilerExtension``, ``Rv32IoTranspilerExtension``),
+:309-332 (``Keccak256TranspilerExtension``: KECCAK256 and SHA256) and
+:507-557 (``Transpiler``, ``transpile_elf``).  The default extension list
+keeps the JAX package's order (:521-530) with only the extensions the port
+has; the other extension opcodes (int256, modular, ecc, fp2, pairing) wait
+for the slice that ports their chips, and a word only they would claim
+transpiles to ``unimp`` here.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from .instructions import (BaseAluOpcode, BranchEqualOpcode,
                            LessThanOpcode, MulHOpcode, MulOpcode, P, Program,
                            Rv32AuipcOpcode, Rv32HintStoreOpcode,
                            Rv32JalLuiOpcode, Rv32JalrOpcode,
-                           Rv32LoadStoreOpcode, Rv32Phantom, ShiftOpcode,
+                           Rv32KeccakOpcode, Rv32LoadStoreOpcode,
+                           Rv32Phantom, Rv32Sha256Opcode, ShiftOpcode,
                            SysPhantom, SystemOpcode, VmExe, nop, phantom,
                            unimp)
 
@@ -302,6 +305,33 @@ class Rv32IoTranspilerExtension:
                                    f=1, g=0))
         return None
 
+
+KECCAK_SHA_FUNCT3 = 0b100
+
+
+class Keccak256TranspilerExtension:
+    """keccak256 intrinsic on custom-0 funct3=0b100 funct7=0 (reference
+    extensions/keccak256/transpiler/src/lib.rs + guest/src/lib.rs)."""
+
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_CUSTOM0:
+            return None
+        d = decode(w)
+        if d.funct3 != KECCAK_SHA_FUNCT3:
+            return None
+        if d.funct7 == 0:
+            opc = Rv32KeccakOpcode.KECCAK256
+        elif d.funct7 == 1:
+            opc = Rv32Sha256Opcode.SHA256
+        else:
+            return None
+        return one(Instruction(opc, a=4 * d.rd, b=4 * d.rs1,
+                               c=4 * d.rs2, d=1, e=2))
+
+
 @dataclass
 class TranspilerOutput:
     instructions: list
@@ -321,7 +351,8 @@ class Transpiler:
     def __init__(self, extensions=None):
         self.extensions = extensions or [Rv32ITranspilerExtension(),
                                          Rv32MTranspilerExtension(),
-                                         Rv32IoTranspilerExtension()]
+                                         Rv32IoTranspilerExtension(),
+                                         Keccak256TranspilerExtension()]
 
     def transpile(self, words: list) -> list:
         out: list = []

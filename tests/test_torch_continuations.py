@@ -4,9 +4,10 @@ segments of 40 instructions, and fib(400) segmented by trace height.
 The JAX package runs each segment only up to its STARK prove (its
 ``stark_prove`` replaced by a capture of the proving contexts).  The port
 proves every fib(20) segment on the CPU with its plain versions: its
-segment contexts equal the JAX package's, the JAX package's
-``verify_segments`` accepts its segment proofs, and a broken memory-root
-chain fails the port's ``verify_segments``.  fib(400) at a height cap of
+segment contexts equal the JAX package's, its segment proofs' SHA-256 equal
+the pinned hashes of the JAX package's (recomputed live under
+OPENVM_SLOW), the JAX package's ``verify_segments`` accepts them, and a
+broken memory-root chain fails the port's ``verify_segments``.  fib(400) at a height cap of
 256 rows gives the JAX package's metered counts, segments, public values
 and height profile (contexts only, no prove), and the Python preflight loop
 gives the C++ core's segments.  tests/test_torch_persistent.py holds the
@@ -16,6 +17,8 @@ tests/test_aggregation.py (see its docstring).
 """
 
 import copy
+import hashlib
+import os
 
 import numpy as np
 import pytest
@@ -38,6 +41,14 @@ torch.set_num_threads(1)
 P = bb.P
 TEST_STARK = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=2,
                                            proof_of_work_bits=1))
+# sha256 of openvm_tpu's encode_proof bytes for each segment of
+# VirtualMachine(Rv32Config(stark=TEST_STARK, persistent=True,
+# executors=FIB_EXECUTORS)).prove_continuations(build_fib_program(20),
+# max_insns_per_segment=40) (tests/test_vm_prove.py's guest)
+FIB20_SEGMENT_PROOF_SHA256 = (
+    "a18db16ad1af10ee09966f8a5e14d116923ac4f9faf0fdd7c6b431df19f63498",
+    "c586b412a24e1e01d4c3cba615846b24eec363c0a965b5e490deee79301cc9a8",
+    "fb3863fab1d20024739f24275d941adcaaf7118c9f2ae2c8751d73347de81170")
 
 
 def canonical(m) -> np.ndarray:
@@ -125,6 +136,20 @@ def test_jax_verify_segments_accepts_port_proofs(fib20):
     proof_pv = memory_tree.pv_proof(fib20["tree"])
     assert proof_pv["root"].tolist() == ours["final_root"] == result["final_root"]
     assert int.from_bytes(bytes(proof_pv["public_values"][:4]), "little") == fib(21)
+
+
+def test_segment_proofs_equal_jax(fib20):
+    """The three segment proofs' SHA-256 are the JAX package's
+    (``FIB20_SEGMENT_PROOF_SHA256``); with OPENVM_SLOW=1 the JAX package
+    proves the segments again here (about 25 minutes of XLA:CPU compiles
+    and proves) and its bytes equal the port's."""
+    blobs = [codec.encode_proof(p) for p in fib20["proofs"]]
+    assert tuple(hashlib.sha256(b).hexdigest() for b in blobs) == \
+        FIB20_SEGMENT_PROOF_SHA256
+    if os.environ.get("OPENVM_SLOW"):
+        jproofs, _ = fib20["jax_vm"].prove_continuations(
+            jax_build_fib_program(20), max_insns_per_segment=40)
+        assert [jcodec.encode_proof(p) for p in jproofs] == blobs
 
 
 def test_broken_root_chain_fails(fib20, monkeypatch):

@@ -1,16 +1,14 @@
-"""The port's STARK prover against openvm_tpu's: equal proof bytes.
+"""The port's STARK prover against openvm_tpu's, without a JAX prove: the
+openings' dot product and column combination, the K12 model, the codec's
+pinned blob and a wrong public value refused.
 
-One module-scoped fixture proves three AIRs at mixed heights with both
-packages under tests/test_stark_e2e.py's TEST_CONFIG: FibonacciAir at 2^5,
-a second FibonacciAir at 2^3 and CubeAir at 2^4 (one preprocessed column,
-one cached main partition, a degree-3 transition constraint, so
-log_quotient_degree 1: two quotient chunks and next_step 2).  That covers
-every round kind of ``prove`` except the after-challenge round, which needs
-interactions.  This file makes the only JAX prove of the port's tests
-(about a minute of XLA:CPU compiles); the port proves on the CPU with its
-plain versions.  The SHA-256 of that JAX proof is pinned here and checked
-on every run; chip_smoke.py proves the same instance on the card and checks
-the same hash.
+The instance below (FibonacciAir at 2^5 and 2^3, CubeAir at 2^4 with one
+preprocessed column, one cached main partition and a degree-3 transition
+constraint) is proved by both packages in tests/test_torch_prover_jax.py,
+whose proof bytes are pinned there (``FIXTURE_PROOF_SHA256``); that JAX
+prove (about a minute of XLA:CPU compiles) stays in a file of few tests, so
+that this one takes a few seconds.  chip_smoke.py proves the same instance
+on the card and checks the same hash.
 """
 
 import hashlib
@@ -21,8 +19,6 @@ import torch
 
 import jax.numpy as jnp
 
-from openvm_tpu import stark as jstark
-from openvm_tpu.stark import codec as jcodec
 from openvm_tpu.stark.prover import _col_comb as jax_col_comb
 from openvm_tpu.stark.prover import _open_dot_jit
 from openvm_tpu_torch import fri
@@ -30,7 +26,7 @@ from openvm_tpu_torch import stark
 from openvm_tpu_torch.field import babybear as bb
 from openvm_tpu_torch.stark import codec, prover as pv
 
-from test_stark_e2e import TEST_CONFIG, FibonacciAir as JaxFibonacciAir, fib_trace
+from test_stark_e2e import FibonacciAir as JaxFibonacciAir, fib_trace
 
 torch.set_num_threads(1)
 
@@ -38,8 +34,9 @@ P = bb.P
 CONFIG = stark.StarkConfig(fri=stark.FriParameters(
     log_blowup=1, num_queries=4, proof_of_work_bits=2))
 
-# sha256 of openvm_tpu's encode_proof bytes for the fixture's instance
-# (``contexts(...)`` under TEST_CONFIG); chip_smoke.py checks it on the card.
+# sha256 of openvm_tpu's encode_proof bytes for the instance below
+# (``contexts(...)`` under TEST_CONFIG), checked by
+# tests/test_torch_prover_jax.py; chip_smoke.py checks it on the card.
 FIXTURE_PROOF_SHA256 = \
     "a7febea84f25e9074f2e80382be71111e236adbb861a996c3e3c026133de7e8d"
 
@@ -113,40 +110,13 @@ def contexts(ctx_cls, last_pv_delta=0, as_tensor=False):
 
 
 @pytest.fixture(scope="module")
-def proofs():
-    jpk = jstark.keygen([JaxFibonacciAir(), JaxFibonacciAir(),
-                         cube_air(jstark.Air)(4)], TEST_CONFIG)
-    jproof = jstark.prove(jpk, contexts(jstark.AirProvingContext))
-    tpk = stark.keygen([FibonacciAir(), FibonacciAir(), cube_air(stark.Air)(4)],
-                       CONFIG, device="cpu")
-    tproof = stark.prove(tpk, contexts(stark.AirProvingContext), device="cpu")
-    return jpk, jproof, tpk, tproof
+def port_pk():
+    return stark.keygen([FibonacciAir(), FibonacciAir(), cube_air(stark.Air)(4)],
+                        CONFIG, device="cpu")
 
 
-def test_vk_pre_hash_equal(proofs):
-    jpk, _, tpk, _ = proofs
-    assert [v.log_quotient_degree for v in tpk.vk.per_air] == [0, 0, 1]
-    assert jpk.vk.pre_hash.tolist() == tpk.vk.pre_hash.tolist()
-
-
-def test_proof_bytes_equal(proofs):
-    _, jproof, _, tproof = proofs
-    assert codec.encode_proof(tproof) == jcodec.encode_proof(jproof)
-
-
-def test_jax_verifier_accepts_port_proof(proofs):
-    jpk, _, _, tproof = proofs
-    jstark.verify(jpk.vk, jcodec.decode_proof(codec.encode_proof(tproof)))
-
-
-def test_port_verifier_accepts_both_proofs(proofs):
-    _, jproof, tpk, tproof = proofs
-    stark.verify(tpk.vk, tproof)
-    stark.verify(tpk.vk, codec.decode_proof(jcodec.encode_proof(jproof)))
-
-
-def test_wrong_public_value_fails(proofs):
-    _, _, tpk, _ = proofs
+def test_wrong_public_value_fails(port_pk):
+    tpk = port_pk
     with pytest.raises((stark.VerificationError, AssertionError)):
         proof = stark.prove(tpk, contexts(stark.AirProvingContext, 1),
                             device="cpu")
@@ -257,18 +227,3 @@ def test_codec_reproduces_pinned_blob():
     assert codec.encode_proof(codec.decode_proof(blob)) == blob
     with pytest.raises(codec.CodecError):
         codec.decode_proof(blob + b"\x00")
-
-
-@pytest.mark.parametrize("as_tensor", [False, True])
-def test_pinned_small_proof_hash(proofs, as_tensor):
-    """The JAX proof has the pinned hash, and the port gives it from
-    canonical numpy traces and from Montgomery tensors alike."""
-    _, jproof, tpk, tproof = proofs
-    if as_tensor:
-        tproof = stark.prove(tpk, contexts(stark.AirProvingContext, as_tensor=True),
-                             device="cpu")
-    else:
-        assert hashlib.sha256(jcodec.encode_proof(jproof)).hexdigest() == \
-            FIXTURE_PROOF_SHA256
-    assert hashlib.sha256(codec.encode_proof(tproof)).hexdigest() == \
-        FIXTURE_PROOF_SHA256
