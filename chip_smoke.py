@@ -19,9 +19,12 @@ Phases, each printing one JSON line:
             plain, mid-size; K3 at heights around its 2^11-row tile (2^10 to
             2^12, 2^21, 2^22) and widths 1 to 257, K4 at widths 0 to 101 on
             row counts that are not a multiple of its block; K7 on random
-            DAGs up to its slot limit, past it and past its code limit (the
-            global-memory mode, each in its own launch, in the quotient and
-            the columns mode), on one launch over a job table of heights
+            DAGs up to the shared launch's slot limit, past it and past its
+            code limit (compiled at the budget: the streamed launch, each in
+            its own launch, in the quotient and the columns mode), on a
+            leaf-heavy DAG at budgets of 16 and 24 words and a columns
+            program at 8 (reloads of every kind of leaf), on one launch over
+            a job table of heights
             2^1 to 2^12, lqd 0 and 1, and on a table mixing both modes (two
             launches), on Poseidon2Air's program over a random 2^16-row
             trace, and in the columns mode with the natural selectors; K5's
@@ -96,8 +99,10 @@ Phases, each printing one JSON line:
             run must give the same bytes), the peak device memory above
             the phase's start (at most 1.2 times path 3's), each segment
             proof's bytes and SHA-256 (pinned, CONTINUATION_PROOF_SHA256);
-            every kernel but the elementwise K2 launched, one quotient, K8,
-            K9, K13, K2 series and K6 launch a segment
+            every kernel but the elementwise K2 launched, two quotient
+            launches (Poseidon2Air's streamed) and one K8, K9, K13, K2
+            series and K6 launch a segment; K7 over a segment's 16 AIRs
+            with and without Poseidon2Air
   debug     stark.debug.check_constraints on the card (K7's columns mode
             with the natural selectors) over one segment of
             build_fib_program(20,000) at a 2^14-row cap: no failure; with
@@ -109,8 +114,8 @@ Phases, each printing one JSON line:
             compress phase of path 1's main tree and of a 2^20-leaf FRI tree
             at tail thresholds of 64 to 512 digests and layer by layer; K7
             on path 3's own rv32_base_alu quotient input and on the prove's
-            one launch over all 15 AIRs, and in its global-memory mode at
-            2^16 rows; K12 and K13 on path 3's own tables; K8 and K9 on
+            one launch over all 15 AIRs, and its streamed launch at 2^16
+            rows; K12 and K13 on path 3's own tables; K8 and K9 on
             path 3's own one-launch inputs, with the skew of its sends and
             the host seconds of compiling the columns programs; K2's power
             series at path 3's length and K6 on path 2's and path 3's
@@ -132,22 +137,25 @@ Phases, each printing one JSON line:
             memory tree's public-values proof; stages, insn/s and blocks/s
             cold and warm (the same bytes twice), peak memory, the segment
             proofs' SHA-256 (KECCAK_PROOF_SHA256); two quotient launches a
-            segment (keccakf and keccak_sponge in K7's global-memory mode) and
-            one K8, K9, K13, K2 series and K6 launch; K7's launch plan; every
-            kernel against plain on segment 0's own inputs (keccakf's
-            quotient on its first and last 2^14 rows, the last block's next
-            rows wrapping to the first); K7's global-memory launch timed on
-            segment 0's keccakf and keccak_sponge jobs beside its bound
+            segment (Poseidon2Air, keccakf and keccak_sponge in K7's
+            streamed launch) and one K8, K9, K13, K2 series and K6 launch;
+            K7's launch plan; every kernel against plain on segment 0's own
+            inputs (keccakf's quotient on its first and last 2^14 rows, the
+            last block's next rows wrapping to the first); K7's streamed
+            launch timed on segment 0's keccakf and keccak_sponge jobs
+            beside its bound and the global-memory mode's figure, keccakf and
+            keccak_sponge at budgets of 256 to 384 words and 32 to 128
+            threads a block
   sha256    path 6, the sha256 extension: VirtualMachine(sha256=True)
             keygen -> prove -> verify of build_sha256_iter_program(4,000),
             12,009 instructions (Sha256Air 2^18 rows), one cold prove; the
             public values against hashlib, the proof's SHA-256
             (SHA_PROOF_SHA256), stages, insn/s, blocks/s, peak memory, K7's
-            one launch with and without sha256's two programs (its block
-            size), every kernel against plain on the prove's own inputs
+            two launches (sha256's two programs streamed), each part alone,
+            every kernel against plain on the prove's own inputs
 
-then a {"kernels": [...]} line (each kernel's launches on paths 1 to 6, and
-K7's global-memory launch on path 5's shapes) and, last,
+then a {"kernels": [...]} line (each kernel's launches on paths 1 to 6, its
+__global__ entries, and K7's streamed launch on path 5's shapes) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
 compute over integers, so every comparison is exact equality.
@@ -162,6 +170,7 @@ import re
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -306,6 +315,8 @@ PATH2_KERNELS = ("bb_elementwise", "ntt", "poseidon2_hash_rows",
                  "quotient", "open_dot", "fri_reduced_open", "fri_fold")
 # Kept for its tests and variants; no path launches it.
 OFF_PATH = ("ext_elementwise",)
+# Launched only by K7's streamed launch: paths 4-6, not paths 1-3.
+STREAMED_ONLY = ("quotient_transpose",)
 
 # Bounds.  Bytes: each input read once, each output written once, over the
 # H100's 3.35 TB/s.  Operations: the fewest 32-bit integer ALU operations
@@ -548,14 +559,14 @@ def fixture_contexts(on=None, last_pv_delta=0) -> list:
 
 def near_limit_dag(fits: bool) -> tuple:
     """The first random DAG (widening operand windows) whose program takes
-    over 90% of the kernel's slot words beside its code and still fits
-    shared memory (``fits``), or the first one past the limit, which runs
-    in the kernel's global-memory mode."""
-    for window in range(500, 40000, 250):
+    over 90% of the shared launch's slot words beside its code and still
+    fits it (``fits``), or the first one past the limit, which is compiled
+    at the budget for the streamed launch."""
+    for window in range(500, 40000, 50):
         nodes, roots = random_dag(np.random.default_rng(window), 2 * window, window)
         dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
         prog = qmod.compile_dag_code(dag, n_main=2, has_preprocessed=True, has_perm=True)
-        if prog.global_memory:
+        if prog.budget:
             if not fits:
                 return nodes, roots
             continue
@@ -565,22 +576,46 @@ def near_limit_dag(fits: bool) -> tuple:
 
 
 def code_limit_dag() -> tuple:
-    """A random DAG whose code alone overruns the kernel's shared memory
-    (over 14,528 instructions of 16 bytes): 40,000 operations on a window of
-    16."""
-    return random_dag(np.random.default_rng(40000), 40000, 16)
+    """A DAG whose code alone overruns the kernel's shared memory (over
+    14,528 instructions of 16 bytes; the shared launch takes at most
+    7,232): 6,000 short roots over leaves (``reload_dag``), whose computed
+    values fit the budget as an AIR's do."""
+    return reload_dag(np.random.default_rng(6000), 6000)
 
 
 def columns_limit_dags() -> dict:
     """Base-valued random DAGs for the columns mode, every node a root: one
-    past the slot limit (a window of 2,000 keeps about 2,000 values live)
-    and one past the code limit (8,000 operations, each computed and
-    stored)."""
+    past the shared launch's slot limit (a window of 600 keeps about 300
+    values live) and one past its code limit (8,000 operations, each
+    computed and stored)."""
     out = {}
-    for name, n_ops, window in (("past_slots", 4000, 2000), ("past_code", 8000, 16)):
+    for name, n_ops, window in (("past_slots", 2000, 600), ("past_code", 8000, 16)):
         nodes, _ = random_dag(np.random.default_rng(n_ops), n_ops, window, base_only=True)
         out[name] = (nodes, [r for r in range(len(nodes)) if nodes[r][0] != "const"])
     return out
+
+
+def reload_dag(rng, n_roots: int) -> tuple:
+    """Leaves of every kind (``random_dag``'s) and ``n_roots`` short roots
+    over leaves picked anywhere, so that every leaf is read all through the
+    program: compiled at a small budget, every kind of leaf is loaded again
+    many times, extension values among them."""
+    nodes, _ = random_dag(rng, 0)
+    n_leaves = len(nodes)
+    roots = []
+    for _ in range(n_roots):
+        a, b, c = (int(x) for x in rng.integers(0, n_leaves, size=3))
+        kind = int(rng.integers(0, 4))
+        if kind == 0:
+            nodes += [("mul", a, b), ("add", len(nodes), c)]
+        elif kind == 1:
+            nodes += [("mul", b, c), ("sub", a, len(nodes))]
+        elif kind == 2:
+            nodes.append(("sub", a, b))
+        else:
+            nodes += [("neg", a), ("mul", len(nodes), c)]
+        roots.append(len(nodes) - 1)
+    return nodes, roots
 
 
 def random_dag(rng, n_ops: int, window: int = 16, base_only: bool = False) -> tuple:
@@ -741,7 +776,7 @@ def phase_pinned(dev) -> None:
 
 def phase_variants(dev, rng) -> dict:
     """Every kernel against its plain version at mid sizes; returns K7's
-    programs by name (``global_timing`` times the global-memory ones)."""
+    programs by name (``streamed_variant_timing`` times the budgeted ones)."""
     errs = {}
     # K3 around its tile of 2^11 rows: heights 2^10, 2^11, 2^12 (one and
     # two passes) at every width and every argument set; 2^21 (11 + 10
@@ -793,10 +828,13 @@ def phase_variants(dev, rng) -> dict:
     errs.update(series_variants(dev, eb[9]))
 
     # K7+K11: random DAGs at 2^12 rows, next_step 2: ~2,000 nodes, and one
-    # whose slots come within 10% of the kernel's limit beside its code (a
-    # block of 32 threads); then past the limit in the kernel's global-memory
-    # mode, each in its own launch: the next larger one (past the slot
-    # limit) and one whose code alone overruns shared memory.  Then one
+    # whose slots come within 10% of the shared launch's limit beside its
+    # code; then past the limit, compiled at the budget for the streamed
+    # launch, each in its own launch: the next larger one (past the slot
+    # limit), one whose code alone overruns shared memory, a leaf-heavy one
+    # at budgets of 16 and 24 words (every kind of leaf loaded again, base
+    # and extension values sharing the one word file) and the 2,000-node
+    # one at 24 words (computed values spilled and filled).  Then one
     # launch over a job table of heights 2^1 to 2^12, lqd 0 and 1, one
     # table that mixes both modes (two launches), and FibonacciAir at 2^12.
     vals = dict(publics=bb.to_monty_np(rng.integers(0, P, size=3)),
@@ -807,34 +845,42 @@ def phase_variants(dev, rng) -> dict:
     srcs = [words(rng, dev, 1 << (log_n + 1), w) for w in (3, 2, 2, 8)]
     srcs[1] = torch.cat([srcs[1], srcs[2]], dim=1)[:, :2]  # a column slice
     big, qprogs = {}, {}
-    for name, (nodes, roots) in (("dag2k", random_dag(np.random.default_rng(1960), 1960)),
-                                 ("near_limit", near_limit_dag(True)),
-                                 ("past_slots", near_limit_dag(False)),
-                                 ("past_code", code_limit_dag())):
+    reloads = reload_dag(np.random.default_rng(120), 120)
+    for name, (nodes, roots), budget in (
+            ("dag2k", random_dag(np.random.default_rng(1960), 1960), None),
+            ("near_limit", near_limit_dag(True), None),
+            ("past_slots", near_limit_dag(False), None),
+            ("past_code", code_limit_dag(), None),
+            ("reloads_16", reloads, 16), ("reloads_24", reloads, 24),
+            ("spills_24", random_dag(np.random.default_rng(1960), 1960), 24)):
         dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
         prog = qmod.compile_dag(dag, n_main=2, has_preprocessed=True,
-                                has_perm=True, **vals)
+                                has_perm=True, budget=budget, **vals)
         qprogs[name] = prog
         n_instr = int(prog.code.shape[0])
-        require(prog.global_memory == name.startswith("past"),
-                f"{name}: global_memory {prog.global_memory}")
+        require(bool(prog.budget) == (name[:4] in ("past", "relo", "spil"))
+                and (prog.reloads > 0 or not name.startswith("reloads"))
+                and (prog.spills > 0 or not name.startswith("spills")),
+                f"{name}: budget {prog.budget}, {prog.reloads} reloads, "
+                f"{prog.spills} spills")
         big[name] = {"nodes": len(nodes), "instructions": n_instr,
-                     "lane_words": prog.lane_words, "global_memory": prog.global_memory,
+                     "lane_words": prog.lane_words, "budget": prog.budget,
+                     "reloads": prog.reloads, "spills": prog.spills,
                      "limit": qmod.max_lane_words(n_instr),
-                     "threads": qmod.block_threads(prog.lane_words, n_instr,
-                                                   prog.global_memory)}
+                     "threads": qmod.launch_plan([prog])[0][-1]}
         before = _build.LAUNCHES["quotient"]
         errs[f"quotient/{name}"] = max_abs_err(
             qmod.evaluate(prog, srcs, log_n, lqd),
             qmod.evaluate_plain(prog, srcs, log_n, lqd))
         require(_build.LAUNCHES["quotient"] == before + 1, f"quotient/{name}: one launch")
     require(big["past_code"]["limit"] < 0, "the code-limit program's code fits shared memory")
-    # Poseidon2Air's own program (path 4) over a random 2^16-row trace
+    # Poseidon2Air's own program (path 4, the streamed launch) over a random
+    # 2^16-row trace
     p2vk = stark.keygen([Poseidon2Air()], TEST_STARK, device=dev).vk.per_air[0]
     p2lqd = p2vk.log_quotient_degree
     prog = qmod.compile_dag(p2vk.dag, n_main=1, has_preprocessed=False, has_perm=True,
                             **vals)
-    require(not prog.global_memory, "Poseidon2Air's program left shared memory")
+    require(prog.budget == qmod.BUDGET, "Poseidon2Air's program is not budgeted")
     p2srcs = [words(rng, dev, 1 << (16 + p2lqd), Poseidon2Air().width),
               words(rng, dev, 1 << (16 + p2lqd), 4 * p2vk.widths.after_challenge)]
     before = _build.LAUNCHES["quotient"]
@@ -843,9 +889,8 @@ def phase_variants(dev, rng) -> dict:
     require(_build.LAUNCHES["quotient"] == before + 1, "quotient/poseidon2: one launch")
     big["poseidon2"] = {"instructions": int(prog.code.shape[0]),
                         "lane_words": prog.lane_words, "lqd": p2lqd,
-                        "limit": qmod.max_lane_words(int(prog.code.shape[0])),
-                        "threads": qmod.block_threads(prog.lane_words,
-                                                      int(prog.code.shape[0]))}
+                        "budget": prog.budget, "reloads": prog.reloads,
+                        "threads": qmod.launch_plan([prog])[0][-1]}
     del p2srcs
     nodes, roots = random_dag(np.random.default_rng(400), 400)
     dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
@@ -859,10 +904,11 @@ def phase_variants(dev, rng) -> dict:
     errs["quotient/jobs"] = max(
         max_abs_err(g, qmod.evaluate_plain(jprog, s_, ln, q))
         for g, s_, (ln, q) in zip(got, jsrcs, jobs))
-    # both modes in one table: the shared-memory jobs in one launch, the
-    # global-memory ones in a second
+    # both modes in one table: the shared launch's jobs in one launch, the
+    # budgeted ones in the streamed launch
     mixed = [(jprog, 3, 1), (qprogs["past_slots"], 6, 1), (qprogs["near_limit"], 1, 0),
-             (qprogs["past_code"], 2, 0), (jprog, 11, 0)]
+             (qprogs["past_code"], 2, 0), (jprog, 11, 0), (qprogs["reloads_16"], 4, 1),
+             (qprogs["spills_24"], 10, 1)]
     msrcs = [[words(rng, dev, 1 << (ln + q + 1), w) for w in (3, 2, 2, 8)]
              for _, ln, q in mixed]
     before = _build.LAUNCHES["quotient"]
@@ -872,6 +918,14 @@ def phase_variants(dev, rng) -> dict:
     errs["quotient/mixed_modes"] = max(
         max_abs_err(g, qmod.evaluate_plain(pr, s_, ln, q))
         for g, s_, (pr, ln, q) in zip(got, msrcs, mixed))
+    # the streamed launch's column-major copies: heights and widths around
+    # the 32 x 32 tile, a column slice (row stride above the width), only
+    # the first rows
+    for n, w, width in ((1, 1, 1), (31, 33, 33), (33, 31, 40), (1000, 7, 9),
+                        (4096, 2633, 2633), (3000, 100, 100)):
+        src = words(rng, dev, n + 5, width)[:, width - w:]
+        errs[f"quotient_transpose/{n}x{w}"] = max_abs_err(qmod.transpose(src, n),
+                                                          qmod.transpose_plain(src, n))
     fib_dag = stark.keygen([FibonacciAir()], StarkConfig(), device=dev).vk.per_air[0].dag
     fprog = qmod.compile_dag(fib_dag, n_main=1, has_preprocessed=False,
                              has_perm=False, publics=[1, 2, 3], alpha=vals["alpha"])
@@ -938,9 +992,10 @@ def phase_variants(dev, rng) -> dict:
     # K6: see gather_variants
     errs.update(gather_variants(dev, rng, ev))
 
-    # K7 columns mode: a random DAG's base roots over 2^12 natural rows;
-    # base-valued DAGs past the slot limit and past the code limit, each in
-    # its own launch in global-memory mode
+    # K7 columns mode: a random DAG's base roots over 2^12 natural rows, and
+    # the same at a budget of 8 words (its leaf roots among them); base-valued
+    # DAGs past the slot limit and past the code limit, each in its own
+    # streamed launch
     nodes, roots = random_dag(np.random.default_rng(1960), 1960)
     dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
     tags = qmod._tags(dag, range(len(nodes)))
@@ -951,6 +1006,13 @@ def phase_variants(dev, rng) -> dict:
     csrc = [s[:1 << 12] for s in srcs[:3]]
     cols = qmod.evaluate_columns(cprog, csrc, 12)
     errs["quotient_columns"] = max_abs_err(cols, qmod.evaluate_columns_plain(cprog, csrc, 12))
+    cprog = qmod.compile_columns(dag, base_roots, n_main=2, has_preprocessed=True,
+                                 publics=bb.to_monty_np(rng.integers(0, P, size=3)), budget=8)
+    require(cprog.reloads > 0, "columns at a budget of 8 words: no reload")
+    big["columns/reloads_8"] = {"instructions": int(cprog.code.shape[0]),
+                                 "reloads": cprog.reloads, "lane_words": cprog.lane_words}
+    errs["quotient_columns/reloads_8"] = max_abs_err(
+        qmod.evaluate_columns(cprog, csrc, 12), qmod.evaluate_columns_plain(cprog, csrc, 12))
     # the constraint checker's programs read the natural domain's 0/1
     # selectors: the same roots and the selectors themselves as roots
     sel_roots = [r for r in range(len(nodes)) if nodes[r][0] == "sel"]
@@ -964,10 +1026,11 @@ def phase_variants(dev, rng) -> dict:
         cprog = qmod.compile_columns(SymbolicDag(nodes=nodes, constraint_roots=[]), roots,
                                      n_main=2, has_preprocessed=True,
                                      publics=bb.to_monty_np(rng.integers(0, P, size=3)))
-        require(cprog.global_memory, f"columns/{name} fits shared memory")
+        require(cprog.budget, f"columns/{name} fits the shared launch")
         big[f"columns/{name}"] = {"roots": len(roots),
                                   "instructions": int(cprog.code.shape[0]),
-                                  "lane_words": cprog.lane_words, "global_memory": True,
+                                  "lane_words": cprog.lane_words, "budget": cprog.budget,
+                                  "reloads": cprog.reloads,
                                   "limit": qmod.max_lane_words(int(cprog.code.shape[0]))}
         before = _build.LAUNCHES["quotient_columns"]
         cols = qmod.evaluate_columns(cprog, csrc, 12)
@@ -1010,7 +1073,7 @@ def phase_variants(dev, rng) -> dict:
     bad = {k: v for k, v in errs.items() if v}
     emit({"phase": "variants", "cases": len(errs), "mismatched": bad,
           "quotient_dags": big, "quotient_jobs": jobs,
-          "quotient_mixed": [(int(m[0].code.shape[0]), m[1], m[2], m[0].global_memory)
+          "quotient_mixed": [(int(m[0].code.shape[0]), m[1], m[2], m[0].budget)
                              for m in mixed],
           "open_table": open_table, "reduced_open_table": ro_shape,
           "perm_scan_shapes": scan_shapes,
@@ -1379,9 +1442,10 @@ def check_vm_kernels(vm, record: dict) -> dict:
                                      logup.perm_cols_plain(*entry["perm_cols"]))
         got, want = logup.perm_scan(entry["perm_scan"]), logup.perm_scan_plain(entry["perm_scan"])
         scan_err[name] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    # K7 on every AIR in one call, as the prove ran it (a second launch for
-    # the global-memory programs); a job too large for the plain version's
-    # slot file is compared on its first and last QUOTIENT_BLOCK rows
+    # K7 on every AIR in one call, as the prove ran it (a second, streamed
+    # launch for the budgeted programs); a job too large for the plain
+    # version's slot file is compared on its first and last QUOTIENT_BLOCK
+    # rows
     qrec = record["quotient"]
     got = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))
     q_err = {}
@@ -1396,6 +1460,19 @@ def check_vm_kernels(vm, record: dict) -> dict:
                           for lo, hi in ranges)
         blocks[name] = {"rows": nq, "compared": ranges,
                         "next_wraps_to": [0, (1 << lqd) - 1]}
+    # the streamed launch's column-major copies of its jobs' sources, on
+    # their first and last QUOTIENT_BLOCK rows
+    t_err = {}
+    for i, (prog, srcs, log_n, lqd) in enumerate(qrec):
+        if not prog.budget:
+            continue
+        nq = 1 << (log_n + lqd)
+        b = min(QUOTIENT_BLOCK, nq)
+        for k, m in enumerate(srcs):
+            t = qmod.transpose(m, nq)
+            t_err[f"{vm.airs[i].name}/{k}"] = max(
+                max_abs_err(t[:, lo:hi], m[lo:hi].t()) for lo, hi in ((0, b), (nq - b, nq)))
+            del t
     # K12 on every matrix of the openings in one table, as the prove ran it
     ojobs, zpows = record["openings"]
     open_err = max(max_abs_err(a, b) for a, b in
@@ -1416,6 +1493,7 @@ def check_vm_kernels(vm, record: dict) -> dict:
     errs = {"quotient_columns": max(cols_err.values()), "lookup_hist": hist_err,
             "perm_cols": max(perm_err.values()), "perm_scan": max(scan_err.values()),
             "quotient": max(q_err.values()), "open_dot": open_err,
+            "quotient_transpose": max(t_err.values(), default=0),
             "ext_powers": max_abs_err(zpows, ef.powers_plain(zpows[1], int(zpows.shape[0]))),
             "fri_fold": fold_err,
             "fri_reduced_open": max(max_abs_err(got[k], want[k]) for k in want),
@@ -1424,14 +1502,17 @@ def check_vm_kernels(vm, record: dict) -> dict:
     errs.update(commit.pop("max"))
     require(all(v == 0 for v in errs.values()),
             f"kernel and plain differ on the VM prove's inputs: {cols_err} "
-            f"{perm_err} {scan_err} {q_err} {errs}")
+            f"{perm_err} {scan_err} {q_err} {t_err} {errs}")
     return {"max": errs, "main_commit": commit, "s": time.perf_counter() - t0,
             "columns_airs": len(cols_err), "perm_airs": len(perm_err),
             "open_jobs": len(ojobs), "reduced_open_jobs": len(rjobs[0]),
             "gather_jobs": len(gplan.jobs), "quotient_blocks": blocks,
+            "transposed_sources": sorted(t_err),
             "quotient_airs": {vm.airs[i].name: {"log_n": r[2], "lqd": r[3],
+                                                "instructions": int(r[0].code.shape[0]),
                                                 "lane_words": r[0].lane_words,
-                                                "global_memory": r[0].global_memory}
+                                                "budget": r[0].budget,
+                                                "reloads": r[0].reloads}
                               for i, r in enumerate(qrec)}}
 
 
@@ -1503,21 +1584,19 @@ def check_commit_kernels(vm, record: dict) -> dict:
 
 def launch_summary(names: list, qrec: list) -> list:
     """K7's launches over quotient jobs (``names`` their AIRs): the AIRs of
-    each, its mode, slot words a row, threads, and for the global-memory
-    launch its rows in flight and scratch bytes."""
+    each, whether it is the streamed launch, slot words a row, staged code,
+    threads, blocks, shared bytes a block and the warps an SM holds."""
     progs = [r[0] for r in qrec]
     heights = [1 << (r[2] + r[3]) for r in qrec]
     out = []
-    for idx, is_global, lane_words, _, code_cap, threads in qmod.launch_plan(progs):
+    for idx, streamed, lane_words, code_cap, threads in qmod.launch_plan(progs):
         total = qmod.block_plan([heights[k] for k in idx], threads)[2]
-        entry = {"airs": [names[k] for k in idx], "global_memory": is_global,
-                 "lane_words": lane_words, "code_words": code_cap, "threads": threads,
-                 "blocks": total}
-        if is_global:
-            rows = qmod.global_rows(lane_words, total, threads)
-            entry.update(rows_in_flight=rows, scratch_bytes=4 * lane_words * rows,
-                         waves=-(-total * threads // rows))
-        out.append(entry)
+        smem = lane_words * 4 * threads + 16 * code_cap
+        out.append({"airs": [names[k] for k in idx], "streamed": streamed,
+                    "lane_words": lane_words, "code_words": code_cap, "threads": threads,
+                    "blocks": total, "smem_bytes": smem,
+                    "warps_per_sm": min(qmod.SM_SMEM_BYTES // (smem + 1024), 32)
+                    * threads // 32})
     return out
 
 
@@ -1594,12 +1673,14 @@ def run_continuations(dev, cfg: StarkConfig, exe=None, limits=CONT_LIMITS,
 
 
 def quotient_path4_timing(dev, rng, vm, heights: dict) -> dict:
-    """K7's one launch over path 4's 16 AIRs at a full segment's heights,
-    on random sources and random publics, challenges and alpha, against
-    the same launch without Poseidon2Air: its 3,658 instructions and 463
-    slot words a row size every block of the launch.  Every job equals its
-    plain version, and the rv32_base_alu job gives the same words in
-    both launches."""
+    """K7 over path 4's 16 AIRs at a full segment's heights, on random
+    sources and random publics, challenges and alpha (the shared launch
+    and Poseidon2Air's streamed launch), against the shared launch alone
+    without Poseidon2Air: its 3,658 instructions and 463 slot words a row
+    sized every block of the one launch before it was budgeted (27.04 ms
+    against 8.02 ms on this card then).  Every job equals its plain
+    version, and the rv32_base_alu job gives the same words in both
+    calls."""
     progs, srcs, log_ns, lqds = [], [], [], []
     for i, air in enumerate(vm.airs):
         vk, apk = vm.pk.vk.per_air[i], vm.pk.per_air[i]
@@ -1630,24 +1711,31 @@ def quotient_path4_timing(dev, rng, vm, heights: dict) -> dict:
     require(max_abs_err(with_p2[alu], without) == 0,
             "K7's rv32_base_alu job depends on the launch")
     del with_p2, without
-    plan, plan_wo = qmod.launch_plan(progs), qmod.launch_plan(sub[0])
+    names = [a.name for a in vm.airs]
+    recs = list(zip(progs, srcs, log_ns, lqds))
+    p2 = [k for k in range(len(progs)) if k not in keep]
     return {"heights": {a.name: heights[a.name] for a in vm.airs},
-            "launches": len(plan), "threads": plan[0][-1], "lane_words": plan[0][2],
+            "launch": launch_summary(names, recs),
             "plain_max_abs_err": max(plain_err.values()),
             "ms": cuda_ms(lambda: qmod.evaluate_many(progs, srcs, log_ns, lqds), 5),
-            "bound_ms": bound(*quotient_cost(list(zip(progs, srcs, log_ns, lqds))))[0],
+            "bound_ms": bound(*quotient_cost(recs))[0],
+            "poseidon2_alone": {
+                "ms": cuda_ms(lambda: qmod.evaluate_many(
+                    *([col[k] for k in p2] for col in (progs, srcs, log_ns, lqds))), 5),
+                "bound_ms": bound(*quotient_cost([recs[k] for k in p2]))[0]},
             "without_poseidon2": {
-                "launches": len(plan_wo), "threads": plan_wo[0][-1],
-                "lane_words": plan_wo[0][2],
-                "ms": cuda_ms(lambda: qmod.evaluate_many(*sub), 5)}}
+                "launch": launch_summary([names[k] for k in keep], [recs[k] for k in keep]),
+                "ms": cuda_ms(lambda: qmod.evaluate_many(*sub), 5),
+                "bound_ms": bound(*quotient_cost([recs[k] for k in keep]))[0]},
+            "one_launch_before_ms": {"with_poseidon2": 27.04, "without_poseidon2": 8.02}}
 
 
 def run_keccak(dev, cfg: StarkConfig) -> dict:
     """Path 5: the keccak-iteration guest's continuations (run_continuations
     with the keccak extension), held to its segments' shapes, its public
     values and pinned proofs; K7's launch plan of segment 0, every kernel
-    against plain on segment 0's own inputs, and K7's global-memory
-    launches on segment 0's keccakf and keccak_sponge jobs."""
+    against plain on segment 0's own inputs, and K7's streamed launch on
+    segment 0's keccakf and keccak_sponge jobs (``stream_timing``)."""
     kc = run_continuations(dev, cfg, build_keccak_iter_program(KECCAK_ITER_N),
                            KECCAK_LIMITS, keccak=True)
     launches, vm = kc["launches"], kc["vm"]
@@ -1659,7 +1747,7 @@ def run_keccak(dev, cfg: StarkConfig) -> dict:
                                                     "fri_reduced_open", "ext_powers",
                                                     "gather"))
             and not any(launches[k] for k in OFF_PATH),
-            f"path 5 takes two quotient launches (shared and global memory) and one "
+            f"path 5 takes two quotient launches (shared and streamed) and one "
             f"lookup_hist, perm_cols, fri_reduced_open, ext_powers and gather launch "
             f"a segment, and no elementwise K2: {launches}")
     instret = kc["metered"]["instret"]
@@ -1680,45 +1768,108 @@ def run_keccak(dev, cfg: StarkConfig) -> dict:
     require(shas == KECCAK_PROOF_SHA256, f"path 5's segment proofs sha {shas}")
     record = kc.pop("record")
     plan = launch_summary([a.name for a in vm.airs], record["quotient"])
-    require([set(e["airs"]) for e in plan if e["global_memory"]]
-            == [{"keccakf", "keccak_sponge"}],
-            f"path 5's global-memory launch: {plan}")
+    require([set(e["airs"]) for e in plan if e["streamed"]]
+            == [{"poseidon2", "keccakf", "keccak_sponge"}],
+            f"path 5's streamed launch: {plan}")
     kc.update(launches=launches, heights=seg_heights, public_values=pvs, shas=shas,
               launch_plan=plan, plain_checks=check_vm_kernels(vm, record),
-              global_mode=global_mode_timing(vm, record["quotient"]))
+              stream=stream_timing(vm, record["quotient"]))
     return kc
 
 
-def global_mode_timing(vm, qrec: list) -> dict:
-    """K7's global-memory launch on a segment's own keccakf and keccak_sponge
-    jobs, each alone and the two together (one launch), beside their bound;
-    the segment's whole quotient call (both launches); keccak_sponge's plain
-    version, and keccakf's on one block of QUOTIENT_BLOCK rows."""
+# K7's streamed launch on path 5's keccakf job, the global-memory mode it
+# replaced beside it (ms, measured on an NVIDIA H100 80GB HBM3, 700.00 W)
+GLOBAL_MODE_MS = {"keccakf": (258.6, 262.0), "keccak_sponge": (4.47, 4.53)}
+STREAM_BUDGETS = (48, 64, 128, 256, 384)
+
+
+def rebudget(vm, qrec: list, name: str, budget: int):
+    """The quotient job of AIR ``name`` (qrec: a prove's record) with its
+    program compiled again at ``budget`` slot words a row, its pool kept:
+    a budget changes the slots and the reloads, not the pool."""
+    i = vm.air_index[name]
+    prog, src, log_n, lqd = qrec[i]
+    vk, apk = vm.pk.vk.per_air[i], vm.pk.per_air[i]
+    code = qmod.compile_dag_code(vk.dag, n_main=len(vk.widths.main_widths()),
+                                 has_preprocessed=apk.preprocessed_trace is not None,
+                                 has_perm=bool(vk.widths.after_challenge), budget=budget)
+    require(code.pool_spec == prog.pool_spec, f"{name}: the pool moved at budget {budget}")
+    return (replace(code, pool=prog.pool), src, log_n, lqd)
+
+
+def stream_timing(vm, qrec: list) -> dict:
+    """K7's streamed launch on a segment's own keccakf and keccak_sponge
+    jobs: each alone and the two together (one launch), beside their bound
+    and the global-memory mode's figure; each at every budget of
+    STREAM_BUDGETS and 32, 64 and 128 threads a block, each budget's words
+    held against plain on the first QUOTIENT_BLOCK rows; the segment's
+    whole quotient call (both launches) and its shared launch alone;
+    keccak_sponge's plain version, and keccakf's on one block of
+    QUOTIENT_BLOCK rows; the column-major copy of keccakf's main LDE.  The
+    bound reads the program's function: reloads, spills and fills cost
+    nothing, so it must equal the bound of the program compiled with no
+    budget that binds."""
     idx = {vm.airs[i].name: i for i in range(len(qrec))}
     out = {}
     for name in ("keccakf", "keccak_sponge"):
         prog, _, log_n, lqd = rec = qrec[idx[name]]
         b_ms, b_by = bound(*quotient_cost([rec]))
+        huge = rebudget(vm, qrec, name, 1 << 20)
+        require(huge[0].reloads == 0 and bound(*quotient_cost([huge]))[0] == b_ms,
+                f"{name}: the bound moved with the budget")
         out[name] = {"rows": 1 << (log_n + lqd), "instructions": int(prog.code.shape[0]),
-                     "lane_words": prog.lane_words,
+                     "instructions_unbudgeted": int(huge[0].code.shape[0]),
+                     "lane_words": prog.lane_words, "budget": prog.budget,
+                     "reloads": prog.reloads, "spills": prog.spills,
                      "launch": launch_summary([name], [rec])[0],
                      "ms": cuda_ms(lambda: qmod.evaluate(*rec), 3),
-                     "bound_ms": b_ms, "bound_by": b_by}
+                     "bound_ms": b_ms, "bound_by": b_by, "global_mode_ms": GLOBAL_MODE_MS[name]}
+        sweep = {}
+        for budget in STREAM_BUDGETS:
+            try:
+                brec = rebudget(vm, qrec, name, budget)
+            except ValueError as e:  # an instruction's operands past the budget
+                sweep[str(budget)] = f"does not compile: {e}"
+                continue
+            got = qmod.evaluate(*brec)
+            err = max_abs_err(got[:QUOTIENT_BLOCK],
+                              qmod.evaluate_plain(*brec, 0, QUOTIENT_BLOCK))
+            require(err == 0, f"{name} at budget {budget} differs from plain")
+            del got
+            row = {"instructions": int(brec[0].code.shape[0]), "reloads": brec[0].reloads,
+                   "spills": brec[0].spills, "lane_words": brec[0].lane_words}
+            for threads in qmod.THREADS[::-1]:
+                qmod.STREAM_THREADS = threads
+                try:
+                    row[f"ms_{threads}"] = cuda_ms(lambda: qmod.evaluate(*brec), 3)
+                    row[f"warps_per_sm_{threads}"] = launch_summary(
+                        [name], [brec])[0]["warps_per_sm"]
+                finally:
+                    qmod.STREAM_THREADS = None
+            sweep[str(budget)] = row
+        out[name]["sweep"] = sweep
     sp = qrec[idx["keccak_sponge"]]
     out["keccak_sponge"]["plain_ms"] = cuda_ms(lambda: qmod.evaluate_plain(*sp), 1)
     kf = qrec[idx["keccakf"]]
+    # the column-major copy of keccakf's main LDE that the launch makes;
+    # the plain version is itself the one PyTorch call that does it
+    m, nq = kf[1][0], 1 << (kf[2] + kf[3])
+    out["transpose"] = {"shape": [nq, int(m.shape[1])],
+                        "ms": cuda_ms(lambda: qmod.transpose(m, nq), 3),
+                        "plain_ms": cuda_ms(lambda: qmod.transpose_plain(m, nq), 3),
+                        "bound_ms": bound(2 * nq * int(m.shape[1]) * 4, 0)[0]}
     out["keccakf"]["plain_ms_block"] = cuda_ms(
         lambda: qmod.evaluate_plain(*kf, 0, QUOTIENT_BLOCK), 1)
     out["keccakf"]["plain_block_rows"] = QUOTIENT_BLOCK
     both = [kf, sp]
     cols = [list(col) for col in zip(*both)]
     b_ms, b_by = bound(*quotient_cost(both))
-    out["global_launch"] = {"ms": cuda_ms(lambda: qmod.evaluate_many(*cols), 3),
+    out["keccak_launch"] = {"ms": cuda_ms(lambda: qmod.evaluate_many(*cols), 3),
                             "bound_ms": b_ms, "bound_by": b_by,
                             "launch": launch_summary(["keccakf", "keccak_sponge"], both)[0]}
     every = [list(col) for col in zip(*qrec)]
     out["segment_quotient_ms"] = cuda_ms(lambda: qmod.evaluate_many(*every), 3)
-    shared = [r for i, r in enumerate(qrec) if not r[0].global_memory]
+    shared = [r for r in qrec if not r[0].budget]
     out["shared_launch_ms"] = cuda_ms(
         lambda: qmod.evaluate_many(*(list(col) for col in zip(*shared))), 3)
     return out
@@ -1727,9 +1878,10 @@ def global_mode_timing(vm, qrec: list) -> dict:
 def run_sha(dev, cfg: StarkConfig) -> dict:
     """Path 6: the sha256-iteration guest's volatile VM proof (run_vm with
     the sha256 extension), held to its heights, its public values and its
-    pinned proof; K7's one launch and its block size with and without
-    sha256's two programs, and every kernel against plain on the prove's
-    own inputs."""
+    pinned proof; K7's two launches (sha256's two programs streamed) and
+    the shared launch alone without them, beside the one launch before
+    (164.0 ms against 0.19-0.20 without sha256's programs), and every
+    kernel against plain on the prove's own inputs."""
     torch.cuda.synchronize()
     start_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1739,11 +1891,13 @@ def run_sha(dev, cfg: StarkConfig) -> dict:
     launches, vm, pre = r["launches"], r["vm"], r["pre"]
     require(all(v for k, v in launches.items() if k not in OFF_PATH),
             f"a kernel of path 6 never ran: {launches}")
-    require(all(launches[k] == 1 for k in ("quotient", "lookup_hist", "perm_cols",
-                                           "fri_reduced_open", "ext_powers", "gather"))
+    require(launches["quotient"] == 2
+            and all(launches[k] == 1 for k in ("lookup_hist", "perm_cols",
+                                               "fri_reduced_open", "ext_powers", "gather"))
             and not any(launches[k] for k in OFF_PATH),
-            f"path 6 takes one quotient, lookup_hist, perm_cols, fri_reduced_open, "
-            f"ext_powers and gather launch a prove and no elementwise K2: {launches}")
+            f"path 6 takes two quotient launches (shared and streamed) and one "
+            f"lookup_hist, perm_cols, fri_reduced_open, ext_powers and gather launch "
+            f"a prove and no elementwise K2: {launches}")
     require(pre.exit_code == 0 and pre.instret == iter_insns(SHA_ITER_N),
             f"path 6's guest ran {pre.instret} instructions")
     heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
@@ -1765,13 +1919,22 @@ def run_sha(dev, cfg: StarkConfig) -> dict:
     without = qmod.evaluate_many(*(list(col) for col in zip(*sub)))[keep.index(alu)]
     require(max_abs_err(with_sha, without) == 0, "K7's rv32_base_alu job depends on the launch")
     names = [a.name for a in vm.airs]
+    streamed = [qrec[i] for i in range(len(qrec)) if i not in keep]
     quotient = {"launch": launch_summary(names, qrec),
                 "ms": cuda_ms(lambda: qmod.evaluate_many(*(list(c) for c in zip(*qrec))), 5),
                 "bound_ms": bound(*quotient_cost(qrec))[0],
+                "sha256_alone": {
+                    "ms": cuda_ms(lambda: qmod.evaluate_many(
+                        *(list(c) for c in zip(*streamed))), 5),
+                    "bound_ms": bound(*quotient_cost(streamed))[0]},
                 "without_sha256": {"launch": launch_summary([names[i] for i in keep], sub),
                                    "ms": cuda_ms(
-                    lambda: qmod.evaluate_many(*(list(c) for c in zip(*sub))), 5)}}
-    require(len(quotient["launch"]) == 1, f"path 6's K7 plan: {quotient['launch']}")
+                    lambda: qmod.evaluate_many(*(list(c) for c in zip(*sub))), 5),
+                                   "bound_ms": bound(*quotient_cost(sub))[0]},
+                "one_launch_before_ms": {"with_sha256": [162.8, 164.0],
+                                         "without_sha256": [0.19, 0.20]}}
+    require([set(e["airs"]) for e in quotient["launch"] if e["streamed"]]
+            == [{"sha256", "sha256_sponge"}], f"path 6's K7 plan: {quotient['launch']}")
     r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
              peak_gb=peak_gb, start_gb=start_gb, quotient=quotient,
              plain_checks=check_vm_kernels(vm, r.pop("record")))
@@ -1780,7 +1943,7 @@ def run_sha(dev, cfg: StarkConfig) -> dict:
 
 def phase_keccak(dev, cfg: StarkConfig, err: dict) -> tuple:
     """Path 5 (``run_keccak``) and its line; folds its plain checks into
-    ``err``.  Returns its launches and K7's global-memory timing."""
+    ``err``.  Returns its launches and K7's streamed-launch timing."""
     kc = run_keccak(dev, cfg)
     ks = kc["s"]
     err.update({k: max(v, err.get(k, 0)) for k, v in kc["plain_checks"]["max"].items()})
@@ -1801,8 +1964,8 @@ def phase_keccak(dev, cfg: StarkConfig, err: dict) -> tuple:
           "proof_bytes": [len(b) for b in kc["blobs"]], "proof_sha256": list(kc["shas"]),
           "peak_gb": kc["peak_gb"], "peak_above_start_gb": kc["peak_gb"] - kc["start_gb"],
           "launches": kc["launches"], "quotient_launch_plan": kc["launch_plan"],
-          "plain_checks": kc["plain_checks"], "quotient_global_mode": kc["global_mode"]})
-    return kc["launches"], kc["global_mode"]
+          "plain_checks": kc["plain_checks"], "quotient_stream": kc["stream"]})
+    return kc["launches"], kc["stream"]
 
 
 def phase_sha(dev, cfg: StarkConfig, err: dict) -> dict:
@@ -1897,10 +2060,11 @@ GLOBALS = {"bb_elementwise": ("bb_elementwise_kernel",), "ntt": ("ntt_pass_kerne
            "poseidon2_compress_tail": ("poseidon2_compress_tail_kernel",),
            "ext_elementwise": ("ext_elementwise_kernel",),
            "ext_powers": ("ext_powers_kernel",), "gather": ("gather_kernel",),
-           "quotient": ("quotient_kernel", "quotient_global_kernel"),
+           "quotient": ("quotient_kernel", "quotient_stream_kernel"),
            "open_dot": ("open_partial_kernel", "open_reduce_kernel"),
            "fri_reduced_open": ("reduced_open_kernel",), "fri_fold": ("fri_fold_kernel",),
-           "quotient_columns": ("columns_kernel", "columns_global_kernel"),
+           "quotient_columns": ("columns_kernel", "columns_stream_kernel"),
+           "quotient_transpose": ("transpose_kernel",),
            "perm_cols": ("perm_cols_kernel",), "perm_scan": ("perm_scan_kernel",),
            "lookup_hist": ("lookup_hist_kernel",)}
 
@@ -2233,8 +2397,9 @@ def run(dev: torch.device) -> int:
     vmr = run_vm(dev, cfg)
     v_launches = vmr["launches"]
     v_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    require(all(v for k, v in v_launches.items() if k not in OFF_PATH),
-            f"a kernel of path 3 never ran: {v_launches}")
+    require(all(v for k, v in v_launches.items() if k not in OFF_PATH + STREAMED_ONLY)
+            and not any(v_launches[k] for k in STREAMED_ONLY),
+            f"a kernel of path 3 never ran, or the streamed launch ran: {v_launches}")
     require(v_launches["lookup_hist"] == 1 and v_launches["perm_cols"] == 1
             and v_launches["fri_reduced_open"] == 1 and v_launches["ext_powers"] == 1
             and v_launches["gather"] == 1 and not any(v_launches[k] for k in OFF_PATH),
@@ -2275,11 +2440,13 @@ def run(dev: torch.device) -> int:
     n_seg = len(cont["proofs"])
     require(all(v for k, v in c_launches.items() if k not in OFF_PATH),
             f"a kernel of path 4 never ran: {c_launches}")
-    require(all(c_launches[k] == n_seg for k in ("quotient", "lookup_hist", "perm_cols",
-                                                  "fri_reduced_open", "ext_powers", "gather"))
+    require(c_launches["quotient"] == 2 * n_seg
+            and all(c_launches[k] == n_seg for k in ("lookup_hist", "perm_cols",
+                                                      "fri_reduced_open", "ext_powers", "gather"))
             and not any(c_launches[k] for k in OFF_PATH),
-            f"path 4 takes one quotient, lookup_hist, perm_cols, fri_reduced_open, "
-            f"ext_powers and gather launch a segment and no elementwise K2: {c_launches}")
+            f"path 4 takes two quotient launches (shared and Poseidon2Air's streamed) and "
+            f"one lookup_hist, perm_cols, fri_reduced_open, ext_powers and gather launch "
+            f"a segment and no elementwise K2: {c_launches}")
     instret = cont["metered"]["instret"]
     require(instret == fib_insns(CONT_FIB_N) and cont["metered"]["exit_code"] == 0,
             f"path 4's guest ran {instret} instructions")
@@ -2333,12 +2500,29 @@ def run(dev: torch.device) -> int:
     del vmr, proved
 
     # ---- paths 5 and 6: the keccak and sha256 extensions -------------------
-    k_launches, k_global = phase_keccak(dev, cfg, err)
+    k_launches, k_stream = phase_keccak(dev, cfg, err)
     s_launches = phase_sha(dev, cfg, err)
+    # the streamed launch's transpose, launched on paths 4-6 only: its row
+    # from keccakf's main LDE on path 5
+    tr = k_stream["transpose"]
+    kernels.append({
+        "name": "quotient_transpose", "route": "cuda",
+        "source": "openvm_tpu_torch/csrc/quotient.cu",
+        "entries": list(GLOBALS["quotient_transpose"]),
+        "replaces": "openvm_tpu/stark/evaluator.py:29 (K7's streamed launch reads "
+                    "column-major copies; no JAX counterpart)",
+        "launches": v_launches["quotient_transpose"],
+        "launches_path2": p_launches["quotient_transpose"],
+        "launches_path1": launches["quotient_transpose"],
+        "launches_path4": c_launches["quotient_transpose"], "max_abs_err": 0,
+        "ms": tr["ms"], "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
+        "bound_by": "bytes", "library_ms": tr["plain_ms"],
+        "library": "the plain version's one call, m[:n].t().contiguous()",
+        "shape": tr["shape"]})
     for k in kernels:
         k["launches_path5"], k["launches_path6"] = k_launches[k["name"]], s_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err.get(k["name"], 0))
-    next(k for k in kernels if k["name"] == "quotient")["global_mode_path5"] = k_global
+    next(k for k in kernels if k["name"] == "quotient")["stream_path5"] = k_stream
     print(setup["nvidia_smi"].splitlines()[0], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2388,7 +2572,7 @@ def quotient_ops(prog) -> int:
             qmod.MRSUB_EB: EXT_SCALE + EXT_ADD,
             qmod.MULFOLD_BB: MUL_OPS + EXT_SCALE + EXT_ADD,
             qmod.SUBFOLD_EE: EXT_ADD + EXT_MUL + EXT_ADD}
-    ops = sum(cost.get(int(op), 0) for op in prog.code[:, 0]) + EXT_SCALE
+    ops = sum(cost.get(int(op), 0) for op in prog.code[:, 0] & qmod.OPCODE) + EXT_SCALE
     for bit, with_inverse in ((1, True), (2, True), (4, False)):
         if prog.sel_mask & bit:
             ops += ADD_OPS + (BATCH_INV + MUL_OPS if with_inverse else 0)
@@ -2437,8 +2621,9 @@ def columns_cost(prog) -> tuple:
     its node operations, no fold and no selectors."""
     cost = {qmod.ADD_BB: ADD_OPS, qmod.SUB_BB: ADD_OPS, qmod.NEG_B: ADD_OPS,
             qmod.MUL_BB: MUL_OPS}
-    loads = {(int(a) >> 1, int(b)) for op, _, a, b in prog.code if op == qmod.LOAD_B}
-    return len(loads), sum(cost.get(int(op), 0) for op in prog.code[:, 0])
+    loads = {(int(a) >> 1, int(b)) for op, _, a, b in prog.code
+             if op & qmod.OPCODE == qmod.LOAD_B}
+    return len(loads), sum(cost.get(int(op), 0) for op in prog.code[:, 0] & qmod.OPCODE)
 
 
 def perm_cols_ops(layout) -> int:
@@ -2481,8 +2666,8 @@ def quotient_cost(recs) -> tuple:
     ops = sum((1 << (r[2] + r[3])) * quotient_ops(r[0]) for r in recs)
     nbytes = 0
     for prog, _, log_n, lqd in recs:
-        cells = {(int(a) >> 1, int(b), int(op)) for op, _, a, b in prog.code
-                 if op in (qmod.LOAD_B, qmod.LOAD_E)}
+        cells = {(int(a) >> 1, int(b), int(op) & qmod.OPCODE) for op, _, a, b in prog.code
+                 if op & qmod.OPCODE in (qmod.LOAD_B, qmod.LOAD_E)}
         row_words = sum(4 if op == qmod.LOAD_E else 1 for _, _, op in cells)
         nbytes += (1 << (log_n + lqd)) * (row_words * 4 + 16)
     return nbytes, ops
@@ -2718,6 +2903,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
             " (a modular dot product has no torch call)" if name == "open_dot" else "")))
         kernels.append({
             "name": name, "route": "cuda", "source": f"openvm_tpu_torch/csrc/{src}",
+            "entries": list(GLOBALS[name]),
             "replaces": replaces, "launches": v_launches[name],
             "launches_path2": p_launches[name], "launches_path1": launches[name],
             "launches_path4": c_launches[name],
@@ -2770,7 +2956,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
     compress = compress_timing(dev, rng, tree, sass, clock)
     by_name["poseidon2_compress_tail"]["tail_max"] = merkle.TAIL_MAX
     quotient_vm = quotient_timing(vmr)
-    quotient_global = global_timing(dev, rng, qprogs)
+    quotient_streamed = streamed_variant_timing(dev, rng, qprogs)
     hist_perm = lookup_logup_timing(vmr, dev)
     by_name["lookup_hist"].update(path3_launch=hist_perm["lookup_hist"],
                                   skew=hist_perm["skew"])
@@ -2794,7 +2980,7 @@ def timing(dev, setup, rng, main, err, traces, launches, proved, ctxs, cfg,
           "poseidon2_hash_rows_bound_issue_ms":
               by_name["poseidon2_hash_rows"].get("bound_issue_ms"),
           "compress_phase": compress, "quotient_vm": quotient_vm,
-          "quotient_global": quotient_global,
+          "quotient_streamed": quotient_streamed,
           "open_dot_path3": open_path3, "reduced_open_path3": ro_path3,
           "lookup_logup_path3": hist_perm, "series_gather": series_gather,
           "path3_bounds": path3_bounds})
@@ -3044,26 +3230,23 @@ def lookup_logup_timing(vmr, dev) -> dict:
     return out
 
 
-def global_timing(dev, rng, qprogs: dict) -> dict:
-    """K7's global-memory mode at 2^16 rows (log_n 15, lqd 1) on the
-    variants' programs past the slot limit and past the code limit: device
-    ms, rows in flight and scratch bytes, bound, and equality with plain."""
+def streamed_variant_timing(dev, rng, qprogs: dict) -> dict:
+    """K7's streamed launch at 2^16 rows (log_n 15, lqd 1) on the variants'
+    programs past the slot limit and past the code limit: device ms, the
+    launch, bound, and equality with plain."""
     log_n, lqd = 15, 1
     srcs = [words(rng, dev, 1 << (log_n + lqd), w) for w in (3, 2, 2, 8)]
     out = {}
     for name in ("past_slots", "past_code"):
         prog = qprogs[name]
-        threads = qmod.block_threads(prog.lane_words, int(prog.code.shape[0]), True)
-        total = qmod.block_plan([1 << (log_n + lqd)], threads)[2]
-        rows = qmod.global_rows(prog.lane_words, total, threads)
-        err = max_abs_err(qmod.evaluate(prog, srcs, log_n, lqd),
-                          qmod.evaluate_plain(prog, srcs, log_n, lqd))
-        require(err == 0, f"global-memory mode differs from plain at 2^16: {name}")
-        b_ms, b_by = bound(*quotient_cost([(prog, None, log_n, lqd)]))
+        rec = (prog, srcs, log_n, lqd)
+        err = max_abs_err(qmod.evaluate(*rec), qmod.evaluate_plain(*rec))
+        require(err == 0, f"the streamed launch differs from plain at 2^16: {name}")
+        b_ms, b_by = bound(*quotient_cost([rec]))
         out[name] = {"rows": 1 << (log_n + lqd), "instructions": int(prog.code.shape[0]),
-                     "lane_words": prog.lane_words, "threads": threads,
-                     "rows_in_flight": rows, "scratch_bytes": 4 * prog.lane_words * rows,
-                     "ms": cuda_ms(lambda: qmod.evaluate(prog, srcs, log_n, lqd), 3),
+                     "lane_words": prog.lane_words, "reloads": prog.reloads,
+                     "launch": launch_summary([name], [rec])[0],
+                     "ms": cuda_ms(lambda: qmod.evaluate(*rec), 3),
                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
     return out
 

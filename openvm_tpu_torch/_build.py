@@ -40,7 +40,7 @@ LAUNCHES = {"bb_elementwise": 0, "ntt": 0, "poseidon2_hash_rows": 0,
             "ext_elementwise": 0, "ext_powers": 0, "gather": 0,
             "quotient": 0, "open_dot": 0, "fri_reduced_open": 0,
             "fri_fold": 0, "quotient_columns": 0, "perm_cols": 0,
-            "perm_scan": 0, "lookup_hist": 0}
+            "perm_scan": 0, "lookup_hist": 0, "quotient_transpose": 0}
 
 _V, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
 _SIGNATURES = {
@@ -53,12 +53,13 @@ _SIGNATURES = {
     "ovt_ext_elementwise": (_I, _V, _V, _V, _LL, _I, _V),
     "ovt_ext_powers": (_U, _U, _U, _U, _V, _LL, _V),
     "ovt_gather": (_V, _V, _V, _I, _V, _LL, _V, _V),
-    "ovt_quotient": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _V, _LL, _V),
+    "ovt_quotient": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V, _V),
     "ovt_open_partial": (_V, _I, _I, _V, _V, _V),
     "ovt_open_reduce": (_V, _I, _V, _LL, _V, _V),
     "ovt_fri_fold": (_V, _V, _V, _V, _LL, _I, _V, _V),
     "ovt_reduced_open": (_V, _I, _V, _V, _I, _V, _U, _I, _V, _V),
-    "ovt_quotient_columns": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _V, _LL, _V),
+    "ovt_transpose": (_V, _LL, _V, _LL, _I, _V),
+    "ovt_quotient_columns": (_V, _I, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V, _V),
     "ovt_perm_cols": (_V, _I, _I, _V, _V, _V, _V, _I, _I, _I, _V),
     "ovt_perm_scan": (_V, _LL, _I, _V, _V, _V),
     "ovt_lookup_hist": (_V, _I, _I, _I, _V, _V, _U, _V, _V, _U, _U, _V),

@@ -38,18 +38,31 @@
 //    32 banks (an extension slot's 16 bytes in four conflict-free phases).
 //    The wrapper sizes T from the largest program's words per row and code
 //    and the SM's 227 KB (stark/quotient.py block_threads).
-//  * Global-memory mode, for programs whose code and slots do not fit one
-//    SM's shared memory beside each other (keccakf's 56,186 instructions
-//    are 899 KB of code; the ECC and Fp2 chips need 1,600-1,700 slot words
-//    a row): the same body instantiated with the code read from global
-//    memory through the read-only path (it stays in the 50 MB L2) and the
-//    slots in a global scratch laid out slot-major over the R = blocks x T
-//    rows in flight (slot s of row r at word s R + r), so a warp's access
-//    to one slot is one coalesced transaction; every job of the launch
-//    puts its extension file after the launch's largest base file (J_NBASE),
-//    as rows of different jobs are in flight together.  The wrapper caps R
-//    (stark/quotient.py global_rows); a block walks the plan's blocks with
-//    a grid stride.  No cp.async here: its target must be shared memory.
+//  * Streamed mode, for the programs whose slots and code would shrink the
+//    shared launch's blocks (Poseidon2Air, sha256's, keccakf with 56,186
+//    instructions, the ECC and Fp2 chips with 1,600-1,700 slot words a row
+//    held): the compiler fits each in a budget of slot words a row by
+//    loading a cell, constant or selector again rather than holding it
+//    (stark/quotient.py _WordFile), its code (up to 899 KB) is staged
+//    through a ring of two 64-instruction chunks in shared memory, each
+//    chunk read into registers a chunk ahead and published by a barrier,
+//    so an instruction is read from shared memory as in shared mode
+//    (read from L2 each time it cost about twice the cycles), and its
+//    slots stay in shared memory, so no value slot goes to device memory.  Both types share one file there:
+//    base slot w of row l is word w L + l, extension slot g words 4g L + l
+//    to (4g + 3) L + l, four conflict-free accesses.  A load there issues
+//    its cp.async and goes on: the compiler moves each load up to eight
+//    instructions ahead of its slot's first read and marks that read
+//    WAIT (stark/quotient.py _schedule_loads).  Its sources are
+//    column-major copies of the LDEs' quotient rows (transpose_kernel,
+//    about 7 ms for keccakf's 11 GB), so a warp's load of one cell of its
+//    32 neighbouring rows is one 128-byte access; row-major, it touched 32
+//    sectors for 128 useful bytes, and at keccakf's 2,633 columns those
+//    rows leave the 50 MB L2 between reloads.  Where even the
+//    budget's computed values do not fit, the compiler stores the one read
+//    again farthest ahead to a spill file in device memory, slot-major over
+//    the launch's rows as a warp's 32 rows make one 128-byte access (SPILL
+//    once, FILL before each later read).
 //  * is_first_row and is_last_row come from tables of the quotient domain in
 //    LDE order (built once per domain by batch inversion); is_transition is
 //    x - w_n^-1 from the LDE points; 1/Z_H from its 2^lqd values in the pool.
@@ -77,12 +90,18 @@ namespace {
 // stark/quotient.py's opcodes; MADD_EB, MSUB_EB and MRSUB_EB are an
 // extension add or sub fused with the product (extension a, base b) that
 // only it uses: d = d + a*b, d - a*b, a*b - d; MULFOLD_BB and SUBFOLD_EE
-// fold a root computed only for its fold, alpha^e at pool word d.
+// fold a root computed only for its fold, alpha^e at pool word d; SPILL
+// stores slot a (extension when b) at spill word d of the row, FILL loads
+// spill word a back into slot d.
 enum Op : int {
   CONST_B, CONST_E, LOAD_B, LOAD_E, SEL, ADD_BB, SUB_BB, MUL_BB, NEG_B,
   ADD_EE, SUB_EE, MUL_EE, NEG_E, ADD_EB, SUB_EB, SUB_BE, MUL_EB, FOLD_B,
-  FOLD_E, STORE_B, MADD_EB, MSUB_EB, MRSUB_EB, MULFOLD_BB, SUBFOLD_EE, N_OPS
+  FOLD_E, STORE_B, MADD_EB, MSUB_EB, MRSUB_EB, MULFOLD_BB, SUBFOLD_EE, SPILL, FILL, N_OPS
 };
+
+// Streamed mode's code ring (stark/quotient.py CODE_RING): two chunks.
+constexpr int CHUNK = 64;
+constexpr int RING = 2 * CHUNK;
 
 // stark/quotient.py J_* and JOB_WORDS
 enum Job : int {
@@ -97,23 +116,52 @@ __device__ __forceinline__ uint32_t rev_bits(uint32_t x, int bits) {
 using ext::to_e;
 using ext::to_u4;
 
-// Slot files of one block: base slot s of lane l at bf[s L + l], extension
-// slot s at ef[s L + l]; a thread's lane is its thread index.
+// Slot files of one block, a thread's lane its thread index.  Typed files
+// (shared mode): base slot s of lane l at bf[s L + l], extension slot s at
+// ef[s L + l].  One word file (WORDS, streamed mode): base slot w at
+// bf[w L + l], extension slot g in words 4g to 4g + 3.
+template <bool WORDS>
 struct Slots {
   uint32_t* bf;
   uint4* ef;
   uint32_t L, tid;
   __device__ __forceinline__ uint32_t& b(int s) const { return bf[s * L + tid]; }
-  __device__ __forceinline__ uint4& e(int s) const { return ef[s * L + tid]; }
+  // word w of extension slot s
+  __device__ __forceinline__ uint32_t* ew(int s, int w) const {
+    if constexpr (WORDS)
+      return &bf[(4 * s + w) * L + tid];
+    else
+      return reinterpret_cast<uint32_t*>(&ef[s * L + tid]) + w;
+  }
+  __device__ __forceinline__ ext::E e(int s) const {
+    if constexpr (WORDS)
+      return ext::E{{*ew(s, 0), *ew(s, 1), *ew(s, 2), *ew(s, 3)}};
+    else
+      return to_e(ef[s * L + tid]);
+  }
+  __device__ __forceinline__ void set_e(int s, const ext::E& x) const {
+    if constexpr (WORDS) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) *ew(s, w) = x.c[w];
+    } else {
+      ef[s * L + tid] = to_u4(x);
+    }
+  }
 };
 
 // One block's state, shared by the opcodes' bodies (all inlined, so the
 // lane's values stay in registers).
+template <bool WORDS>
 struct Ctx {
-  Slots S;
+  // streamed mode: column-major sources (pointer, column stride), loads
+  // issued without a wait (WAIT on a later instruction)
+  static constexpr bool STREAMED = WORDS;
+  Slots<WORDS> S;
   const uint32_t* pool;
   const long long* src;
   const long long* job;
+  uint32_t* spill;  // spill word w of the launch's row g at spill[w R + g]
+  size_t R, g;
   uint32_t nq;
   uint32_t rows[2], orow, sel[3];
   bool valid;
@@ -134,28 +182,48 @@ __device__ __forceinline__ void cp_async_wait() {
 // A load instruction's cells copied straight into its slot, asynchronously:
 // issued while the instruction before it runs, so that its memory latency
 // overlaps that one.
-__device__ __forceinline__ void load_async(const Ctx& c, const int4& ins) {
-  const uint32_t* m = (const uint32_t*)c.src[2 * (ins.z >> 1)] + ins.w;
-  const long long stride = c.src[2 * (ins.z >> 1) + 1];
-  const uint32_t* p = m + (long long)((ins.z & 1) ? c.rows[1] : c.rows[0]) * stride;
+// Cell (row, column) of source k: a row-major matrix (pointer, row stride),
+// or in streamed mode a column-major copy (pointer, column stride); the
+// next three columns are ``step`` words on.
+template <class C>
+__device__ __forceinline__ const uint32_t* cell(const C& c, int k, uint32_t row, int col,
+                                                long long& step) {
+  const uint32_t* m = (const uint32_t*)c.src[2 * k];
+  const long long stride = c.src[2 * k + 1];
+  if constexpr (C::STREAMED) {
+    step = stride;
+    return m + col * stride + row;
+  } else {
+    step = 1;
+    return m + col + (long long)row * stride;
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void load_async(const C& c, const int4& ins) {
+  long long step;
+  const uint32_t* p = cell(c, ins.z >> 1, (ins.z & 1) ? c.rows[1] : c.rows[0], ins.w, step);
   if (ins.x == LOAD_B) {
     cp_async4(&c.S.b(ins.y), p);
   } else {
-    uint32_t* e = reinterpret_cast<uint32_t*>(&c.S.e(ins.y));
 #pragma unroll
-    for (int w = 0; w < 4; ++w) cp_async4(e + w, p + w);
+    for (int w = 0; w < 4; ++w) cp_async4(c.S.ew(ins.y, w), p + w * step);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int OP, bool QUOTIENT>
-__device__ __forceinline__ void exec(Ctx& c, int d, int a, int b, int issued) {
-  const Slots& S = c.S;
+template <int OP, bool QUOTIENT, class C>
+__device__ __forceinline__ void exec(C& c, int d, int a, int b, int issued) {
+  const auto& S = c.S;
   if constexpr (OP == CONST_B) {
     S.b(d) = c.pool[a];
   } else if constexpr (OP == CONST_E) {
-    S.e(d) = make_uint4(c.pool[a], c.pool[a + 1], c.pool[a + 2], c.pool[a + 3]);
+    S.set_e(d, ext::E{{c.pool[a], c.pool[a + 1], c.pool[a + 2], c.pool[a + 3]}});
   } else if constexpr (OP == LOAD_B || OP == LOAD_E) {
+    if constexpr (C::STREAMED) {  // waited for by the WAIT the compiler set
+      load_async(c, make_int4(OP, d, a, b));
+      return;
+    }
     if (issued) {  // load_async put the cells in the slot (2: a later copy is out)
       if (issued == 2)
         cp_async_wait<1>();
@@ -163,12 +231,12 @@ __device__ __forceinline__ void exec(Ctx& c, int d, int a, int b, int issued) {
         cp_async_wait<0>();
       return;
     }
-    const uint32_t* m = (const uint32_t*)c.src[2 * (a >> 1)] + b;
-    const uint32_t* p = m + (long long)((a & 1) ? c.rows[1] : c.rows[0]) * c.src[2 * (a >> 1) + 1];
+    long long step;
+    const uint32_t* p = cell(c, a >> 1, (a & 1) ? c.rows[1] : c.rows[0], b, step);
     if constexpr (OP == LOAD_B)
       S.b(d) = __ldg(p);
     else
-      S.e(d) = make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+      S.set_e(d, ext::E{{__ldg(p), __ldg(p + step), __ldg(p + 2 * step), __ldg(p + 3 * step)}});
   } else if constexpr (OP == SEL) {
     S.b(d) = a == 0 ? c.sel[0] : (a == 1 ? c.sel[1] : c.sel[2]);
   } else if constexpr (OP == ADD_BB) {
@@ -180,48 +248,65 @@ __device__ __forceinline__ void exec(Ctx& c, int d, int a, int b, int issued) {
   } else if constexpr (OP == NEG_B) {
     S.b(d) = bb::sub(0u, S.b(a));
   } else if constexpr (OP == ADD_EE) {
-    S.e(d) = to_u4(ext::add(to_e(S.e(a)), to_e(S.e(b))));
+    S.set_e(d, ext::add(S.e(a), S.e(b)));
   } else if constexpr (OP == SUB_EE) {
-    S.e(d) = to_u4(ext::sub(to_e(S.e(a)), to_e(S.e(b))));
+    S.set_e(d, ext::sub(S.e(a), S.e(b)));
   } else if constexpr (OP == MUL_EE) {
-    S.e(d) = to_u4(ext::mul(to_e(S.e(a)), to_e(S.e(b))));
+    S.set_e(d, ext::mul(S.e(a), S.e(b)));
   } else if constexpr (OP == NEG_E) {
-    S.e(d) = to_u4(ext::neg(to_e(S.e(a))));
+    S.set_e(d, ext::neg(S.e(a)));
   } else if constexpr (OP == ADD_EB) {
-    ext::E x = to_e(S.e(a));
+    ext::E x = S.e(a);
     x.c[0] = bb::add(x.c[0], S.b(b));
-    S.e(d) = to_u4(x);
+    S.set_e(d, x);
   } else if constexpr (OP == SUB_EB) {
-    ext::E x = to_e(S.e(a));
+    ext::E x = S.e(a);
     x.c[0] = bb::sub(x.c[0], S.b(b));
-    S.e(d) = to_u4(x);
+    S.set_e(d, x);
   } else if constexpr (OP == SUB_BE) {  // base a minus extension b
-    ext::E x = ext::neg(to_e(S.e(b)));
+    ext::E x = ext::neg(S.e(b));
     x.c[0] = bb::add(x.c[0], S.b(a));
-    S.e(d) = to_u4(x);
+    S.set_e(d, x);
   } else if constexpr (OP == MUL_EB) {
-    S.e(d) = to_u4(ext::scale(to_e(S.e(a)), S.b(b)));
+    S.set_e(d, ext::scale(S.e(a), S.b(b)));
   } else if constexpr (OP == MADD_EB) {
-    S.e(d) = to_u4(ext::add(to_e(S.e(d)), ext::scale(to_e(S.e(a)), S.b(b))));
+    S.set_e(d, ext::add(S.e(d), ext::scale(S.e(a), S.b(b))));
   } else if constexpr (OP == MSUB_EB) {
-    S.e(d) = to_u4(ext::sub(to_e(S.e(d)), ext::scale(to_e(S.e(a)), S.b(b))));
+    S.set_e(d, ext::sub(S.e(d), ext::scale(S.e(a), S.b(b))));
   } else if constexpr (OP == MRSUB_EB) {
-    S.e(d) = to_u4(ext::sub(ext::scale(to_e(S.e(a)), S.b(b)), to_e(S.e(d))));
+    S.set_e(d, ext::sub(ext::scale(S.e(a), S.b(b)), S.e(d)));
   } else if constexpr (OP == MULFOLD_BB) {
     if constexpr (QUOTIENT)
       c.acc = ext::add(c.acc, ext::scale(ext::load(c.pool + d), bb::mul(S.b(a), S.b(b))));
   } else if constexpr (OP == SUBFOLD_EE) {
     if constexpr (QUOTIENT)
-      c.acc = ext::add(c.acc, ext::mul(ext::sub(to_e(S.e(a)), to_e(S.e(b))),
+      c.acc = ext::add(c.acc, ext::mul(ext::sub(S.e(a), S.e(b)),
                                        ext::load(c.pool + d)));
   } else if constexpr (OP == FOLD_B) {
     if constexpr (QUOTIENT) c.acc = ext::add(c.acc, ext::scale(ext::load(c.pool + b), S.b(a)));
   } else if constexpr (OP == FOLD_E) {
     if constexpr (QUOTIENT)
-      c.acc = ext::add(c.acc, ext::mul(to_e(S.e(a)), ext::load(c.pool + b)));
+      c.acc = ext::add(c.acc, ext::mul(S.e(a), ext::load(c.pool + b)));
   } else if constexpr (OP == STORE_B) {
     if constexpr (!QUOTIENT)
       if (c.valid) ((uint32_t*)c.job[J_OUT])[(long long)b * c.nq + c.orow] = S.b(a);
+  } else if constexpr (!C::STREAMED) {
+    return;  // SPILL and FILL: budgeted programs only
+  } else if constexpr (OP == SPILL) {
+    uint32_t* p = c.spill + (size_t)d * c.R + c.g;
+    if (b) {
+      const ext::E x = S.e(a);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) p[w * c.R] = x.c[w];
+    } else {
+      *p = S.b(a);
+    }
+  } else if constexpr (OP == FILL) {
+    const uint32_t* p = c.spill + (size_t)a * c.R + c.g;
+    if (b)
+      S.set_e(d, ext::E{{p[0], p[c.R], p[2 * c.R], p[3 * c.R]}});
+    else
+      S.b(d) = *p;
   }
 }
 
@@ -229,8 +314,8 @@ __device__ __forceinline__ void exec(Ctx& c, int d, int a, int b, int issued) {
 // five uniform branches deep.  A switch compiles to a jump table and an
 // indirect branch, which costs this card more than twice as many cycles an
 // instruction.
-template <int LO, int HI, bool QUOTIENT>
-__device__ __forceinline__ void dispatch(int op, Ctx& c, int d, int a, int b, int issued) {
+template <int LO, int HI, bool QUOTIENT, class C>
+__device__ __forceinline__ void dispatch(int op, C& c, int d, int a, int b, int issued) {
   if constexpr (HI - LO == 1) {
     exec<LO, QUOTIENT>(c, d, a, b, issued);
   } else {
@@ -242,17 +327,24 @@ __device__ __forceinline__ void dispatch(int op, Ctx& c, int d, int a, int b, in
   }
 }
 
-// The body of every kernel: plan block vb of its job, one lane (row) a
-// thread.  GLOBAL: code in global memory, slots in the scratch (slot s of
-// the thread's lane at s * gridDim.x * blockDim.x + its global index).
-template <bool QUOTIENT, bool GLOBAL>
+// stark/quotient.py WAIT: the instruction waits for its thread's loads in
+// flight first (streamed mode); OPCODE masks it off.
+constexpr int WAIT = 256;
+constexpr int OPCODE = 255;
+
+// The body of every kernel: block blockIdx.x of its job, one lane (row) a
+// thread.  STREAM: the code streamed through a ring, the slots in one word
+// file, column-major sources, loads without a wait, SPILL and FILL; else
+// the job's code staged whole in shared memory ahead of typed files.
+template <bool QUOTIENT, bool STREAM>
 __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, int n_jobs,
                                           const int4* __restrict__ code_all,
                                           const uint32_t* __restrict__ pool_all,
                                           const long long* __restrict__ src_all,
                                           const uint32_t* __restrict__ xs, int code_cap,
-                                          uint32_t* __restrict__ scratch, long long vb) {
+                                          uint32_t* __restrict__ spill) {
   extern __shared__ uint4 smem[];
+  const long long vb = blockIdx.x;
   int jk = 0;
   while (jk + 1 < n_jobs && vb >= jobs[(jk + 1) * JOB_WORDS + J_BLOCK0]) ++jk;
   const long long* job = jobs + jk * JOB_WORDS;
@@ -261,29 +353,38 @@ __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, in
   const uint32_t qd = 1u << (int)job[J_LQD];
   const int sel_mask = (int)job[J_SEL];
 
-  // Shared mode stages the job's code in shared memory ahead of the slot
-  // files; global mode reads it where it is.
+  // Shared mode stages the job's code whole ahead of the slot files.
+  // Streamed mode stages it through a ring of two chunks of CHUNK
+  // instructions: chunk 0 now, and each next chunk, held in registers since
+  // the start of the chunk before it, stored and published by a barrier
+  // just before the first read-ahead into it (``stage``).
   const int4* code = code_all + job[J_CODE];
-  if constexpr (!GLOBAL) {
-    int4* staged = reinterpret_cast<int4*>(smem);
+  int4* staged = reinterpret_cast<int4*>(smem);
+  int4 held[CHUNK / 32];  // this thread's share of the next chunk (streamed)
+  if constexpr (!STREAM) {
     for (int i = threadIdx.x; i < n_instr; i += blockDim.x) staged[i] = code[i];
-    code = staged;
+  } else {
+    for (int i = threadIdx.x; i < CHUNK && i < n_instr; i += blockDim.x) staged[i] = code[i];
+#pragma unroll
+    for (int k = 0; k < CHUNK / 32; ++k) {
+      const int i = CHUNK + threadIdx.x + k * (int)blockDim.x;
+      if (threadIdx.x + k * blockDim.x < CHUNK && i < n_instr) held[k] = __ldg(code + i);
+    }
   }
-  Ctx c;
+  Ctx<STREAM> c;
   c.pool = pool_all + job[J_POOL];
   c.src = src_all + 2 * job[J_SRC];
   c.job = job;
   c.nq = 1u << log_q;
-  if constexpr (GLOBAL) {
-    c.S.L = gridDim.x * blockDim.x;
-    c.S.tid = blockIdx.x * blockDim.x + threadIdx.x;
-    c.S.bf = scratch;
-  } else {
-    c.S.L = blockDim.x;
-    c.S.tid = threadIdx.x;
-    c.S.bf = reinterpret_cast<uint32_t*>(smem + code_cap);
-  }
+  c.S.L = blockDim.x;
+  c.S.tid = threadIdx.x;
+  c.S.bf = reinterpret_cast<uint32_t*>(smem + code_cap);  // streamed: code_cap = RING
   c.S.ef = reinterpret_cast<uint4*>(c.S.bf + (uint32_t)job[J_NBASE] * c.S.L);
+  if constexpr (STREAM) {
+    c.spill = spill;
+    c.R = (size_t)gridDim.x * blockDim.x;
+    c.g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  }
 
   // The lane's rows (local, next), its output row, whether it lies below
   // the height (a job shorter than a block repeats rows and stores nothing
@@ -313,18 +414,37 @@ __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, in
     c.sel[2] = (sel_mask & 4) && !last_row ? bb::ONE : 0u;
   }
   c.acc = ext::zero();
-  if constexpr (!GLOBAL) __syncthreads();
+  __syncthreads();
 
   auto fetch = [&](int pc) -> int4 {
-    if constexpr (GLOBAL)
-      return __ldg(code + pc);
+    if constexpr (STREAM)
+      return staged[pc & (RING - 1)];
     else
-      return code[pc];
+      return staged[pc];
   };
-  // Two instructions are read ahead.  In shared mode, after an instruction
+  // Streamed: chunk k = first / CHUNK goes into its ring half, which held
+  // chunk k - 2, read by no thread since the barrier before chunk k - 1;
+  // the barrier publishes it; then chunk k + 1 is read into registers.
+  auto stage = [&](int first) {
+    int4* half = staged + (first & (RING - 1));
+#pragma unroll
+    for (int k = 0; k < CHUNK / 32; ++k) {
+      const int i = threadIdx.x + k * (int)blockDim.x;
+      if (i < CHUNK && first + i < n_instr) half[i] = held[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < CHUNK / 32; ++k) {
+      const int i = first + CHUNK + threadIdx.x + k * (int)blockDim.x;
+      if (threadIdx.x + k * blockDim.x < CHUNK && i < n_instr) held[k] = __ldg(code + i);
+    }
+  };
+  // Two instructions are read ahead.  Shared mode: after an instruction
   // runs, the one after next, when it is a load whose slot the next one
   // neither reads nor writes, has its copy issued, so that it overlaps the
-  // next one.
+  // next one.  Streamed mode: a load issues its copy and goes on; the
+  // compiler moved it up to LOAD_AHEAD instructions ahead of its slot's
+  // first read, which waits (WAIT) for every copy in flight.
   const int4 none = make_int4(-1, -1, -1, -1);
   int4 nxt = n_instr > 0 ? fetch(0) : none;
   int4 nxt2 = n_instr > 1 ? fetch(1) : none;
@@ -334,18 +454,25 @@ __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, in
     const bool out = out1;
     nxt = nxt2;
     out1 = out2;
+    if constexpr (STREAM)
+      if (((pc + 2) & (CHUNK - 1)) == 0 && pc + 2 < n_instr) stage(pc + 2);
     nxt2 = pc + 2 < n_instr ? fetch(pc + 2) : none;
     out2 = false;
-    // a copy issued for ins is waited for, leaving a later one (nxt's) out
-    dispatch<0, N_OPS, QUOTIENT>(ins.x, c, ins.y, ins.z, ins.w, out ? (out1 ? 2 : 1) : 0);
-    if constexpr (!GLOBAL) {
-      if ((nxt2.x == LOAD_B || nxt2.x == LOAD_E) && nxt2.y != nxt.y &&
-          nxt2.y != nxt.z && nxt2.y != nxt.w) {
+    if constexpr (STREAM) {
+      if (ins.x & WAIT) cp_async_wait<0>();
+      dispatch<0, N_OPS, QUOTIENT>(ins.x & OPCODE, c, ins.y, ins.z, ins.w, 0);
+    } else {
+      // a copy issued for ins is waited for, leaving a later one (nxt's)
+      // out; no SPILL or FILL here
+      dispatch<0, SPILL, QUOTIENT>(ins.x, c, ins.y, ins.z, ins.w, out ? (out1 ? 2 : 1) : 0);
+      if ((nxt2.x == LOAD_B || nxt2.x == LOAD_E) && nxt2.y != nxt.y && nxt2.y != nxt.z &&
+          nxt2.y != nxt.w) {
         load_async(c, nxt2);
         out2 = true;
       }
     }
   }
+  if constexpr (STREAM) cp_async_wait<0>();
   if (QUOTIENT && c.valid)
     ext::store((uint32_t*)job[J_OUT] + 4ull * c.orow,
                ext::scale(c.acc, pool_all[job[J_ZH] + (c.orow & (qd - 1))]));
@@ -355,75 +482,95 @@ __device__ __forceinline__ void interpret(const long long* __restrict__ jobs, in
 #define OVT_INTERP_ARGS                                                              \
   const long long* __restrict__ jobs, int n_jobs, const int4* __restrict__ code_all, \
       const uint32_t* __restrict__ pool_all, const long long* __restrict__ src_all,  \
-      const uint32_t* __restrict__ xs, int code_cap
-#define OVT_GLOBAL_ARGS OVT_INTERP_ARGS, uint32_t* __restrict__ scratch, long long vblocks
+      const uint32_t* __restrict__ xs, int code_cap, uint32_t* __restrict__ spill
+#define OVT_INTERP_CALL jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, spill
 
 __global__ void __launch_bounds__(128) quotient_kernel(OVT_INTERP_ARGS) {
-  interpret<true, false>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, nullptr,
-                         blockIdx.x);
+  interpret<true, false>(OVT_INTERP_CALL);
 }
 
 __global__ void __launch_bounds__(128) columns_kernel(OVT_INTERP_ARGS) {
-  interpret<false, false>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, nullptr,
-                          blockIdx.x);
+  interpret<false, false>(OVT_INTERP_CALL);
 }
 
-__global__ void __launch_bounds__(128) quotient_global_kernel(OVT_GLOBAL_ARGS) {
-  for (long long vb = blockIdx.x; vb < vblocks; vb += gridDim.x)
-    interpret<true, true>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, scratch,
-                          vb);
+__global__ void __launch_bounds__(128) quotient_stream_kernel(OVT_INTERP_ARGS) {
+  interpret<true, true>(OVT_INTERP_CALL);
 }
 
-__global__ void __launch_bounds__(128) columns_global_kernel(OVT_GLOBAL_ARGS) {
-  for (long long vb = blockIdx.x; vb < vblocks; vb += gridDim.x)
-    interpret<false, true>(jobs, n_jobs, code_all, pool_all, src_all, xs, code_cap, scratch,
-                           vb);
+__global__ void __launch_bounds__(128) columns_stream_kernel(OVT_INTERP_ARGS) {
+  interpret<false, true>(OVT_INTERP_CALL);
 }
 
-// Shared mode when scratch is null: ``blocks`` plan blocks, smem_bytes of
-// dynamic shared memory.  Global mode otherwise: ``blocks`` blocks walk the
-// plan's ``vblocks`` blocks, the slots in scratch.
-template <class K, class G>
-int launch(K shared_kernel, G global_kernel, bool& configured, const void* jobs, int n_jobs,
-           const void* code, const void* pool, const void* src, const void* xs, int threads,
-           int blocks, int smem_bytes, int code_cap, void* scratch, long long vblocks,
+// ``blocks`` plan blocks of ``threads`` threads and smem_bytes of dynamic
+// shared memory, in the streamed kernel when ``streamed`` (``spill``: its
+// spill file, n_spill words for each of its blocks x threads rows).
+template <class K>
+int launch(K shared_kernel, K stream_kernel, bool (&configured)[2], const void* jobs,
+           int n_jobs, const void* code, const void* pool, const void* src, const void* xs,
+           int threads, int blocks, int smem_bytes, int code_cap, int streamed, void* spill,
            void* stream) {
-  if (!configured) {  // shared memory above 48 KB is opt-in
-    const cudaError_t e = cudaFuncSetAttribute(
-        shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  const K kernel = streamed ? stream_kernel : shared_kernel;
+  if (!configured[streamed != 0]) {  // shared memory above 48 KB is opt-in
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured[streamed != 0] = true;
   }
   if (blocks == 0) return (int)cudaGetLastError();
-  if (scratch)
-    global_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const long long*)jobs, n_jobs, (const int4*)code, (const uint32_t*)pool,
-        (const long long*)src, (const uint32_t*)xs, code_cap, (uint32_t*)scratch, vblocks);
-  else
-    shared_kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
-        (const long long*)jobs, n_jobs, (const int4*)code, (const uint32_t*)pool,
-        (const long long*)src, (const uint32_t*)xs, code_cap);
+  kernel<<<blocks, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const long long*)jobs, n_jobs, (const int4*)code, (const uint32_t*)pool,
+      (const long long*)src, (const uint32_t*)xs, code_cap, (uint32_t*)spill);
   return (int)cudaGetLastError();
+}
+
+// out[c n + r] = in[r stride + c] for r < n, c < w: 32 x 32 tiles through
+// shared memory, a warp reading 32 columns of a row and writing 32 rows of
+// a column (128 bytes each).
+__global__ void __launch_bounds__(256) transpose_kernel(const uint32_t* __restrict__ in,
+                                                        long long stride,
+                                                        uint32_t* __restrict__ out,
+                                                        long long n, int w) {
+  __shared__ uint32_t tile[32][33];
+  const long long r0 = (long long)blockIdx.x * 32;
+  const int c0 = blockIdx.y * 32;
+  for (int k = threadIdx.y; k < 32; k += 8) {
+    const long long r = r0 + k;
+    const int c = c0 + threadIdx.x;
+    if (r < n && c < w) tile[k][threadIdx.x] = in[r * stride + c];
+  }
+  __syncthreads();
+  for (int k = threadIdx.y; k < 32; k += 8) {
+    const int c = c0 + k;
+    const long long r = r0 + threadIdx.x;
+    if (r < n && c < w) out[(long long)c * n + r] = tile[threadIdx.x][k];
+  }
 }
 
 }  // namespace
 
+extern "C" int ovt_transpose(const void* in, long long stride, void* out, long long n, int w,
+                             void* stream) {
+  if (n == 0 || w == 0) return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((n + 31) / 32), (unsigned)((w + 31) / 32));
+  transpose_kernel<<<grid, dim3(32, 8), 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)in, stride, (uint32_t*)out, n, w);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ovt_quotient(const void* jobs, int n_jobs, const void* code,
                             const void* pool, const void* src, const void* xs,
                             int threads, int blocks, int smem_bytes, int code_cap,
-                            void* scratch, long long vblocks, void* stream) {
-  static bool configured = false;
-  return launch(quotient_kernel, quotient_global_kernel, configured, jobs, n_jobs, code,
-                pool, src, xs, threads, blocks, smem_bytes, code_cap, scratch, vblocks,
-                stream);
+                            int streamed, void* spill, void* stream) {
+  static bool configured[2] = {false, false};
+  return launch(quotient_kernel, quotient_stream_kernel, configured, jobs, n_jobs, code,
+                pool, src, xs, threads, blocks, smem_bytes, code_cap, streamed, spill, stream);
 }
 
 extern "C" int ovt_quotient_columns(const void* jobs, int n_jobs, const void* code,
                                     const void* pool, const void* src, const void* xs,
                                     int threads, int blocks, int smem_bytes, int code_cap,
-                                    void* scratch, long long vblocks, void* stream) {
-  static bool configured = false;
-  return launch(columns_kernel, columns_global_kernel, configured, jobs, n_jobs, code,
-                pool, src, xs, threads, blocks, smem_bytes, code_cap, scratch, vblocks,
-                stream);
+                                    int streamed, void* spill, void* stream) {
+  static bool configured[2] = {false, false};
+  return launch(columns_kernel, columns_stream_kernel, configured, jobs, n_jobs, code,
+                pool, src, xs, threads, blocks, smem_bytes, code_cap, streamed, spill, stream);
 }

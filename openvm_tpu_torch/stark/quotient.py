@@ -13,9 +13,13 @@ proving key), ``bind`` fills the program's constant pool with one prove's
 values, and one interpreter evaluates it:
   * ``evaluate_many`` runs kernel K7+K11 (csrc/quotient.cu) on CUDA
     tensors: one launch for every AIR of a prove, each thread evaluating
-    one quotient-domain row with its value slots in shared memory, and one
-    more launch in the kernel's global-memory mode for the programs too
-    large for shared memory (keccakf, the ECC and Fp2 chips);
+    one quotient-domain row with its value slots in shared memory beside
+    its job's code, and one more launch, with the code streamed from
+    global memory, for the programs too large to share the first without
+    shrinking its blocks (Poseidon2Air, sha256's, keccakf, the ECC and Fp2
+    chips), which the compiler fits in BUDGET slot words a row by loading
+    cells, constants and selectors again rather than holding them and by
+    spilling computed values, and whose sources it reads column-major;
     ``evaluate`` is the one-AIR case;
   * ``evaluate_plain`` runs the same bytecode with int64 torch operations
     over all rows at once (any device).
@@ -25,8 +29,9 @@ and the JAX package's group-and-shift recombination (prover.py:634-646)
 and batched ``logup.eval_logup_folded`` (logup.py:350).  All constraint
 roots are folded in one pass, the LogUp constraints that keygen appends
 included.  The program's operations are typed by static tags (base or
-extension), and base and extension values live in separate slot files, so
-the interpreter never promotes at run time and a base value takes one word.
+extension), and base and extension values live in separate slot files (one
+shared word file in a budgeted program), so the interpreter never promotes
+at run time and a base value takes one word.
 
 The quotient domain is the first 2^log_q rows of a bit-reversed LDE, put
 back in natural order (prover.py:528-531): natural row j is LDE row
@@ -58,23 +63,32 @@ P = bb.P
 
 # The kernel's plan (csrc/quotient.cu): each thread takes one row; a row's
 # slots take ``lane_words`` words (one per base slot, four per extension
-# slot).  A block of T threads holds its job's code (16 bytes an
-# instruction) and the slots of its T rows in the SM's 227 KB; a program for
-# which even T = 32 does not fit runs in the kernel's global-memory mode,
-# with its code read from global memory and its slots in a global scratch of
-# GLOBAL_ROWS rows in flight at most (and at most GLOBAL_SCRATCH_WORDS).
+# slot), in the block's shared memory.  The shared launch stages each job's
+# code (16 bytes an instruction) beside its rows' slots; a program fits it
+# when two blocks of THREADS[0] threads, with its code, fit one SM
+# (``max_lane_words``).  A larger one is compiled at BUDGET slot words a row
+# (reloading loaded cells, constants and selectors rather than holding
+# them, spilling computed values) and runs in the streamed launch, its code
+# streamed from global memory through a ring of CODE_RING instructions
+# beside its slots, in blocks of STREAM_THREADS threads (None:
+# ``block_threads``'s choice).  BUDGET is the fastest of 48-384 words on
+# path 5's keccakf job (chip_smoke.py ``stream_timing``, PERF.md): at 48
+# words and 128 threads, 8 blocks of the kernel's 63 registers a thread
+# fill an SM, and the interpreter's time falls with the warps it holds.
 SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 THREADS = (128, 64, 32)
-GLOBAL_ROWS = 1 << 16
-GLOBAL_SCRATCH_WORDS = 1 << 28
+BUDGET = 48
+STREAM_THREADS = None
+CODE_RING = 128
 
 
 def max_lane_words(n_instr: int) -> int:
-    """The most slot words a row can take in a block of the fewest threads
-    beside ``n_instr`` instructions of code (negative when the code alone
-    overruns shared memory)."""
-    return (SMEM_BYTES - 16 * n_instr) // (4 * THREADS[-1])
+    """The most slot words a row a program of ``n_instr`` instructions may
+    take in the shared launch: two blocks of THREADS[0] threads, each with
+    the code and 1 KB reserved, fit one SM (negative when the code alone
+    does not)."""
+    return (SM_SMEM_BYTES // 2 - 1024 - 16 * n_instr) // (4 * THREADS[0])
 
 
 # Opcodes; an instruction is (op, dst, a, b) int32.  B = base, E = extension;
@@ -85,13 +99,34 @@ def max_lane_words(n_instr: int) -> int:
 # dst = dst + a*b, dst - a*b, a*b - dst (a extension, b base, dst the other
 # operand's slot, which the instruction takes over).  MULFOLD_BB and
 # SUBFOLD_EE fold a root computed only for its fold: acc += alpha^e * (a*b)
-# or (a - b), with alpha^e at pool word dst.
+# or (a - b), with alpha^e at pool word dst.  SPILL (w, a, t) stores slot a
+# (base when t is 0, extension when 1) at spill word w of the row, FILL
+# (d, w, t) loads it back into slot d (budgeted programs only).
 (CONST_B, CONST_E, LOAD_B, LOAD_E, SEL, ADD_BB, SUB_BB, MUL_BB, NEG_B,
  ADD_EE, SUB_EE, MUL_EE, NEG_E, ADD_EB, SUB_EB, SUB_BE, MUL_EB, FOLD_B,
  FOLD_E, STORE_B, MADD_EB, MSUB_EB, MRSUB_EB, MULFOLD_BB,
- SUBFOLD_EE) = range(25)
+ SUBFOLD_EE, SPILL, FILL) = range(27)
 SELECTORS = ("is_first_row", "is_last_row", "is_transition")
+_WRITES_B = {CONST_B, LOAD_B, SEL, ADD_BB, SUB_BB, MUL_BB, NEG_B}
+_WRITES_E = {CONST_E, LOAD_E, ADD_EE, SUB_EE, MUL_EE, NEG_E, ADD_EB, SUB_EB,
+             SUB_BE, MUL_EB, MADD_EB, MSUB_EB, MRSUB_EB}
 _EXT_ENTRIES = ("permutation", "challenge", "exposed")
+# A budgeted program's instruction op | WAIT waits for its thread's loads
+# in flight before it runs: the streamed launch issues a load and goes on,
+# and the compiler moves loads ahead of their reads (``_schedule_loads``).
+WAIT = 256
+OPCODE = 255
+LOAD_AHEAD = 8
+# Each opcode's slot operands: (field, type) read, and the type written to
+# field 1 (d); SPILL and FILL take their type from field 3.
+_B, _E = "b", "e"
+_READS = {
+    **{op: ((2, _B), (3, _B)) for op in (ADD_BB, SUB_BB, MUL_BB, MULFOLD_BB)},
+    **{op: ((2, _E), (3, _E)) for op in (ADD_EE, SUB_EE, MUL_EE, SUBFOLD_EE)},
+    **{op: ((2, _E), (3, _B)) for op in (ADD_EB, SUB_EB, MUL_EB)},
+    **{op: ((1, _E), (2, _E), (3, _B)) for op in (MADD_EB, MSUB_EB, MRSUB_EB)},
+    NEG_B: ((2, _B),), NEG_E: ((2, _E),), SUB_BE: ((2, _B), (3, _E)),
+    FOLD_B: ((2, _B),), STORE_B: ((2, _B),), FOLD_E: ((2, _E),)}
 
 # The job table of one launch: JOB_WORDS int64 per AIR (csrc/quotient.cu).
 (J_CODE, J_NINSTR, J_POOL, J_SRC, J_NBASE, J_LOGQ, J_LQD, J_SEL, J_OUT,
@@ -111,9 +146,11 @@ class Program:
     pool_spec: what each constant-pool entry holds ("word", w),
     ("public", i), ("challenge", i), ("exposed", i) or ("alpha", e)
     (alpha^e); pool: the uint32 Montgomery words ``bind`` filled in, None
-    until then; global_memory: the program's code and one row's slots do
-    not fit one SM's shared memory beside each other (``max_lane_words``),
-    so the kernel keeps them in global memory."""
+    until then; budget: the slot words a row the program was compiled
+    within, for the streamed launch (0: compiled without one, for the
+    shared launch); reloads: instructions that load a cell, constant or
+    selector again because it gave up its slot; spills: SPILL instructions;
+    n_spill: spill words a row."""
 
     code: np.ndarray
     n_base: int
@@ -124,12 +161,24 @@ class Program:
     n_folds: int = 0
     pool_spec: tuple = ()
     pool: np.ndarray | None = None
-    global_memory: bool = False
+    budget: int = 0
+    reloads: int = 0
+    spills: int = 0
+    n_spill: int = 0
 
     @property
     def lane_words(self) -> int:
-        """Shared-memory words one row's slots take in the kernel."""
+        """Shared-memory words one row's slots take in the kernel: the base
+        file and the extension file behind it, or, for a budgeted program,
+        the one file both share (``_WordFile``)."""
+        if self.budget:
+            return max(self.n_base, 4 * self.n_ext)
         return self.n_base + 4 * self.n_ext
+
+    @property
+    def ext_offset(self) -> int:
+        """Words a row before the extension file (J_NBASE)."""
+        return 0 if self.budget else self.n_base
 
 
 def _tags(dag, nodes) -> dict:
@@ -296,51 +345,298 @@ def _reachable_tags(dag, roots) -> dict:
 
 
 def compile_dag(dag, *, n_main: int, has_preprocessed: bool, has_perm: bool,
-                publics=(), challenges=None, exposed=None, alpha=None) -> Program:
+                publics=(), challenges=None, exposed=None, alpha=None,
+                budget: int | None = None) -> Program:
     """Compile the nodes reachable from the constraint roots to bytecode
     that folds them by powers of ``alpha``, and bind the pool.  ``publics``
     are base Montgomery words, ``challenges`` and ``exposed`` (k, 4) and
     ``alpha`` (4,) extension Montgomery words.  A program whose slots need
     more words a row than ``max_lane_words`` allows beside its code is
-    marked ``global_memory``."""
+    compiled at BUDGET slot words a row for the streamed launch (at
+    ``budget``, when given, whatever its size)."""
     return bind(compile_dag_code(dag, n_main=n_main,
                                  has_preprocessed=has_preprocessed,
-                                 has_perm=has_perm),
+                                 has_perm=has_perm, budget=budget),
                 publics=publics, challenges=challenges, exposed=exposed,
                 alpha=alpha)
 
 
 def compile_dag_code(dag, *, n_main: int, has_preprocessed: bool,
-                     has_perm: bool) -> Program:
+                     has_perm: bool, budget: int | None = None) -> Program:
     """``compile_dag`` without the values: the same code for every prove."""
     return _compile(dag, list(dag.constraint_roots), False, n_main=n_main,
-                    has_preprocessed=has_preprocessed, has_perm=has_perm)
+                    has_preprocessed=has_preprocessed, has_perm=has_perm,
+                    budget=budget)
 
 
 def compile_columns(dag, roots, *, n_main: int, has_preprocessed: bool,
-                    publics=(), selectors: bool = False) -> Program:
+                    publics=(), selectors: bool = False,
+                    budget: int | None = None) -> Program:
     """Compile ``roots`` (base-valued node ids, repeats allowed) to bytecode
     that writes root k's value as output row k (``evaluate_columns``).  The
     selectors read as zero, unless ``selectors``: then as the natural
     domain's 0/1 is_first_row, is_last_row and is_transition (the
-    constraint checker, ``stark.debug``)."""
+    constraint checker, ``stark.debug``).  ``budget`` as ``compile_dag``
+    takes it."""
     return bind(compile_columns_code(dag, roots, n_main=n_main,
                                      has_preprocessed=has_preprocessed,
-                                     selectors=selectors),
+                                     selectors=selectors, budget=budget),
                 publics=publics)
 
 
 def compile_columns_code(dag, roots, *, n_main: int, has_preprocessed: bool,
-                         selectors: bool = False) -> Program:
+                         selectors: bool = False, budget: int | None = None) -> Program:
     """``compile_columns`` without the values: the same code for every
     prove."""
     return _compile(dag, list(roots), True, n_main=n_main,
                     has_preprocessed=has_preprocessed, has_perm=False,
-                    selectors=selectors)
+                    selectors=selectors, budget=budget)
+
+
+class _TypedFiles:
+    """The shared launch's slot files: a base file and an extension file,
+    each value holding the lowest free slot of its type from its step to
+    its last read."""
+
+    def __init__(self, tags: dict):
+        self.tags = tags
+        self.slot: dict = {}
+        self.free = {"b": [], "e": []}
+        self.count = {"b": 0, "e": 0}
+
+    def alloc(self, i, pinned=()) -> int:
+        t = self.tags[i]
+        if self.free[t]:
+            self.slot[i] = heapq.heappop(self.free[t])
+        else:
+            self.slot[i] = self.count[t]
+            self.count[t] += 1
+        return self.slot[i]
+
+    def release(self, i) -> None:
+        heapq.heappush(self.free[self.tags[i]], self.slot.pop(i))
+
+    def take_over(self, i, c) -> None:
+        self.slot[i] = self.slot.pop(c)
+
+    def hold(self, k) -> None:
+        pass
+
+    def shape(self) -> tuple:
+        return self.count["b"], self.count["e"]
+
+
+class _WordFile:
+    """A budgeted program's one slot file of ``budget`` words a row: base
+    slot w is word w, extension slot g words 4g to 4g + 3 (the streamed
+    launch's layout).  A leaf (a loaded cell, constant or selector) takes
+    the highest free word, an extension value the highest free group, a
+    computed base value the lowest free word.  When no word or group is
+    free, the leaf read again farthest ahead gives its slot up, and the
+    compiler emits its instruction again before its next read, or the
+    computed value read again farthest ahead, when much farther, is stored
+    to the spill file (SPILL, once) and loaded back (FILL) before its next
+    read (``_evict_one``).  ``next_read`` and ``spill`` (emits a SPILL) are set by the
+    compiler; spill words are numbered base words first, then extension
+    groups, by ``spill_words`` at the end."""
+
+    def __init__(self, tags: dict, budget: int, leaves: set):
+        self.tags, self.budget, self.leaves = tags, budget, leaves
+        self.slot: dict = {}
+        self.owner = [None] * budget  # word -> the value in it
+        # lazy heaps: free words and free groups, highest first; the lowest
+        # free words; values in slots read again farthest ahead first, leaves
+        # and computed values apart
+        self.free = [-w for w in range(budget)]
+        self.low = list(range(budget))
+        self.groups = [-g for g in range(budget // 4)]
+        heapq.heapify(self.free)
+        heapq.heapify(self.groups)
+        self.held = {True: [], False: []}
+        self.top = {"b": 0, "e": 0}
+        self.spilled: dict = {}  # computed value -> its spill slot (of its type)
+        self.spill_free = {"b": [], "e": []}
+        self.spill_count = {"b": 0, "e": 0}
+        self.next_read = self.spill = None
+
+    def _cells(self, v) -> range:
+        s = self.slot[v]
+        return range(s, s + 1) if self.tags[v] == "b" else range(4 * s, 4 * s + 4)
+
+    def _put(self, i, slot: int) -> int:
+        self.slot[i] = slot
+        for w in self._cells(i):
+            self.owner[w] = i
+        t = self.tags[i]
+        self.top[t] = max(self.top[t], slot + 1)
+        return slot
+
+    def _vacate(self, v) -> None:
+        for w in self._cells(v):
+            self.owner[w] = None
+            heapq.heappush(self.free, -w)
+            heapq.heappush(self.low, w)
+        g = self._cells(v)[0] >> 2
+        if all(self.owner[w] is None for w in range(4 * g, 4 * g + 4)):
+            heapq.heappush(self.groups, -g)
+        del self.slot[v]
+
+    def release(self, i) -> None:
+        """Value i is read no more: its slot and its spill slot are free."""
+        self._vacate(i)
+        if i in self.spilled:
+            heapq.heappush(self.spill_free[self.tags[i]], self.spilled.pop(i))
+
+    def take_over(self, i, c) -> None:
+        s = self.slot[c]
+        self.release(c)
+        self._put(i, s)
+
+    def hold(self, k) -> None:
+        if k in self.slot:
+            heapq.heappush(self.held[k in self.leaves], (-self.next_read(k), k))
+
+    def _give_up(self, v) -> None:
+        """Value v leaves its slot; a computed value not yet in the spill
+        file is stored there first."""
+        if v not in self.leaves and v not in self.spilled:
+            t = self.tags[v]
+            if self.spill_free[t]:
+                self.spilled[v] = heapq.heappop(self.spill_free[t])
+            else:
+                self.spilled[v] = self.spill_count[t]
+                self.spill_count[t] += 1
+            self.spill(v)
+        self._vacate(v)
+
+    def alloc(self, i, pinned=()) -> int:
+        if self.tags[i] == "e":
+            while self.groups:
+                g = -heapq.heappop(self.groups)
+                if all(self.owner[w] is None for w in range(4 * g, 4 * g + 4)):
+                    return self._put(i, g)
+            self._evict_group(pinned)
+        else:
+            heap, sign = (self.free, -1) if i in self.leaves else (self.low, 1)
+            while heap:
+                w = sign * heapq.heappop(heap)
+                if self.owner[w] is None:
+                    return self._put(i, w)
+            self._evict_one(pinned)
+        return self.alloc(i, pinned)
+
+    def _fail(self):
+        raise ValueError(f"a row's operands pass {self.budget} slot words")
+
+    def _farthest(self, leaf: bool, pinned):
+        """(next read, value) of the leaves or the computed values in slots
+        read again farthest ahead, not pinned; None when there is none."""
+        heap, aside, found = self.held[leaf], [], None
+        while heap:
+            key, v = heap[0]
+            if v not in self.slot or -key != self.next_read(v):
+                heapq.heappop(heap)  # stale
+            elif v in pinned:
+                aside.append(heapq.heappop(heap))
+            else:
+                found = (-key, v)
+                break
+        for e in aside:
+            heapq.heappush(heap, e)
+        return found
+
+    def _evict_one(self, pinned) -> None:
+        """The leaf read again farthest ahead gives its slot up (one load
+        again), unless a computed value is read again more than twice as
+        far ahead, or as far and is in the spill file already (a SPILL, if
+        not yet stored, and a FILL)."""
+        leaf = self._farthest(True, pinned)
+        comp = self._farthest(False, pinned)
+        if comp and (not leaf or comp[0] > leaf[0] * (1 if comp[1] in self.spilled else 2)):
+            self._give_up(comp[1])
+        elif leaf:
+            self._give_up(leaf[1])
+        else:
+            self._fail()
+
+    def _evict_group(self, pinned) -> None:
+        """Of the groups that hold no operand of the instruction, the one
+        whose values need the fewest SPILLs and, of those, are read again
+        farthest ahead, gives them up."""
+        best, best_key = None, None
+        for g in range(self.budget // 4):
+            values = {self.owner[w] for w in range(4 * g, 4 * g + 4)} - {None}
+            if values & set(pinned):
+                continue
+            key = (-sum(1 for v in values if v not in self.leaves and v not in self.spilled),
+                   min((self.next_read(v) for v in values), default=len(self.owner) << 40))
+            if best_key is None or key > best_key:
+                best, best_key = g, key
+        if best is None:
+            self._fail()
+        for v in {self.owner[w] for w in range(4 * best, 4 * best + 4)} - {None}:
+            self._give_up(v)
+
+    def spill_words(self) -> tuple:
+        """(base spill words, extension spill groups)."""
+        return self.spill_count["b"], self.spill_count["e"]
+
+    def shape(self) -> tuple:
+        return self.top["b"], self.top["e"]
+
+
+def _touched(ins) -> tuple:
+    """(words read, words written) of one instruction of a budgeted
+    program as bit masks: base slot w is word w, extension slot g words 4g
+    to 4g + 3."""
+    op, d = ins[0] & OPCODE, ins[1]
+
+    def cells(slot, t):
+        return 1 << slot if t == _B else 15 << 4 * slot
+
+    if op in (SPILL, FILL):
+        t = _E if ins[3] else _B
+        return (cells(ins[2], t), 0) if op == SPILL else (0, cells(d, t))
+    reads = 0
+    for field, t in _READS.get(op, ()):
+        reads |= cells(ins[field], t)
+    if op in _WRITES_B:
+        return reads, cells(d, _B)
+    return reads, (cells(d, _E) if op in _WRITES_E else 0)
+
+
+def _schedule_loads(code: np.ndarray, ahead: int = LOAD_AHEAD) -> np.ndarray:
+    """A budgeted program's code with each load moved up to ``ahead``
+    instructions earlier, past instructions that neither read nor write its
+    slot, and WAIT set on the first instruction after it that touches a
+    word a load in flight writes: the streamed launch issues a load without
+    waiting, so its latency overlaps the instructions between."""
+    rows = code.tolist()
+    touched = [_touched(ins) for ins in rows]
+    for i in range(len(rows)):
+        if rows[i][0] not in (LOAD_B, LOAD_E):
+            continue
+        dest, j = touched[i][1], i
+        while j > 0 and i - j < ahead and not (touched[j - 1][0] | touched[j - 1][1]) & dest:
+            j -= 1
+        if j < i:
+            rows.insert(j, rows.pop(i))
+            touched.insert(j, touched.pop(i))
+    pending = 0
+    for k, (reads, writes) in enumerate(touched):
+        if (reads | writes) & pending:
+            rows[k][0] |= WAIT
+            pending = 0
+        if rows[k][0] & OPCODE in (LOAD_B, LOAD_E):
+            pending |= writes
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
 
 
 def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
-             has_perm: bool, selectors: bool = False) -> Program:
+             has_perm: bool, selectors: bool = False, budget: int | None = None) -> Program:
+    """The program of ``roots``: compiled without a budget when that fits
+    the shared launch beside its code (``max_lane_words``), else at
+    ``budget`` slot words a row (BUDGET unless given)."""
     tags = _reachable_tags(dag, roots)
     if columns and any(tags[r] != "b" for r in roots):
         raise ValueError("a columns program takes base-valued roots only")
@@ -362,10 +658,13 @@ def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
         order = _root_order(dag, roots)
         steps = [(kind, order[i] if kind == "root" else i) for kind, i in
                  _schedule(dag, [roots[k] for k in order], tags, kids_of)]
-    last_use: dict = {}
+    reads: dict = {}  # node -> the steps that read it, in order
     for s, (kind, i) in enumerate(steps):
         for k in ((roots[i],) if kind == "root" else kids_of(i)):
-            last_use[k] = s
+            reads.setdefault(k, []).append(s)
+    last_use = {k: r[-1] for k, r in reads.items()}
+    # loaded cells, constants and selectors: what a budget may emit again
+    leaves = {i for i in tags if dag.nodes[i][0] in ("const", "sel", "var")}
 
     sources = {("main", k): k for k in range(n_main)}
     if has_preprocessed:
@@ -383,131 +682,195 @@ def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
             n_words[0] += width
         return spec_at[key]
 
-    free = {"b": [], "e": []}
-    count = {"b": 0, "e": 0}
-    slot: dict = {}
-    sel_mask = 0
-    code = []
+    def emit(files) -> Program:
+        """The code of the schedule with its slots from ``files``
+        (``_TypedFiles`` or ``_WordFile``)."""
+        slot = files.slot
+        at = dict.fromkeys(reads, 0)  # node -> its next read, an index into reads
+        leaf_code: dict = {}  # leaf -> (opcode, a, b)
+        sel_mask = 0
+        code = []
+        n_reloads = 0
 
-    def release(i, s):
-        if last_use[i] == s and i in slot:
-            heapq.heappush(free[tags[i]], slot.pop(i))
+        def next_read(k) -> int:
+            r = reads[k]
+            return r[at[k]] if at[k] < len(r) else len(steps)
 
-    def alloc(i) -> int:
-        t = tags[i]
-        if free[t]:
-            slot[i] = heapq.heappop(free[t])
-        else:
-            slot[i] = count[t]
-            count[t] += 1
-        return slot[i]
+        def spill(v):
+            code.append((SPILL, files.spilled[v], slot[v], int(tags[v] == "e")))
 
-    n_roots = len(roots)
-    folded: set = set()  # root steps a fused instruction already folded
-    for s, (kind, i) in enumerate(steps):
-        if kind == "root":
-            if s in folded:
+        files.next_read, files.spill = next_read, spill
+
+        def release(i, s):
+            if last_use[i] == s and i in slot:
+                files.release(i)
+
+        def use(k, pinned) -> int:
+            """Slot of operand k: if it gave its slot up, its leaf
+            instruction emitted again, or a FILL from the spill file."""
+            nonlocal n_reloads
+            if k not in slot:
+                if k in leaf_code:
+                    op, a, b = leaf_code[k]
+                    code.append((op, files.alloc(k, pinned), a, b))
+                    n_reloads += 1
+                else:
+                    code.append((FILL, files.alloc(k, pinned), files.spilled[k],
+                                 int(tags[k] == "e")))
+                files.hold(k)
+            return slot[k]
+
+        def advance(ks, s):
+            for k in ks:
+                r = reads[k]
+                while at[k] < len(r) and r[at[k]] <= s:
+                    at[k] += 1
+            for k in ks:
+                files.hold(k)
+
+        n_roots = len(roots)
+        folded: set = set()  # root steps a fused instruction already folded
+        for s, (kind, i) in enumerate(steps):
+            if kind == "root":
+                if s in folded:
+                    continue
+                k, i = i, roots[i]
+                si = use(i, (i,))
+                if columns:
+                    code.append((STORE_B, 0, si, k))
+                else:
+                    apow = pool_entry(("alpha", n_roots - 1 - k), 4)
+                    code.append((FOLD_E if tags[i] == "e" else FOLD_B, 0, si, apow))
+                advance((i,), s)
+                release(i, s)
                 continue
-            k, i = i, roots[i]
-            if columns:
-                code.append((STORE_B, 0, slot[i], k))
-            else:
-                apow = pool_entry(("alpha", n_roots - 1 - k), 4)
-                code.append((FOLD_E if tags[i] == "e" else FOLD_B, 0, slot[i],
-                             apow))
-            release(i, s)
-            continue
-        n = dag.nodes[i]
-        op = n[0]
-        nxt = steps[s + 1] if s + 1 < len(steps) else None
-        if (not columns and i not in fused and nxt is not None
-                and nxt[0] == "root" and roots[nxt[1]] == i
-                and last_use[i] == s + 1 and op in ("mul", "sub")
-                and tags[n[1]] == tags[n[2]]
-                and (op, tags[n[1]]) in (("mul", "b"), ("sub", "e"))):
-            # a root computed only for its fold: fold it as it is computed
-            sa, sb = slot[n[1]], slot[n[2]]
-            release(n[1], s)
-            if n[2] != n[1]:
-                release(n[2], s)
-            apow = pool_entry(("alpha", n_roots - 1 - nxt[1]), 4)
-            code.append((MULFOLD_BB if op == "mul" else SUBFOLD_EE, apow, sa, sb))
-            folded.add(s + 1)
-            continue
-        if i in fused:
-            m, c, opc = fused[i]
-            ea, eb = factors(m)
-            sa, sb = slot[ea], slot[eb]
-            if last_use[c] == s:  # the fused op takes over c's slot
-                for k in {ea, eb} - {c}:
+            n = dag.nodes[i]
+            op = n[0]
+            nxt = steps[s + 1] if s + 1 < len(steps) else None
+            if (not columns and i not in fused and nxt is not None
+                    and nxt[0] == "root" and roots[nxt[1]] == i
+                    and last_use[i] == s + 1 and op in ("mul", "sub")
+                    and tags[n[1]] == tags[n[2]]
+                    and (op, tags[n[1]]) in (("mul", "b"), ("sub", "e"))):
+                # a root computed only for its fold: fold it as it is computed
+                sa, sb = use(n[1], n[1:3]), use(n[2], n[1:3])
+                advance(n[1:3], s)
+                release(n[1], s)
+                if n[2] != n[1]:
+                    release(n[2], s)
+                apow = pool_entry(("alpha", n_roots - 1 - nxt[1]), 4)
+                code.append((MULFOLD_BB if op == "mul" else SUBFOLD_EE, apow, sa, sb))
+                folded.add(s + 1)
+                continue
+            if i in fused:
+                m, c, opc = fused[i]
+                ea, eb = factors(m)
+                sc, sa, sb = (use(k, (c, ea, eb)) for k in (c, ea, eb))
+                advance((c, ea, eb), s)
+                if last_use[c] == s:  # the fused op takes over c's slot
+                    for k in {ea, eb} - {c}:
+                        release(k, s)
+                    files.take_over(i, c)
+                    files.hold(i)
+                    code.append((opc, slot[i], sa, sb))
+                    continue
+                # c lives on: the product into a temporary, then the add or sub
+                for k in {ea, eb}:
                     release(k, s)
-                slot[i] = slot.pop(c)
-                code.append((opc, slot[i], sa, sb))
+                tmp = ("product", i)
+                tags[tmp] = "e"
+                t = files.alloc(tmp, (c,))
+                code.append((MUL_EB, t, sa, sb))
+                files.release(tmp)
+                d = files.alloc(i)
+                files.hold(i)
+                code.append((ADD_EE, d, sc, t) if opc == MADD_EB else
+                            (SUB_EE, d, sc, t) if opc == MSUB_EB else
+                            (SUB_EE, d, t, sc))
                 continue
-            # c lives on: the product into a temporary, then the add or sub
-            for k in {ea, eb}:
-                release(k, s)
-            tmp = ("product", i)
-            tags[tmp] = "e"
-            t = alloc(tmp)
-            code.append((MUL_EB, t, sa, sb))
-            heapq.heappush(free["e"], slot.pop(tmp))
-            d = alloc(i)
-            code.append((ADD_EE, d, slot[c], t) if opc == MADD_EB else
-                        (SUB_EE, d, slot[c], t) if opc == MSUB_EB else
-                        (SUB_EE, d, t, slot[c]))
-            continue
-        if op in ("add", "sub", "mul", "neg"):
-            a = n[1]
-            b = n[2] if op != "neg" else None
-            sa = slot[a]
-            sb = slot[b] if b is not None else 0
-            ta = tags[a]
-            tb = tags[b] if b is not None else None
-            release(a, s)
-            if b is not None and b != a:
-                release(b, s)
-            d = alloc(i)
-            if op == "neg":
-                code.append((NEG_E if ta == "e" else NEG_B, d, sa, 0))
-            elif ta == tb:
-                table = {"add": (ADD_BB, ADD_EE), "sub": (SUB_BB, SUB_EE),
-                         "mul": (MUL_BB, MUL_EE)}[op]
-                code.append((table[ta == "e"], d, sa, sb))
-            elif op == "sub":
-                code.append((SUB_EB, d, sa, sb) if ta == "e"
-                            else (SUB_BE, d, sa, sb))
-            else:  # add, mul commute: extension operand first
-                opc = ADD_EB if op == "add" else MUL_EB
-                code.append((opc, d, sa, sb) if ta == "e" else (opc, d, sb, sa))
-            continue
-        d = alloc(i)
-        if op == "const":
-            code.append((CONST_B, d, pool_entry(("word", bb.to_monty_int(n[1])), 1), 0))
-        elif op == "sel":
-            which = SELECTORS.index(n[1])
-            sel_mask |= 1 << which
-            code.append((SEL, d, which, 0))
-        else:
-            _, entry, part, offset, index = n
-            if entry in ("main", "preprocessed", "permutation"):
-                src = sources[(entry, part if entry == "main" else 0)]
-                code.append((LOAD_E if entry == "permutation" else LOAD_B, d,
-                             2 * src + offset,
-                             4 * index if entry == "permutation" else index))
-            elif entry == "public":
-                code.append((CONST_B, d, pool_entry(("public", index), 1), 0))
-            elif entry in ("challenge", "exposed"):
-                code.append((CONST_E, d, pool_entry((entry, index), 4), 0))
+            if op in ("add", "sub", "mul", "neg"):
+                a = n[1]
+                b = n[2] if op != "neg" else None
+                ks = (a,) if b is None else (a, b)
+                sa = use(a, ks)
+                sb = use(b, ks) if b is not None else 0
+                advance(ks, s)
+                ta = tags[a]
+                tb = tags[b] if b is not None else None
+                release(a, s)
+                if b is not None and b != a:
+                    release(b, s)
+                d = files.alloc(i)
+                files.hold(i)
+                if op == "neg":
+                    code.append((NEG_E if ta == "e" else NEG_B, d, sa, 0))
+                elif ta == tb:
+                    table = {"add": (ADD_BB, ADD_EE), "sub": (SUB_BB, SUB_EE),
+                             "mul": (MUL_BB, MUL_EE)}[op]
+                    code.append((table[ta == "e"], d, sa, sb))
+                elif op == "sub":
+                    code.append((SUB_EB, d, sa, sb) if ta == "e"
+                                else (SUB_BE, d, sa, sb))
+                else:  # add, mul commute: extension operand first
+                    opc = ADD_EB if op == "add" else MUL_EB
+                    code.append((opc, d, sa, sb) if ta == "e" else (opc, d, sb, sa))
+                continue
+            d = files.alloc(i)
+            if op == "const":
+                ins = (CONST_B, pool_entry(("word", bb.to_monty_int(n[1])), 1), 0)
+            elif op == "sel":
+                which = SELECTORS.index(n[1])
+                sel_mask |= 1 << which
+                ins = (SEL, which, 0)
             else:
-                raise KeyError(entry)
-    prog = Program(code=np.asarray(code, dtype=np.int32).reshape(-1, 4),
-                   n_base=count["b"], n_ext=count["e"],
-                   sel_mask=0 if columns and not selectors else sel_mask,
-                   n_sources=len(sources), n_roots=n_roots if columns else 0,
-                   n_folds=0 if columns else n_roots, pool_spec=tuple(spec))
-    prog.global_memory = prog.lane_words > max_lane_words(int(prog.code.shape[0]))
-    return prog
+                _, entry, part, offset, index = n
+                if entry in ("main", "preprocessed", "permutation"):
+                    src = sources[(entry, part if entry == "main" else 0)]
+                    ins = (LOAD_E if entry == "permutation" else LOAD_B,
+                           2 * src + offset,
+                           4 * index if entry == "permutation" else index)
+                elif entry == "public":
+                    ins = (CONST_B, pool_entry(("public", index), 1), 0)
+                elif entry in ("challenge", "exposed"):
+                    ins = (CONST_E, pool_entry((entry, index), 4), 0)
+                else:
+                    raise KeyError(entry)
+            leaf_code[i] = ins
+            code.append((ins[0], d) + ins[1:])
+            files.hold(i)
+        n_base, n_ext = files.shape()
+        code = np.asarray(code, dtype=np.int32).reshape(-1, 4)
+        n_spill = 0
+        if isinstance(files, _WordFile):
+            # extension spill groups after the base spill words
+            words, groups = files.spill_words()
+            ext = np.isin(code[:, 0], (SPILL, FILL)) & (code[:, 3] == 1)
+            code[ext & (code[:, 0] == SPILL), 1] = words + 4 * code[ext & (code[:, 0] == SPILL), 1]
+            code[ext & (code[:, 0] == FILL), 2] = words + 4 * code[ext & (code[:, 0] == FILL), 2]
+            n_spill = words + 4 * groups
+            code = _schedule_loads(code)
+        return Program(code=code, n_base=n_base, n_ext=n_ext,
+                       sel_mask=0 if columns and not selectors else sel_mask,
+                       n_sources=len(sources), n_roots=n_roots if columns else 0,
+                       n_folds=0 if columns else n_roots, pool_spec=tuple(spec),
+                       budget=getattr(files, "budget", 0), reloads=n_reloads,
+                       spills=int(((code[:, 0] & OPCODE) == SPILL).sum()),
+                       n_spill=n_spill)
+
+    if budget is None:
+        # an instruction or more a node step: past max_lane_words' code
+        # limit, the typed program cannot fit
+        if sum(kind == "node" for kind, _ in steps) <= (SM_SMEM_BYTES // 2 - 1024) // 16:
+            prog = emit(_TypedFiles(tags))
+            if prog.lane_words <= max_lane_words(int(prog.code.shape[0])):
+                return prog
+        budget = BUDGET
+    # the pool comes out the same either way: a reload reads its leaf's
+    # entry again
+    spec.clear()
+    spec_at.clear()
+    n_words[0] = 0
+    return emit(_WordFile(tags, budget, leaves))
 
 
 def _ext_mul_int(a, b) -> tuple:
@@ -652,15 +1015,30 @@ def _run_plain(prog: Program, sources: list, rows: tuple, sel_vals: list,
     """The bytecode over n rows with int64 torch operations.  ``rows``:
     (local, next) row indices into the sources; FOLD_* add alpha^e v into
     the returned (n, 4) accumulator, alpha^e from the pool; STORE_B writes
-    into ``out`` (R, n)."""
+    into ``out`` (R, n).  A budgeted program is run as the streamed launch
+    runs it: its slot files overlap as the kernel's one word file does
+    (``_WordFile``: a write to base slot w clears extension slot w // 4, a
+    write to extension slot g base slots 4g to 4g + 3), and a load lands
+    in its slot only at the next instruction marked WAIT
+    (``_schedule_loads``), so reading a value the compiler let another
+    overwrite, or a load before its WAIT, fails here as it would go wrong
+    on the card."""
     if prog.pool is None:
         raise ValueError("the program's pool is not bound")
     dev = rows[0].device
     pool = torch.from_numpy(prog.pool.astype(np.int64)).to(dev)
-    bs: list = [None] * max(prog.n_base, 1)
+    bs: list = [None] * max(prog.lane_words, 1)
     es: list = [None] * max(prog.n_ext, 1)
+    spill: dict = {}  # spill word -> the value stored there
     acc = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    landing: list = []  # budgeted: loads in flight, written at the next WAIT
     for op, d, a, b in prog.code.tolist():
+        if op & WAIT:
+            for is_e, slot, value in landing:
+                _overwrite(bs, es, is_e, slot)
+                (es if is_e else bs)[slot] = value
+            landing.clear()
+        op &= OPCODE
         if op == CONST_B:
             bs[d] = pool[a].expand(n)
         elif op == CONST_E:
@@ -716,9 +1094,31 @@ def _run_plain(prog: Program, sources: list, rows: tuple, sel_vals: list,
             acc = bb.add64(acc, ef.mul64(es[a], pool[b:b + 4].expand(n, 4)))
         elif op == STORE_B:
             out[b] = bs[a]
+        elif op == SPILL:
+            spill[d] = es[a] if b else bs[a]
+        elif op == FILL:
+            if b:
+                es[d] = spill[a]
+            else:
+                bs[d] = spill[a]
         else:
             raise ValueError(f"bad opcode {op}")
+        if prog.budget and (op in _WRITES_B or op in _WRITES_E or op == FILL):
+            is_e = op in _WRITES_E or (op == FILL and b)
+            _overwrite(bs, es, is_e, d)
+            if op in (LOAD_B, LOAD_E):  # in flight until the next WAIT
+                landing.append((is_e, d, (es if is_e else bs)[d]))
+                (es if is_e else bs)[d] = None
     return acc
+
+
+def _overwrite(bs: list, es: list, is_e: bool, d: int) -> None:
+    """A write to slot d of a budgeted program destroys the values of the
+    other type in the same words of its one word file."""
+    if is_e:
+        bs[4 * d:4 * d + 4] = [None] * 4
+    elif d >> 2 < len(es):
+        es[d >> 2] = None
 
 
 def evaluate_plain(prog: Program, sources: list, log_n: int,
@@ -750,14 +1150,11 @@ def evaluate_many_plain(progs: list, sources: list, log_ns: list,
             for p, s, n, q in zip(progs, sources, log_ns, lqds)]
 
 
-def block_threads(lane_words: int, n_instr: int, global_memory: bool = False) -> int:
+def block_threads(lane_words: int, n_instr: int) -> int:
     """Threads of a kernel block: of THREADS, the one that keeps the most
     threads resident on an SM (its 228 KB of shared memory, 1 KB reserved
     a block, at most 32 blocks), the larger on a tie; a block's code and its
-    rows' slots must fit its 227 KB.  A global-memory launch uses no shared
-    memory: the largest block."""
-    if global_memory:
-        return THREADS[0]
+    rows' slots must fit its 227 KB."""
     best, best_resident = 0, 0
     for t in THREADS:
         per_block = lane_words * 4 * t + 16 * n_instr
@@ -772,68 +1169,31 @@ def block_threads(lane_words: int, n_instr: int, global_memory: bool = False) ->
     return best
 
 
-def split_modes(progs: list) -> tuple:
-    """(shared, global): the positions of the programs that share one
-    shared-memory launch, and of those left to the global-memory launch.
-    Global-memory programs go to the second; of the others, while their
-    largest slot words a row and largest code do not fit one block of 32
-    threads together, the program that needs most shared memory moves."""
-    shared = [k for k, p in enumerate(progs) if not p.global_memory]
-
-    def need(k):
-        return 4 * THREADS[-1] * progs[k].lane_words + 16 * int(progs[k].code.shape[0])
-
-    while shared and (4 * THREADS[-1] * max(progs[k].lane_words for k in shared)
-                      + 16 * max(int(progs[k].code.shape[0]) for k in shared)
-                      > SMEM_BYTES):
-        shared.remove(max(shared, key=need))
-    return shared, [k for k in range(len(progs)) if k not in shared]
-
-
 def launch_plan(progs: list) -> list:
     """The launches of one interpreter call: per launch (positions of its
-    programs, global-memory mode, slot words a row, base file words, code
-    capacity, threads).  A shared-memory block runs one job, so each job
-    puts its extension file after its own base file.  In a global-memory
-    launch the blocks in flight hold rows of different jobs side by side in
-    one scratch, so every job puts its extension file after the launch's
-    largest base file, and a row takes that many words plus four a slot of
-    the largest extension file."""
+    programs, streamed, slot words a row, code capacity, threads).  The
+    programs compiled without a budget share the first launch, whose
+    blocks stage their job's code (up to the largest program's) beside
+    their rows' slots; the budgeted ones share the streamed launch, whose
+    blocks stream their code through a ring of CODE_RING instructions
+    beside their slots, in blocks of STREAM_THREADS threads (``block_threads``'s choice when
+    None).  A block runs one job, so each job puts its extension file
+    after its own base file (or, budgeted, in the same file)."""
     plan = []
-    for idx, is_global in zip(split_modes(progs), (False, True)):
+    for streamed in (False, True):
+        idx = [k for k, p in enumerate(progs) if bool(p.budget) == streamed]
         if not idx:
             continue
-        n_base = max(progs[k].n_base for k in idx)
-        if is_global:
-            lane_words = max(n_base + 4 * max(progs[k].n_ext for k in idx), 1)
-            code_cap = 0
-        else:
-            lane_words = max(max(progs[k].lane_words for k in idx), 1)
-            code_cap = max(int(progs[k].code.shape[0]) for k in idx)
-        plan.append((idx, is_global, lane_words, n_base, code_cap,
-                     block_threads(lane_words, code_cap, is_global)))
+        lane_words = max(max(progs[k].lane_words for k in idx), 1)
+        code_cap = CODE_RING if streamed else max(int(progs[k].code.shape[0]) for k in idx)
+        threads = block_threads(lane_words, code_cap)
+        if streamed and STREAM_THREADS:
+            threads = STREAM_THREADS
+            if lane_words * 4 * threads + 16 * code_cap > SMEM_BYTES:
+                raise ValueError(f"{lane_words} slot words a row do not fit "
+                                 f"{threads} threads' shared memory")
+        plan.append((idx, streamed, lane_words, code_cap, threads))
     return plan
-
-
-def global_rows(lane_words: int, blocks: int, threads: int) -> int:
-    """Rows in flight of a global-memory launch (its blocks times threads):
-    every block of the plan at once, capped at GLOBAL_ROWS and at the
-    scratch's GLOBAL_SCRATCH_WORDS, a whole number of blocks."""
-    cap = min(GLOBAL_ROWS, GLOBAL_SCRATCH_WORDS // max(lane_words, 1))
-    return max(1, min(blocks, cap // threads)) * threads
-
-
-_SCRATCH: dict = {}
-
-
-def _scratch(words: int, dev) -> torch.Tensor:
-    """The global-memory mode's slot scratch on ``dev``, kept between
-    launches and grown when a launch needs more (launches on one stream
-    use it in turn)."""
-    t = _SCRATCH.get(dev)
-    if t is None or t.numel() < words:
-        t = _SCRATCH[dev] = torch.empty(words, dtype=torch.int32, device=dev)
-    return t
 
 
 def block_plan(heights: list, lanes: int) -> tuple:
@@ -879,12 +1239,35 @@ def upload_code(progs: list, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(code)).to(device)
 
 
+def transpose_plain(m: torch.Tensor, n: int) -> torch.Tensor:
+    """(W, n) int32: the first n rows of an (N, W) matrix, column-major."""
+    return m[:n].t().contiguous()
+
+
+def transpose(m: torch.Tensor, n: int) -> torch.Tensor:
+    """``transpose_plain`` by csrc/quotient.cu's transpose_kernel on a CUDA
+    tensor (32 x 32 tiles through shared memory; bound by its bytes, each
+    word read and written once), on the CPU by the plain version.  The
+    streamed launch reads its sources so (``_launch``): a warp's load of
+    one cell of 32 neighbouring rows is then one 128-byte access."""
+    if m.dim() != 2 or m.dtype != torch.int32 or m.stride(1) != 1 or m.shape[0] < n:
+        raise ValueError("transpose takes an (N, W) int32 matrix of at least n rows "
+                         "with unit column stride")
+    if m.device.type == "cpu":
+        return transpose_plain(m, n)
+    out = torch.empty((int(m.shape[1]), n), dtype=torch.int32, device=m.device)
+    _build.launch("quotient_transpose", "ovt_transpose", m.device, m.data_ptr(),
+                  m.stride(0), out.data_ptr(), n, int(m.shape[1]))
+    return out
+
+
 def _launch(kernel: str, fn_name: str, progs: list, sources: list,
             log_qs: list, lqds: list, quotient: bool, code, dev):
     """Build the job tables, pool and source tables, copy them to the card
     in one non-blocking copy from pinned memory, and launch: one launch for
-    the programs that fit shared memory, one more in global-memory mode for
-    the rest (``split_modes``).  Returns the output of each job, in the
+    the programs compiled without a budget, one streamed launch for the
+    budgeted ones (``launch_plan``), whose sources are first copied
+    column-major (``transpose``).  Returns the output of each job, in the
     order given."""
     for p, src, log_q in zip(progs, sources, log_qs):
         if len(src) != p.n_sources:
@@ -901,6 +1284,7 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
     if quotient:
         out = torch.empty((sum(heights), 4), dtype=torch.int32, device=dev)
     outs, out_ptr, row = [], [], 0
+    cols = []  # kept until the launches are enqueued
     for k, p in enumerate(progs):
         pool_off.append(n_pool)
         pool_parts.append(p.pool)
@@ -917,10 +1301,14 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
         out_ptr.append(outs[-1].data_ptr())
         src_off.append(len(src_words) // 2)
         for m in sources[k]:
-            src_words += [m.data_ptr(), m.stride(0)]
+            if p.budget:  # the streamed launch reads column-major copies
+                cols.append(transpose(m, heights[k]))
+                src_words += [cols[-1].data_ptr(), heights[k]]
+            else:
+                src_words += [m.data_ptr(), m.stride(0)]
 
     launches = []
-    for idx, is_global, lane_words, n_base, code_cap, threads in launch_plan(progs):
+    for idx, streamed, lane_words, code_cap, threads in launch_plan(progs):
         order, first, total = block_plan([heights[k] for k in idx], threads)
         jobs = np.zeros((len(idx), JOB_WORDS), dtype=np.int64)
         for pos, o in enumerate(order):
@@ -928,7 +1316,7 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
             p, j = progs[k], jobs[pos]
             j[J_CODE], j[J_NINSTR] = code_off[k], p.code.shape[0]
             j[J_POOL], j[J_SRC] = pool_off[k], src_off[k]
-            j[J_NBASE] = n_base if is_global else p.n_base
+            j[J_NBASE] = p.ext_offset
             j[J_LOGQ], j[J_LQD], j[J_SEL] = log_qs[k], lqds[k], p.sel_mask
             j[J_OUT], j[J_BLOCK0] = out_ptr[k], first[pos]
             if quotient:
@@ -938,7 +1326,8 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
                 if p.sel_mask & 3:
                     tab = selector_table(log_n, lqds[k], dev)
                     j[J_FIRST], j[J_LAST] = tab[0].data_ptr(), tab[1].data_ptr()
-        launches.append((jobs, threads, total, lane_words, code_cap, is_global))
+        launches.append((jobs, threads, total, lane_words * 4 * threads + 16 * code_cap,
+                         code_cap, streamed, max(progs[k].n_spill for k in idx)))
 
     sections = [np.asarray(src_words or [0, 0], dtype=np.int64).view(np.uint8),
                 np.concatenate(pool_parts + [np.zeros(1, np.uint32)])
@@ -951,18 +1340,15 @@ def _launch(kernel: str, fn_name: str, progs: list, sources: list,
     base = tables.data_ptr()
     code_ptr = base + offs[2] if code is None else code.data_ptr()
     xs = ntt.lde_points(max(log_qs), dev) if quotient else tables
-    for (jobs, threads, total, lane_words, code_cap, is_global), off in zip(
+    spills = []
+    for (jobs, threads, total, smem, code_cap, streamed, n_spill), off in zip(
             launches, offs[len(sections) - len(launches):]):
-        if is_global:
-            rows = global_rows(lane_words, total, threads)
-            scratch = _scratch(lane_words * rows, dev).data_ptr()
-            blocks, smem = rows // threads, 0
-        else:
-            scratch, blocks = None, total
-            smem = lane_words * 4 * threads + 16 * code_cap
+        # the streamed launch's spill file: n_spill words for each of its rows
+        spills.append(torch.empty(max(n_spill * total * threads, 1), dtype=torch.int32,
+                                  device=dev))
         _build.launch(kernel, fn_name, dev, base + off, len(jobs), code_ptr,
                       base + offs[1], base + offs[0], xs.data_ptr(), threads,
-                      blocks, smem, code_cap, scratch, total)
+                      total, smem, code_cap, int(streamed), spills[-1].data_ptr())
     # the tables must outlive the launch: PyTorch's caching allocator holds
     # a freed block for the stream's later work, and the kernel runs first
     return outs
@@ -979,9 +1365,9 @@ def evaluate_many(progs: list, sources: list, log_ns: list, lqds: list,
 
     Blocks map to (AIR, row range) through a job table (``block_plan``);
     each thread evaluates one row, in LDE order, so neighbouring threads
-    load neighbouring rows.  Programs marked ``global_memory`` (and any that
-    do not fit one block beside the others, ``split_modes``) take a second
-    launch, with code and slots in global memory.  Bound by operations for a constraint-heavy AIR
+    load neighbouring rows.  Budgeted programs take a second launch, with
+    their code streamed from global memory (``launch_plan``).  Bound by
+    operations for a constraint-heavy AIR
     (every node a Montgomery product or add a row; the fold a scale or an
     extension product by a power of alpha) and by bytes for a narrow one
     (each row reads its local and next cells and writes 16 bytes)."""
@@ -1025,7 +1411,7 @@ def evaluate_columns(prog: Program, sources: list, log_n: int) -> torch.Tensor:
     ``evaluate_columns_plain`` on CPU tensors; same arguments and result.
 
     The quotient kernel's interpreter with one job over the natural rows
-    (in global-memory mode for a program marked ``global_memory``): each
+    (in the streamed launch for a budgeted program): each
     thread stores its rows' root values in their output rows, so
     neighbouring threads write neighbouring words.  Bound by bytes when the
     roots are columns and small expressions, as interaction fields are:

@@ -14,15 +14,22 @@ the selector tables against the Fermat-inverse selectors, the job table's
 map of blocks to (AIR, rows), and ``evaluate_many`` over AIRs of mixed
 heights and quotient degrees.
 
-The extension chips whose programs do not fit shared memory (keccakf,
-keccak_sponge, modular_muldiv, sw_add_ne, sw_double, fp2_muldiv), built
-as the JAX package's keygen builds them, compile for the kernel's
-global-memory mode; keccakf's and sw_double's quotient values on a 4-row
-domain equal the JAX package's HostOps (tests/test_torch_quotient_jax.py)
-and its DeviceOps (here, under OPENVM_SLOW).
+A program that does not fit the shared launch is compiled at a budget of
+slot words a row, loading its cells, constants and selectors again rather
+than holding them: a leaf-heavy DAG at budgets of a few words gives the
+same words as without one, every program that fits the shared launch
+compiles to the code it compiled to before budgets (pinned by SHA-256: random
+DAGs and the VM's AIRs of paths 3 and 4), and the large AIRs (keccakf,
+keccak_sponge, modular_muldiv, sw_add_ne, sw_double and fp2_muldiv built as
+the JAX package's keygen builds them; sha256's two and Poseidon2Air from the
+port) compile within the budget and go to the streamed launch.  keccakf's
+and sw_double's budgeted quotient values on a 4-row domain equal the JAX
+package's HostOps (tests/test_torch_quotient_jax.py) and its DeviceOps
+(here, under OPENVM_SLOW).
 """
 
 import functools
+import hashlib
 import os
 from dataclasses import replace
 
@@ -220,23 +227,214 @@ def test_zerofier_table_matches_selectors():
 
 
 def test_compile_reuses_slots_and_refuses_too_many(monkeypatch):
-    """Slots are reused; a program past the shared-memory plan compiles to
-    the same code, marked for the kernel's global-memory mode, and goes to
-    the second launch."""
+    """Slots are reused; a program past the shared launch's plan is
+    compiled at the budget instead, gives the same words, and goes to the
+    streamed launch."""
     nodes, roots = random_dag(3)
     dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    env = random_env(4)
     kw = dict(n_main=2, has_preprocessed=True, has_perm=True,
-              publics=[1, 2, 3], challenges=np.ones((2, 4), np.uint32),
-              exposed=np.ones((1, 4), np.uint32), alpha=np.ones(4, np.uint32))
+              publics=env["publics"], challenges=env["challenges"],
+              exposed=env["exposed"], alpha=env["alpha"])
     prog = quotient.compile_dag(dag, **kw)
     assert prog.n_base + prog.n_ext < len(nodes) // 3
-    assert not prog.global_memory
+    assert prog.budget == 0 and prog.reloads == 0
     monkeypatch.setattr(quotient, "max_lane_words", lambda n: prog.lane_words - 1)
     big = quotient.compile_dag(dag, **kw)
-    assert big.global_memory
-    np.testing.assert_array_equal(big.code, prog.code)
-    assert quotient.split_modes([prog, big, prog]) == ([0, 2], [1])
-    assert quotient.block_threads(big.lane_words, 10 ** 6, True) == quotient.THREADS[0]
+    assert big.budget == quotient.BUDGET and big.lane_words <= quotient.BUDGET
+    sources = [_lde(m) for m in env["main"]] + [_lde(env["preprocessed"]),
+                                                _lde(env["perm"])]
+    np.testing.assert_array_equal(
+        bb.to_numpy(quotient.evaluate_plain(big, sources, LOG_N, LQD)),
+        bb.to_numpy(quotient.evaluate_plain(prog, sources, LOG_N, LQD)))
+    plan = quotient.launch_plan([prog, big, prog])
+    assert [(idx, streamed, code) for idx, streamed, _, code, _ in plan] == [
+        ([0, 2], False, int(prog.code.shape[0])), ([1], True, quotient.CODE_RING)]
+
+
+def leafy_dag(seed, n_roots=120):
+    """random_dag's leaves (every kind) and short roots over leaves picked
+    anywhere, so that every leaf is read all through the program."""
+    nodes, _ = random_dag(seed, n_ops=18)
+    n_leaves = sum(1 for n in nodes if n[0] in ("const", "var", "sel"))
+    nodes = nodes[:n_leaves]
+    rng = np.random.default_rng(seed)
+    roots = []
+    for _ in range(n_roots):
+        a, b, c = (int(x) for x in rng.integers(0, n_leaves, size=3))
+        kind = int(rng.integers(0, 4))
+        if kind == 0:
+            nodes += [("mul", a, b), ("add", len(nodes), c)]
+        elif kind == 1:
+            nodes += [("mul", b, c), ("sub", a, len(nodes))]
+        elif kind == 2:
+            nodes.append(("sub", a, b))
+        else:
+            nodes += [("neg", a), ("mul", len(nodes), c)]
+        roots.append(len(nodes) - 1)
+    return nodes, roots
+
+
+LEAF_OPS = (quotient.CONST_B, quotient.CONST_E, quotient.LOAD_B, quotient.LOAD_E,
+            quotient.SEL)
+
+
+@pytest.mark.parametrize("budget", [16, 20, 32])
+def test_budget_reloads_give_the_same_words(budget):
+    """A leaf-heavy DAG compiled at a budget of a few words a row loads
+    its leaves again (at 16 words every kind of leaf), stays within the
+    budget, gives the words it gives without one, through a plain
+    interpreter in which base and extension values overlap as they do in
+    the kernel's one word file; and apart from the reloads its
+    instructions are the unbudgeted program's, in order, with its pool."""
+    nodes, roots = leafy_dag(0)
+    env = random_env(1)
+    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    kw = dict(n_main=2, has_preprocessed=True, has_perm=True,
+              publics=env["publics"], challenges=env["challenges"],
+              exposed=env["exposed"], alpha=env["alpha"])
+    free = quotient.compile_dag(dag, **kw)
+    prog = quotient.compile_dag(dag, budget=budget, **kw)
+    assert free.budget == 0 and free.lane_words > 32
+    assert prog.budget == budget and prog.lane_words <= budget and prog.reloads
+    assert len(prog.code) == len(free.code) + prog.reloads
+    np.testing.assert_array_equal(prog.pool, free.pool)
+    ops = prog.code[:, 0] & quotient.OPCODE
+    reloaded = {int(o) for o in LEAF_OPS
+                if (ops == o).sum() > (free.code[:, 0] == o).sum()}
+    assert budget != 16 or reloaded == set(LEAF_OPS)
+    computed = ~np.isin(ops, LEAF_OPS)
+    np.testing.assert_array_equal(
+        ops[computed], free.code[~np.isin(free.code[:, 0], LEAF_OPS), 0])
+    sources = [_lde(m) for m in env["main"]] + [_lde(env["preprocessed"]),
+                                                _lde(env["perm"])]
+    np.testing.assert_array_equal(
+        bb.to_numpy(quotient.evaluate_plain(prog, sources, LOG_N, LQD)),
+        bb.to_numpy(quotient.evaluate_plain(free, sources, LOG_N, LQD)))
+
+
+@pytest.mark.parametrize("budget", [12, 32])
+def test_budget_spills_give_the_same_words(budget):
+    """The random DAG's computed values, mostly extension values, take
+    over 130 words a row; at a budget of 12 or 32 words the compiler
+    stores the ones read again farthest ahead in the spill file and loads
+    them back (SPILL, FILL), and the words are those without a budget."""
+    nodes, roots = random_dag(0)
+    env = random_env(1)
+    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    kw = dict(n_main=2, has_preprocessed=True, has_perm=True,
+              publics=env["publics"], challenges=env["challenges"],
+              exposed=env["exposed"], alpha=env["alpha"])
+    free = quotient.compile_dag(dag, **kw)
+    prog = quotient.compile_dag(dag, budget=budget, **kw)
+    ops = prog.code[:, 0] & quotient.OPCODE
+    fills = prog.code[ops == quotient.FILL]
+    assert prog.lane_words <= budget < free.lane_words
+    assert prog.spills == (ops == quotient.SPILL).sum() > 0 and len(fills) >= prog.spills
+    assert prog.n_spill > 0 and fills[:, 2].max() + 4 * fills[:, 3].max() <= prog.n_spill
+    moved = np.isin(ops, LEAF_OPS + (quotient.SPILL, quotient.FILL))
+    np.testing.assert_array_equal(
+        ops[~moved], free.code[~np.isin(free.code[:, 0], LEAF_OPS), 0])
+    sources = [_lde(m) for m in env["main"]] + [_lde(env["preprocessed"]),
+                                                _lde(env["perm"])]
+    np.testing.assert_array_equal(
+        bb.to_numpy(quotient.evaluate_plain(prog, sources, LOG_N, LQD)),
+        bb.to_numpy(quotient.evaluate_plain(free, sources, LOG_N, LQD)))
+
+
+def test_loads_run_ahead_of_their_reads(monkeypatch):
+    """A budgeted program's loads move ahead of where the compiler emitted
+    them (the same instructions, loads earlier), and the first instruction
+    to touch a load's slot waits (WAIT).  The plain interpreter writes a
+    load into its slot only at the next WAIT, as the streamed launch may:
+    the same program without its WAITs fails there."""
+    nodes, roots = leafy_dag(0)
+    env = random_env(1)
+    dag = SymbolicDag(nodes=nodes, constraint_roots=roots)
+    kw = dict(n_main=2, has_preprocessed=True, has_perm=True,
+              publics=env["publics"], challenges=env["challenges"],
+              exposed=env["exposed"], alpha=env["alpha"])
+    prog = quotient.compile_dag(dag, budget=16, **kw)
+    bare = prog.code & [quotient.OPCODE, -1, -1, -1]
+    waits = prog.code[:, 0] & quotient.WAIT
+    loads = np.isin(bare[:, 0], (quotient.LOAD_B, quotient.LOAD_E))
+    assert waits.any() and not (waits & loads).any()
+    monkeypatch.setattr(quotient, "_schedule_loads", lambda code: code)
+    emitted = quotient.compile_dag(dag, budget=16, **kw).code
+    assert sorted(map(tuple, emitted.tolist())) == sorted(map(tuple, bare.tolist()))
+    np.testing.assert_array_equal(bare[~loads], emitted[~np.isin(
+        emitted[:, 0], (quotient.LOAD_B, quotient.LOAD_E))])
+    first = [k for k in range(len(bare)) if loads[k]]
+    assert first != [k for k in range(len(emitted)) if emitted[k, 0] in (
+        quotient.LOAD_B, quotient.LOAD_E)], "no load moved"
+    sources = [_lde(m) for m in env["main"]] + [_lde(env["preprocessed"]),
+                                                _lde(env["perm"])]
+    with pytest.raises(TypeError):
+        quotient.evaluate_plain(replace(prog, code=bare), sources, LOG_N, LQD)
+
+
+def _code_sha(prog) -> str:
+    return hashlib.sha256(prog.code.tobytes() + np.asarray(
+        [prog.n_base, prog.n_ext], np.int64).tobytes()).hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def _vm_airs() -> dict:
+    """The port's AIRs of paths 3 to 6 by name (volatile and persistent
+    system AIRs, FIB_EXECUTORS, keccak and sha256), without a keygen."""
+    from openvm_tpu_torch.vm.guest import FIB_EXECUTORS
+    from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
+    airs = {}
+    for cfg in (Rv32Config(executors=FIB_EXECUTORS),
+                Rv32Config(executors=FIB_EXECUTORS, persistent=True, sha256=True)):
+        for air in VirtualMachine(cfg, device="cpu").airs:
+            airs.setdefault(air.name, air)
+    return airs
+
+
+@functools.lru_cache(maxsize=None)
+def _vm_air_program(name):
+    """An AIR's quotient program as the port's keygen and prover compile it
+    (AirBuilder, LogUp at degree 3, ``compile_dag_code``)."""
+    from openvm_tpu_torch.stark.logup import append_logup_constraints
+    air = _vm_airs()[name]
+    builder = symbolic.AirBuilder(air)
+    air.eval(builder)
+    has_perm = bool(builder.interactions)
+    append_logup_constraints(builder, 3)
+    return quotient.compile_dag_code(
+        SymbolicDag.from_builder(builder), n_main=1 + len(air.cached_main_widths),
+        has_preprocessed=air.preprocessed_trace() is not None, has_perm=has_perm)
+
+
+# SHA-256 (first 16 hex digits) of the code and slot counts each program
+# compiled to before budgets; every one fits the shared launch, so it must
+# compile to the same code now
+SHARED_CODE = {
+    "dag4": "72a45b36238b319c", "dag5": "5777a960830b0c0f", "dag6": "492a1b1ac6a39519",
+    "dag7": "fee758627cfc98e1", "dag8": "93a0c02b76db5e9e", "dag9": "debb7cbd76798546",
+    "program": "f6af3a0b9f177156", "connector": "a12f1963d82e8aa5",
+    "public_values": "1df7fa94fde6111a", "memory_boundary": "40212afee1967a98",
+    "range_checker": "9b0faa18aeb57f43", "bitwise_lookup": "bfd6092de782f4fa",
+    "phantom": "93a592262d31384b", "rv32_base_alu": "5952b5c00ea19de2",
+    "rv32_less_than": "cbc29b6800e865e4", "rv32_branch_eq": "326d7665ffb3b918",
+    "rv32_branch_lt": "8386880eae082cd9", "rv32_jal_lui": "db98551d8ce5d179",
+    "rv32_jalr": "da771441975c7210", "rv32_auipc": "e9377ca8a25cc849",
+    "rv32_load_store": "0e11c638a500ee3c", "persistent_boundary": "d04d007fe8cf3c92",
+    "memory_merkle": "4c9343ff21010399"}
+
+
+@pytest.mark.parametrize("name", list(SHARED_CODE))
+def test_shared_programs_compile_as_before(name):
+    if name.startswith("dag"):
+        nodes, roots = random_dag(int(name[3:]), n_ops=400)
+        prog = quotient.compile_dag_code(SymbolicDag(nodes=nodes, constraint_roots=roots),
+                                         n_main=2, has_preprocessed=True, has_perm=True)
+    else:
+        prog = _vm_air_program(name)
+    assert prog.budget == 0 and prog.reloads == 0
+    assert prog.lane_words <= quotient.max_lane_words(int(prog.code.shape[0]))
+    assert _code_sha(prog) == SHARED_CODE[name]
 
 
 @pytest.mark.parametrize("seed", range(4, 10))
@@ -418,11 +616,15 @@ def test_root_order_equals_the_greedy_rescan(seed):
 
 SECP_P = (1 << 256) - (1 << 32) - 977
 BN254_P = int("21888242871839275222246405745257275088696311157297823662689037894645226208583")
-# (AIR, instructions, slot words a row) of the JAX configs' chips that
-# shared memory cannot hold
-EXTENSION_AIRS = {"keccakf": (56186, 2890), "keccak_sponge": (10397, 1814),
-                  "modular_muldiv_0": (8943, 910), "sw_add_ne_0": (16407, 1641),
-                  "sw_double_0": (18286, 1691), "fp2_muldiv_0": (27668, 1714)}
+# (AIR, instructions, slot words a row, reloads, spills) of the JAX
+# configs' chips that the shared launch cannot hold, compiled at the budget
+EXTENSION_AIRS = {"keccakf": (71568, 48, 15194, 93), "keccak_sponge": (14993, 48, 2493, 411),
+                  "modular_muldiv_0": (13252, 48, 4053, 46),
+                  "sw_add_ne_0": (26865, 48, 5378, 552), "sw_double_0": (30512, 48, 7269, 592),
+                  "fp2_muldiv_0": (45093, 48, 17268, 67)}
+# the same of the port's sha256 chips and Poseidon2Air (paths 6 and 4)
+LARGE_VM_AIRS = {"sha256": (7734, 48, 1396, 45), "sha256_sponge": (6725, 48, 1125, 184),
+                 "poseidon2": (4181, 48, 301, 111)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -452,46 +654,25 @@ def _extension(name):
     return air, jdag, dag, prog
 
 
-def test_global_scratch_holds_mixed_jobs_apart():
-    """A global-memory launch of programs with different base and
-    extension files: with the plan's base file for every job, the words of
-    any two rows in flight (slot s of row r at s R + r, the extension file
-    after the base file, four words a slot) never meet, and fit the
-    scratch the plan sizes."""
-    progs = []
-    for seed, lane in ((5, 40), (6, 60), (7, 10 ** 6)):
-        nodes, roots = random_dag(seed, n_ops=120)
-        prog = quotient.compile_dag_code(SymbolicDag(nodes=nodes, constraint_roots=roots),
-                                         n_main=2, has_preprocessed=True, has_perm=True)
-        progs.append(replace(prog, global_memory=prog.lane_words > lane))
-    assert [p.global_memory for p in progs] == [True, True, False]
-    assert progs[0].n_base != progs[1].n_base and progs[0].n_ext != progs[1].n_ext
-    plan = quotient.launch_plan(progs)
-    assert [(idx, g) for idx, g, *_ in plan] == [([2], False), ([0, 1], True)]
-    _, _, lane_words, n_base, code_cap, threads = plan[1]
-    assert code_cap == 0 and threads == quotient.THREADS[0]
-    rows = 6  # rows in flight; the jobs alternate over them
-    owner = {}
-    for r in range(rows):
-        p = progs[r % 2]
-        cells = [s * rows + r for s in range(p.n_base)]
-        cells += [n_base * rows + 4 * (e * rows + r) + c
-                  for e in range(p.n_ext) for c in range(4)]
-        for w in cells:
-            assert w < lane_words * rows and owner.setdefault(w, r) == r, (w, r)
-
-
-@pytest.mark.parametrize("name", list(EXTENSION_AIRS))
-def test_extension_air_compiles_for_global_memory(name):
-    _, _, _, prog = _extension(name)
+@pytest.mark.parametrize("name", list(EXTENSION_AIRS) + list(LARGE_VM_AIRS))
+def test_large_air_compiles_within_the_budget(name):
+    """Each large AIR compiles within BUDGET slot words a row and goes to
+    the streamed launch, beside path 3's programs in the shared launch,
+    whose plan it leaves as it was (rv32_load_store's code and
+    memory_merkle's slots size it)."""
+    prog = _extension(name)[3] if name in EXTENSION_AIRS else _vm_air_program(name)
     n_instr = int(prog.code.shape[0])
-    assert (n_instr, prog.lane_words) == EXTENSION_AIRS[name]
-    assert prog.global_memory and prog.lane_words > quotient.max_lane_words(n_instr)
-    assert quotient.split_modes([prog]) == ([], [0])
-    threads = quotient.block_threads(prog.lane_words, n_instr, True)
-    rows = quotient.global_rows(prog.lane_words, 1 << 20, threads)
-    assert rows % threads == 0 and rows <= quotient.GLOBAL_ROWS
-    assert prog.lane_words * rows <= quotient.GLOBAL_SCRATCH_WORDS
+    assert (n_instr, prog.lane_words, prog.reloads, prog.spills) == {
+        **EXTENSION_AIRS, **LARGE_VM_AIRS}[name]
+    assert prog.budget == quotient.BUDGET and prog.lane_words <= quotient.BUDGET
+    assert (prog.lane_words * 4 * quotient.THREADS[0] + 16 * quotient.CODE_RING
+            <= quotient.SMEM_BYTES)
+    shared = [_vm_air_program(n) for n in ("rv32_load_store", "memory_merkle")]
+    plan = quotient.launch_plan(shared + [prog])
+    assert plan == [([0, 1], False, 198, 564, 128),
+                    ([2], True, prog.lane_words, quotient.CODE_RING,
+                     quotient.block_threads(prog.lane_words, quotient.CODE_RING))]
+    assert plan[0][1:] == quotient.launch_plan(shared)[0][1:]
 
 
 def _host_ops_quotient(air, jdag, env_words, log_n, lqd, ops=HostOps):

@@ -5,8 +5,9 @@ entry, offsets 0 and 1 and next_step 2, evaluated on an 8-row quotient
 domain by the JAX package's DeviceOps (eagerly, about 6 s) and by the
 port's bytecode interpreter (plain version); the alpha-folded, 1/Z_H-scaled
 results are equal word for word.  keccakf's and sw_double_0's quotient
-values on a 4-row domain (tests/test_torch_quotient.py's extension cases)
-equal the JAX package's HostOps (about 4 s).  A file of its own, queued by
+values on a 4-row domain (tests/test_torch_quotient.py's extension cases),
+through their programs compiled at the budget, equal the JAX package's
+HostOps (about 4 s).  A file of its own, queued by
 ``--dist loadfile`` after tests/test_aggregation.py."""
 
 import numpy as np
@@ -18,8 +19,8 @@ from openvm_tpu_torch.field import babybear as bb
 from openvm_tpu_torch.stark import quotient
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
 
-from test_torch_quotient import (LOG_N, LQD, _extension_case, _host_ops_quotient, _jax_fold,
-                                 _lde, random_dag, random_env)
+from test_torch_quotient import (LOG_N, LQD, _extension, _extension_case, _host_ops_quotient,
+                                 _jax_fold, _lde, random_dag, random_env)
 
 torch.set_num_threads(1)
 
@@ -45,6 +46,8 @@ def test_bytecode_interpreter_equals_jax():
 
 @pytest.mark.parametrize("name", ["keccakf", "sw_double_0"])
 def test_extension_air_quotient_equals_host_ops(name):
+    prog = _extension(name)[3]
+    assert prog.budget == quotient.BUDGET and prog.reloads
     air, jdag, canon, log_n, lqd, got = _extension_case(name, 31)
     want = _host_ops_quotient(air, jdag, canon, log_n, lqd)
     np.testing.assert_array_equal(got.astype(np.uint64), want)
