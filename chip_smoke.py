@@ -153,8 +153,21 @@ Phases, each printing one JSON line:
             (SHA_PROOF_SHA256), stages, insn/s, blocks/s, peak memory, K7's
             two launches (sha256's two programs streamed), each part alone,
             every kernel against plain on the prove's own inputs
+  u256      path 7, sha256 with the int256 and modular-arithmetic
+            extensions: VirtualMachine(sha256=True, bigint=True,
+            moduli=(secp256k1's p, n)) keygen -> prove -> verify of
+            build_u256_iter_program(1,024), 67,630 instructions (54,274
+            int256 ops, 10,240 modular ops, 1,024 sha256 blocks), one cold
+            prove; every extension chip at its pinned height
+            (U256_LOG_HEIGHTS), the public values against
+            u256_iter_reference, the proof's SHA-256 (U256_PROOF_SHA256),
+            stages, insn/s, u256 ops/s, peak memory; K7's two launches
+            (the 14 extension programs streamed: its plan checked),
+            rv32_base_alu's job equal in either launch, the streamed launch
+            alone and the shared one without it against their bounds;
+            every kernel against plain on the prove's own inputs
 
-then a {"kernels": [...]} line (each kernel's launches on paths 1 to 6, its
+then a {"kernels": [...]} line (each kernel's launches on paths 1 to 7, its
 __global__ entries, and K7's streamed launch on path 5's shapes) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -184,9 +197,11 @@ from openvm_tpu_torch.stark.config import FriParameters, StarkConfig
 from openvm_tpu_torch.stark.debug import check_constraints
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
 from openvm_tpu_torch.vm.circuit.poseidon2_chip import Poseidon2Air
-from openvm_tpu_torch.vm.guest import (FIB_EXECUTORS, build_fib_program,
+from openvm_tpu_torch.vm.guest import (FIB_EXECUTORS, U256_MODULI, build_fib_program,
                                        build_keccak_iter_program,
-                                       build_sha256_iter_program, fib, iter_insns)
+                                       build_sha256_iter_program,
+                                       build_u256_iter_program, fib, iter_insns,
+                                       u256_iter_counts, u256_iter_reference)
 from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
 from openvm_tpu_torch.vm.memory_tree import pv_proof, verify_pv_proof
 
@@ -286,6 +301,26 @@ SHA_LOG_HEIGHTS = {"sha256": 18, "sha256_sponge": 12}
 # The SHA-256 of path 6's proof (1,612,265 bytes) as this script's first
 # run of path 6 on the H100 made it.
 SHA_PROOF_SHA256 = "66d9903b23013e70426123364fbcf18984eca0bdb57529d1830fb052a031e3a8"
+# Path 7: the sha256 + u256 guest in volatile memory, one cold prove:
+# BASELINE.json's config 3 ("sha256 + u256/bigint guest mixing multiple
+# extension chips per proof") with the modular chips of secp256k1's two
+# moduli (config 4's).  U256_ITER_N iterations of a sha256 block, 44 int256
+# ALU-type ops, six 256-bit branches, three masking ops and five modular
+# ops a modulus (vm.guest.build_u256_iter_program).  At 2,048 iterations
+# the whole script took 912.8 s of command time (PERF.md): 1,024 keep
+# int256_alu at 23,553 rows, 2^15.
+U256_ITER_N = 1_024
+U256_CONFIG = dict(sha256=True, bigint=True, moduli=U256_MODULI)
+U256_LOG_HEIGHTS = {"sha256": 16, "sha256_sponge": 10, "int256_alu": 15,
+                    "int256_shift": 14, "int256_lt": 13, "int256_mul": 12,
+                    "int256_blt": 12, "int256_beq": 11,
+                    **{f"modular_{kind}_{k}": lh for k in (0, 1)
+                       for kind, lh in (("addsub", 11), ("muldiv", 11), ("iseq", 10))}}
+# The programs of K7's streamed launch on path 7: every extension AIR's.
+U256_STREAMED = tuple(U256_LOG_HEIGHTS)
+# The SHA-256 of path 7's proof (4,423,001 bytes) as this script's first
+# run of path 7 at U256_ITER_N on the H100 made it.
+U256_PROOF_SHA256 = "5adef6d64193ba1fc63322b1eec849427815f530243a5a553e9a31230c823591"
 # The plain K7 keeps every slot of a program over every row it evaluates:
 # a job whose slots over its whole quotient domain take more than this is
 # held to the kernel on blocks of QUOTIENT_BLOCK rows (keccakf's 2,890
@@ -1377,7 +1412,7 @@ def run_prove(dev, cfg: StarkConfig, airs, ctxs) -> dict:
 
 
 def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, **flags) -> dict:
-    """Path 3 (path 6 with ``exe`` and the config's extension ``flags``):
+    """Path 3 (paths 6 and 7 with ``exe`` and the config's extension ``flags``):
     VirtualMachine keygen -> prove -> verify of the guest through the
     port's entry points, the fibonacci guest by default; then, with
     ``warm``, a warm prove that must give the same bytes."""
@@ -1413,7 +1448,7 @@ def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, **flags) -> dict:
 def check_vm_kernels(vm, record: dict) -> dict:
     """K1, K3, K4 and K5 (``check_commit_kernels``), K7 (columns mode),
     K8, K9, K10, K7 (quotient), K12, K2, K13, K14 and K6 of a VM prove
-    (path 3's or 6's, or one segment's of path 4 or 5) against their plain
+    (path 3's, 6's or 7's, or one segment's of path 4 or 5) against their plain
     versions on the prove's own inputs: the main commit, the tables of
     the prove's one K8 launch over every AIR's sends, each AIR's chunk
     columns from its one K9 launch and its permutation trace, every AIR's
@@ -1875,6 +1910,50 @@ def stream_timing(vm, qrec: list) -> dict:
     return out
 
 
+def require_one_prove(launches: dict, path: str) -> None:
+    """A volatile VM prove with large programs (paths 6 and 7): every
+    kernel but the elementwise K2 ran, K7 in two launches (shared and
+    streamed), and one lookup_hist, perm_cols, fri_reduced_open,
+    ext_powers and gather launch."""
+    require(all(v for k, v in launches.items() if k not in OFF_PATH),
+            f"a kernel of {path} never ran: {launches}")
+    require(launches["quotient"] == 2
+            and all(launches[k] == 1 for k in ("lookup_hist", "perm_cols",
+                                               "fri_reduced_open", "ext_powers", "gather"))
+            and not any(launches[k] for k in OFF_PATH),
+            f"{path} takes two quotient launches (shared and streamed) and one "
+            f"lookup_hist, perm_cols, fri_reduced_open, ext_powers and gather launch "
+            f"a prove and no elementwise K2: {launches}")
+
+
+def quotient_split(vm, qrec: list, streamed_names, path: str) -> tuple:
+    """K7 over a VM prove's own jobs: the streamed launch must hold exactly
+    ``streamed_names``' programs, and rv32_base_alu's job must be the same
+    whichever launch it shares.  Returns (both launches, the streamed
+    programs alone, the shared launch without them), each timed beside its
+    bound."""
+    names = [a.name for a in vm.airs]
+    keep = [i for i, name in enumerate(names) if name not in streamed_names]
+    sub = [qrec[i] for i in keep]
+    streamed = [qrec[i] for i in range(len(qrec)) if i not in keep]
+    alu = vm.air_index["rv32_base_alu"]
+    with_streamed = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))[alu]
+    without = qmod.evaluate_many(*(list(col) for col in zip(*sub)))[keep.index(alu)]
+    require(max_abs_err(with_streamed, without) == 0,
+            "K7's rv32_base_alu job depends on the launch")
+    both = {"launch": launch_summary(names, qrec),
+            "ms": cuda_ms(lambda: qmod.evaluate_many(*(list(c) for c in zip(*qrec))), 5),
+            "bound_ms": bound(*quotient_cost(qrec))[0]}
+    require([set(e["airs"]) for e in both["launch"] if e["streamed"]]
+            == [set(streamed_names)], f"{path}'s K7 plan: {both['launch']}")
+    alone = {"ms": cuda_ms(lambda: qmod.evaluate_many(*(list(c) for c in zip(*streamed))), 5),
+             "bound_ms": bound(*quotient_cost(streamed))[0]}
+    rest = {"launch": launch_summary([names[i] for i in keep], sub),
+            "ms": cuda_ms(lambda: qmod.evaluate_many(*(list(c) for c in zip(*sub))), 5),
+            "bound_ms": bound(*quotient_cost(sub))[0]}
+    return both, alone, rest
+
+
 def run_sha(dev, cfg: StarkConfig) -> dict:
     """Path 6: the sha256-iteration guest's volatile VM proof (run_vm with
     the sha256 extension), held to its heights, its public values and its
@@ -1889,15 +1968,7 @@ def run_sha(dev, cfg: StarkConfig) -> dict:
     r = run_vm(dev, cfg, build_sha256_iter_program(SHA_ITER_N), warm=False, sha256=True)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, vm, pre = r["launches"], r["vm"], r["pre"]
-    require(all(v for k, v in launches.items() if k not in OFF_PATH),
-            f"a kernel of path 6 never ran: {launches}")
-    require(launches["quotient"] == 2
-            and all(launches[k] == 1 for k in ("lookup_hist", "perm_cols",
-                                               "fri_reduced_open", "ext_powers", "gather"))
-            and not any(launches[k] for k in OFF_PATH),
-            f"path 6 takes two quotient launches (shared and streamed) and one "
-            f"lookup_hist, perm_cols, fri_reduced_open, ext_powers and gather launch "
-            f"a prove and no elementwise K2: {launches}")
+    require_one_prove(launches, "path 6")
     require(pre.exit_code == 0 and pre.instret == iter_insns(SHA_ITER_N),
             f"path 6's guest ran {pre.instret} instructions")
     heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
@@ -1911,30 +1982,11 @@ def run_sha(dev, cfg: StarkConfig) -> dict:
     blob = codec.encode_proof(r["proof"])
     sha = hashlib.sha256(blob).hexdigest()
     require(sha == SHA_PROOF_SHA256, f"path 6's proof sha {sha}")
-    qrec = r["record"]["quotient"]
-    keep = [i for i, a in enumerate(vm.airs) if a.name not in ("sha256", "sha256_sponge")]
-    sub = [qrec[i] for i in keep]
-    alu = vm.air_index["rv32_base_alu"]
-    with_sha = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))[alu]
-    without = qmod.evaluate_many(*(list(col) for col in zip(*sub)))[keep.index(alu)]
-    require(max_abs_err(with_sha, without) == 0, "K7's rv32_base_alu job depends on the launch")
-    names = [a.name for a in vm.airs]
-    streamed = [qrec[i] for i in range(len(qrec)) if i not in keep]
-    quotient = {"launch": launch_summary(names, qrec),
-                "ms": cuda_ms(lambda: qmod.evaluate_many(*(list(c) for c in zip(*qrec))), 5),
-                "bound_ms": bound(*quotient_cost(qrec))[0],
-                "sha256_alone": {
-                    "ms": cuda_ms(lambda: qmod.evaluate_many(
-                        *(list(c) for c in zip(*streamed))), 5),
-                    "bound_ms": bound(*quotient_cost(streamed))[0]},
-                "without_sha256": {"launch": launch_summary([names[i] for i in keep], sub),
-                                   "ms": cuda_ms(
-                    lambda: qmod.evaluate_many(*(list(c) for c in zip(*sub))), 5),
-                                   "bound_ms": bound(*quotient_cost(sub))[0]},
+    both, alone, rest = quotient_split(vm, r["record"]["quotient"], ("sha256", "sha256_sponge"),
+                                       "path 6")
+    quotient = {**both, "sha256_alone": alone, "without_sha256": rest,
                 "one_launch_before_ms": {"with_sha256": [162.8, 164.0],
                                          "without_sha256": [0.19, 0.20]}}
-    require([set(e["airs"]) for e in quotient["launch"] if e["streamed"]]
-            == [{"sha256", "sha256_sponge"}], f"path 6's K7 plan: {quotient['launch']}")
     r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
              peak_gb=peak_gb, start_gb=start_gb, quotient=quotient,
              plain_checks=check_vm_kernels(vm, r.pop("record")))
@@ -1986,6 +2038,72 @@ def phase_sha(dev, cfg: StarkConfig, err: dict) -> dict:
           "launches": sr["launches"], "quotient": sr["quotient"],
           "plain_checks": sr["plain_checks"]})
     return sr["launches"]
+
+
+def run_u256(dev, cfg: StarkConfig) -> dict:
+    """Path 7: the sha256 + u256 guest's volatile VM proof (run_vm with the
+    sha256, int256 and modular extensions), held to its heights, its
+    public values and its pinned proof; K7's two launches (the 14
+    extension programs streamed), the streamed launch alone and the
+    shared one without it beside their bounds, and every kernel against
+    plain on the prove's own inputs."""
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    r = run_vm(dev, cfg, build_u256_iter_program(U256_ITER_N), warm=False, **U256_CONFIG)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches, vm, pre = r["launches"], r["vm"], r["pre"]
+    require_one_prove(launches, "path 7")
+    counts = u256_iter_counts(U256_ITER_N)
+    rows = {k: len(next(iter(v.values()))) for k, v in pre.records.items()}
+    ops = {"int256": sum(v for k, v in rows.items() if k.startswith("int256_")),
+           "modular": sum(v for k, v in rows.items() if k.startswith("modular_"))}
+    require(pre.exit_code == 0 and pre.instret == counts["insns"]
+            and ops["int256"] == counts["int256_ops"]
+            and ops["modular"] == counts["modular_ops"]
+            and rows["sha256_sponge"] == counts["sha256_blocks"],
+            f"path 7's guest ran {pre.instret} instructions, {ops} ops: {rows}")
+    heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
+    require(all(heights[name] == 1 << lh for name, lh in U256_LOG_HEIGHTS.items()),
+            f"path 7's heights: {heights}")
+    pvs = list(r["result"]["public_values"])
+    require(pvs == u256_iter_reference(U256_ITER_N), f"path 7's public values {pvs}")
+    blob = codec.encode_proof(r["proof"])
+    sha = hashlib.sha256(blob).hexdigest()
+    require(sha == U256_PROOF_SHA256, f"path 7's proof sha {sha}")
+    qrec = r["record"]["quotient"]
+    both, alone, rest = quotient_split(vm, qrec, U256_STREAMED, "path 7")
+    alone["jobs"] = {a.name: {"log_rows": q[2] + q[3], "instructions": int(q[0].code.shape[0])}
+                     for a, q in zip(vm.airs, qrec) if a.name in U256_STREAMED}
+    quotient = {**both, "streamed_alone": alone, "without_streamed": rest}
+    r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
+             peak_gb=peak_gb, start_gb=start_gb, quotient=quotient, rows=rows, ops=ops,
+             plain_checks=check_vm_kernels(vm, r.pop("record")))
+    return r
+
+
+def phase_u256(dev, cfg: StarkConfig, err: dict) -> dict:
+    """Path 7 (``run_u256``) and its line; folds its plain checks into
+    ``err``.  Returns its launches."""
+    ur = run_u256(dev, cfg)
+    err.update({k: max(v, err.get(k, 0)) for k, v in ur["plain_checks"]["max"].items()})
+    insns, prove_s = ur["pre"].instret, ur["s"]["prove"]
+    n_ops = ur["ops"]["int256"] + ur["ops"]["modular"]
+    emit({"phase": "u256", "guest": f"build_u256_iter_program({U256_ITER_N})",
+          "executors": list(FIB_EXECUTORS), "sha256": True, "bigint": True,
+          "moduli": [hex(m) for m in U256_MODULI], "insns": insns,
+          "int256_ops": ur["ops"]["int256"], "modular_ops": ur["ops"]["modular"],
+          "sha256_blocks": U256_ITER_N, "rows": ur["rows"], "heights": ur["heights"],
+          "queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
+          "s": ur["s"], "stage_s": ur["stages_s"],
+          "insn_per_s_cold": insns / prove_s, "u256_ops_per_s_cold": n_ops / prove_s,
+          "verified": True, "public_values": ur["public_values"][:20],
+          "proof_bytes": len(ur["blob"]), "proof_sha256": ur["sha"],
+          "peak_gb": ur["peak_gb"], "peak_above_start_gb": ur["peak_gb"] - ur["start_gb"],
+          "launches": ur["launches"], "quotient": ur["quotient"],
+          "plain_checks": ur["plain_checks"]})
+    return ur["launches"]
 
 
 def tamper_poseidon2(vm, ctxs: list, device) -> list:
@@ -2502,6 +2620,8 @@ def run(dev: torch.device) -> int:
     # ---- paths 5 and 6: the keccak and sha256 extensions -------------------
     k_launches, k_stream = phase_keccak(dev, cfg, err)
     s_launches = phase_sha(dev, cfg, err)
+    # ---- path 7: sha256, int256 and modular arithmetic ---------------------
+    u_launches = phase_u256(dev, cfg, err)
     # the streamed launch's transpose, launched on paths 4-6 only: its row
     # from keccakf's main LDE on path 5
     tr = k_stream["transpose"]
@@ -2521,6 +2641,7 @@ def run(dev: torch.device) -> int:
         "shape": tr["shape"]})
     for k in kernels:
         k["launches_path5"], k["launches_path6"] = k_launches[k["name"]], s_launches[k["name"]]
+        k["launches_path7"] = u_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err.get(k["name"], 0))
     next(k for k in kernels if k["name"] == "quotient")["stream_path5"] = k_stream
     print(setup["nvidia_smi"].splitlines()[0], flush=True)

@@ -1,14 +1,22 @@
-"""The hand-assembled guests: fibonacci, keccak256 and sha256.
+"""The hand-assembled guests: fibonacci, keccak256, sha256, int256 and
+modular arithmetic.
 
 Copy of tests/test_vm_prove.py:20-96 (``build_fib_program``, the ``asm_*``
 encoders, ``fib``, ``FIB_EXECUTORS``), tests/test_vm_keccak.py:23-56
-(``build_keccak_program``, ``keccak_r``, ``hint_storew``, ``SRC``, ``DST``)
-and tests/test_vm_sha256.py:23-52 (``build_sha_program``, ``sha_r``), so
-that chip_smoke.py and the tests reach the repo's VM workloads without
-importing the JAX package.  ``build_keccak_iter_program(n)`` and
-``build_sha256_iter_program(n)`` are this package's own: the reference's
-``keccak256_iter`` and ``sha256_iter`` benchmark guests (SURVEY.md:337)
-reduced to a loop that hashes its own 32-byte buffer in place n times.
+(``build_keccak_program``, ``keccak_r``, ``hint_storew``, ``SRC``, ``DST``),
+tests/test_vm_sha256.py:23-52 (``build_sha_program``, ``sha_r``),
+tests/test_vm_bigint.py:25-116 (``int256_r``, ``beq256``,
+``build_bigint_program``, ``hint_input_for``, ``A_VAL``, ``B_VAL``, the
+``PTR_*`` blocks) and tests/test_vm_modular.py:20-63 (``modular_r``,
+``build_modular_program``, its operands ``MOD_A_VAL`` and ``MOD_B_VAL``),
+so that chip_smoke.py and the tests reach the repo's VM workloads without
+importing the JAX package.  ``build_keccak_iter_program(n)``,
+``build_sha256_iter_program(n)`` and ``build_u256_iter_program(n)`` are
+this package's own: the reference's ``keccak256_iter`` and ``sha256_iter``
+benchmark guests (SURVEY.md:337) reduced to a loop that hashes its own
+32-byte buffer in place n times, and that loop mixed with 256-bit integer
+and modular arithmetic over secp256k1's two moduli (the reference's ruint
+and U256 guests, SURVEY.md:325).
 ``build_fib_program(n)`` runs about 5n + 20 instructions.  The original
 loads the loop count n with one addi, whose immediate is 12 bits signed:
 from n = 2048 on, the count wraps negative and the loop runs about 2^32
@@ -18,7 +26,10 @@ below 2048 the words are the original's, instruction for instruction.
 
 from __future__ import annotations
 
-from .instructions import Program, VmExe
+import hashlib
+
+from .instructions import (BranchEqual256Opcode, BranchLessThan256Opcode,
+                           Instruction, Program, VmExe)
 from .transpiler import Transpiler
 
 
@@ -227,3 +238,272 @@ def iter_insns(n):
     """The instructions an iterated guest runs: 3 a hash, 4 to 5 to load
     its registers (n past 2047 takes lui + addi), 4 after the loop."""
     return 3 * n + 4 + (n >= 2048) + 4
+
+
+# -- int256 and modular arithmetic (tests/test_vm_bigint.py:25-116,
+# tests/test_vm_modular.py:20-63) ------------------------------------------
+
+M256 = (1 << 256) - 1
+
+# Int256 funct7 encodings (reference Int256Funct7)
+ADD, SUB, XOR, OR, AND, SLL, SRL, SRA, SLT, SLTU, MUL = range(11)
+# modular base funct7s (reference ModArithBaseFunct7)
+ADD_F7, SUB_F7, MUL_F7, DIV_F7, ISEQ_F7, SETUP_F7 = range(6)
+
+SECP256K1_P = (1 << 256) - (1 << 32) - 977
+SECP256K1_N = 0xFFFFFFFF_FFFFFFFF_FFFFFFFF_FFFFFFFE_BAAEDCE6_AF48A03B_BFD25E8C_D0364141
+
+
+def int256_r(funct7, rd, rs1, rs2):
+    return ((funct7 << 25) | (rs2 << 20) | (rs1 << 15) | (0b101 << 12)
+            | (rd << 7) | 0x0B)
+
+
+def beq256(rs1, rs2, imm):
+    imm &= 0x1FFF
+    return ((((imm >> 12) & 1) << 31) | (((imm >> 5) & 0x3F) << 25)
+            | (rs2 << 20) | (rs1 << 15) | (0b110 << 12)
+            | (((imm >> 1) & 0xF) << 8) | (((imm >> 11) & 1) << 7) | 0x0B)
+
+
+def modular_r(base_f7, rd, rs1, rs2, mod_idx=0):
+    return (((mod_idx * 8 + base_f7) << 25) | (rs2 << 20) | (rs1 << 15)
+            | (0b000 << 12) | (rd << 7) | 0x2B)
+
+
+A_VAL = 0xF1EE_0000_DDCC_BBAA_9988_7766_5544_3322_1100_FFEE_DDCC_BBAA_9988_7766_5544_3322
+B_VAL = 0x0000_0001_0000_0000_0000_0000_0000_0000_FEDC_BA98_7654_3210_0123_4567_89AB_CDEF
+MOD_A_VAL = 0x3A1E_55D1_9F83_7C2B_11DD_0123_4567_89AB_CDEF_FEDC_BA98_7654_3210_0F0F_1E1E_2D2D % SECP256K1_P
+MOD_B_VAL = 0x0101_55D1_0000_7C2B_9F83_4567_0123_89AB_1234_5678_9ABC_DEF0_AAAA_BBBB_CCCC_0007 % SECP256K1_P
+
+PTR_A, PTR_B, PTR_C, PTR_D = 0x100, 0x140, 0x180, 0x1C0
+
+
+def _operand_words():
+    """Hint the two 32-byte operands into [PTR_A] and [PTR_B] and point
+    x1-x4 at the four blocks."""
+    words = [(0 << 20) | (0b011 << 12) | 0x0B]          # phantom hint_input
+    words += [asm_i(0x13, 1, 0, PTR_A, 0), hint_storew(1)]  # length word
+    for k in range(8):
+        words += [asm_i(0x13, 1, 0, PTR_A + 4 * k, 0), hint_storew(1)]
+    for k in range(8):
+        words += [asm_i(0x13, 1, 0, PTR_B + 4 * k, 0), hint_storew(1)]
+    return words + [
+        asm_i(0x13, 1, 0, PTR_A, 0),   # x1 = &a
+        asm_i(0x13, 2, 0, PTR_B, 0),   # x2 = &b
+        asm_i(0x13, 3, 0, PTR_C, 0),   # x3 = &c
+        asm_i(0x13, 4, 0, PTR_D, 0),   # x4 = &d
+    ]
+
+
+def build_bigint_program(ops):
+    """Operands arrive through the hint stream, then the given custom
+    instructions run, then the low and high result words of [PTR_C] are
+    revealed.  Executors: alu, loadstore, hintstore and int256."""
+    return _program(_operand_words() + list(ops) + [
+        asm_i(0x03, 6, 3, 0, 2),       # lw x6, 0(x3)
+        reveal(6, 0, 0),
+        asm_i(0x03, 7, 3, 28, 2),      # lw x7, 28(x3)
+        reveal(7, 0, 4),
+        TERMINATE,
+    ])
+
+
+def hint_input_for(a, b):
+    """One input: 64 bytes = a || b little-endian."""
+    return [list(a.to_bytes(32, "little") + b.to_bytes(32, "little"))]
+
+
+def build_modular_program():
+    """c = a + b, d = c - b, c = a * b, d = c / b, x28 = (d == a) over
+    secp256k1's prime (modulus index 0); reveals c's low word and x28."""
+    return _program(_operand_words() + [
+        modular_r(SETUP_F7, 3, 1, 2),      # setup -> nop
+        modular_r(ADD_F7, 3, 1, 2),        # c = a + b
+        modular_r(SUB_F7, 4, 3, 2),        # d = c - b = a
+        modular_r(MUL_F7, 3, 4, 2),        # c = a * b
+        modular_r(DIV_F7, 4, 3, 2),        # d = c / b = a
+        modular_r(ISEQ_F7, 28, 4, 1),      # x28 = (d == a) = 1
+        asm_i(0x03, 6, 3, 0, 2),           # lw x6, 0(x3)
+        reveal(6, 0, 0),
+        reveal(28, 0, 4),
+        TERMINATE,
+    ])
+
+
+# -- the u256 iteration guest ------------------------------------------------
+
+# Its 32-byte blocks after the hashed buffer at ITER_BUF, each behind its
+# own pointer register: the accumulator, four temporaries, the two
+# comparison results, the constants 1 and 2^255 - 1, the two reduced
+# operands of the modular ops and four modular results.
+U256_BLOCKS = ("acc", "t", "u", "v", "w", "l1", "l2", "one", "mask", "x",
+               "y", "r1", "r2", "r3", "r4")
+U256_REG = {name: 8 + i for i, name in enumerate(U256_BLOCKS)}
+U256_REG["d"] = 5   # the hashed buffer, its digest after each sha256
+U256_FLAGS = (23, 24)  # the IS_EQ results of modulus 0 and 1
+U256_MODULI = (SECP256K1_P, SECP256K1_N)
+# The int256 body of an iteration, run U256_PASSES times: (funct7, rd,
+# rs1, rs2) by block name; every ALU-type funct7 once.
+U256_BODY = ((XOR, "t", "acc", "d"), (SLL, "u", "t", "d"),
+             (SRL, "v", "t", "acc"), (SRA, "w", "d", "t"),
+             (OR, "u", "u", "v"), (AND, "v", "w", "t"),
+             (SLT, "l1", "u", "v"), (SUB, "w", "w", "l1"),
+             (SLTU, "l2", "u", "w"), (MUL, "t", "u", "v"),
+             (ADD, "acc", "t", "w"))
+U256_PASSES = 4
+# The six 256-bit branches, each to the next instruction: (opcode, rs1,
+# rs2).  Only BEQ256 has a RISC-V encoding (the transpiler lowers custom-0
+# funct3 0b110 to it, as the JAX package's does); the other five are set
+# as VM instructions, as tests/test_vm_bigint.py's BLT256 is.
+U256_BRANCHES = ((BranchEqual256Opcode.BEQ, "l1", "one"),
+                 (BranchEqual256Opcode.BNE, "l2", "one"),
+                 (BranchLessThan256Opcode.BLT, "acc", "d"),
+                 (BranchLessThan256Opcode.BGE, "acc", "d"),
+                 (BranchLessThan256Opcode.BLTU, "d", "acc"),
+                 (BranchLessThan256Opcode.BGEU, "d", "acc"))
+
+
+def _branch(opcode, rs1, rs2):
+    return Instruction(opcode, a=4 * U256_REG[rs1], b=4 * U256_REG[rs2],
+                       c=4, d=1, e=2)
+
+
+def _modular_words(k):
+    """Modulus k's five ops on the reduced operands x, y: r1 = x + y,
+    r2 = r1 - x, r3 = r1 * r2, then r1 again as r3 / y (into r4 for
+    modulus 0, into the hashed buffer for modulus 1, so the next sha256
+    reads it) and an IS_EQ into U256_FLAGS[k] (r4 == r1 for modulus 0,
+    r3 == x for modulus 1)."""
+    r = U256_REG
+    out = "r4" if k == 0 else "d"
+    eq = ("r4", "r1") if k == 0 else ("r3", "x")
+    return [modular_r(ADD_F7, r["r1"], r["x"], r["y"], k),
+            modular_r(SUB_F7, r["r2"], r["r1"], r["x"], k),
+            modular_r(MUL_F7, r["r3"], r["r1"], r["r2"], k),
+            modular_r(DIV_F7, r[out], r["r3"], r["y"], k),
+            modular_r(ISEQ_F7, U256_FLAGS[k], r[eq[0]], r[eq[1]], k)]
+
+
+def u256_iter_items(n):
+    """The guest's program as words, and as VM instructions where a
+    branch has no encoding; the loop's first and last item indices."""
+    if n < 1:
+        raise ValueError("the loop runs at least once")
+    r = U256_REG
+    items = [*load_imm(5, ITER_BUF), *load_imm(7, 32), *load_imm(3, n)]
+    for i, name in enumerate(U256_BLOCKS):
+        items += load_imm(r[name], ITER_BUF + 32 * (i + 1))
+    items += [asm_i(0x13, 1, 0, 1, 0),                   # x1 = 1
+              asm_s(2, r["one"], 1, 0),                  # [one] = 1
+              int256_r(SUB, r["mask"], r["mask"], r["one"]),  # 2^256 - 1
+              int256_r(SRL, r["mask"], r["mask"], r["one"])]  # 2^255 - 1
+    loop = len(items)
+    items.append(sha_r(5, 5, 7))                         # d = sha256(d)
+    for _ in range(U256_PASSES):
+        items += [int256_r(f7, r[rd], r[a], r[b]) for f7, rd, a, b in U256_BODY]
+    items += [_branch(*br) for br in U256_BRANCHES]
+    items += [int256_r(AND, r["x"], r["acc"], r["mask"]),  # x < 2^255
+              int256_r(AND, r["y"], r["d"], r["mask"]),
+              int256_r(OR, r["y"], r["y"], r["one"])]      # y odd, y < 2^255
+    for k in range(len(U256_MODULI)):
+        items += _modular_words(k)
+    items.append(asm_i(0x13, 3, 3, -1, 0))               # n -= 1
+    items.append(asm_b(1, 3, 0, -4 * (len(items) - loop)))  # bne n, x0, loop
+    last = len(items) - 1
+    items += [asm_i(0x03, 1, r["acc"], 0, 2), reveal(1, 0, 0),   # acc word 0
+              asm_i(0x03, 2, r["acc"], 28, 2), reveal(2, 0, 4),  # acc word 7
+              asm_i(0x03, 4, 5, 0, 2), reveal(4, 0, 8),          # buffer word 0
+              reveal(U256_FLAGS[0], 0, 12), reveal(U256_FLAGS[1], 0, 16),
+              TERMINATE]
+    return items, loop, last
+
+
+def u256_iter_program(items):
+    """The VmExe of ``u256_iter_items``: the words transpiled, a branch
+    without an encoding in its place."""
+    words = [it if isinstance(it, int) else TERMINATE for it in items]
+    insns = Transpiler().transpile(words)
+    if len(insns) != len(items):
+        raise ValueError("a word of the guest transpiled to more than one instruction")
+    for i, it in enumerate(items):
+        if not isinstance(it, int):
+            insns[i] = it
+    return VmExe(program=Program(instructions=insns, pc_base=0), pc_start=0)
+
+
+def build_u256_iter_program(n):
+    """n iterations of: sha256 of the 32-byte buffer at ITER_BUF in place
+    (one block); U256_PASSES passes of U256_BODY over the digest and the
+    accumulator (every int256 ALU-type op); the six 256-bit branches,
+    taken or not by the data; the accumulator and the digest masked below
+    2^255 (the digest also made odd), then ADD, SUB, MUL, DIV and IS_EQ
+    modulo each of secp256k1's two moduli.  Reveals the accumulator's words
+    0 and 7, the buffer's word 0 and the two IS_EQ results (public values
+    ``u256_iter_reference(n)``).  Config: FIB_EXECUTORS, bigint, sha256 and
+    moduli U256_MODULI."""
+    return u256_iter_program(u256_iter_items(n)[0])
+
+
+def _is_int256(item):
+    """An int256 op: a custom-0 int256 or BEQ256 word, or a branch set as
+    an instruction."""
+    return not isinstance(item, int) or (
+        (item & 0x7F) == 0x0B and (item >> 12) & 7 in (0b101, 0b110))
+
+
+def _is_modular(item):
+    return isinstance(item, int) and (item & 0x7F) == 0x2B
+
+
+def u256_iter_counts(n):
+    """Instructions the guest runs, its int256 and modular ops and sha256
+    blocks."""
+    items, loop, last = u256_iter_items(n)
+    setup, body, tail = items[:loop], items[loop:last + 1], items[last + 1:-1]
+    return {"insns": len(setup) + n * len(body) + len(tail),   # TERMINATE not run
+            "int256_ops": sum(map(_is_int256, setup)) + n * sum(map(_is_int256, body)),
+            "modular_ops": n * sum(map(_is_modular, body)), "sha256_blocks": n}
+
+
+def _signed(v):
+    return v - (1 << 256) if v >> 255 else v
+
+
+def u256_iter_reference(n):
+    """The 32 public-value bytes of build_u256_iter_program(n), computed
+    with Python ints and hashlib."""
+    mem = {name: 0 for name in U256_BLOCKS}
+    mem["d"] = 0
+    mem["one"] = 1
+    mem["mask"] = ((0 - 1) & M256) >> 1
+    flags = [0, 0]
+    ops = {ADD: lambda x, y: (x + y) & M256, SUB: lambda x, y: (x - y) & M256,
+           XOR: lambda x, y: x ^ y, OR: lambda x, y: x | y,
+           AND: lambda x, y: x & y,
+           SLL: lambda x, y: (x << (y & 255)) & M256,
+           SRL: lambda x, y: x >> (y & 255),
+           SRA: lambda x, y: (_signed(x) >> (y & 255)) & M256,
+           SLT: lambda x, y: int(_signed(x) < _signed(y)),
+           SLTU: lambda x, y: int(x < y), MUL: lambda x, y: (x * y) & M256}
+    for _ in range(n):
+        digest = hashlib.sha256(mem["d"].to_bytes(32, "little")).digest()
+        mem["d"] = int.from_bytes(digest, "little")
+        for _ in range(U256_PASSES):
+            for f7, rd, a, b in U256_BODY:
+                mem[rd] = ops[f7](mem[a], mem[b])
+        mem["x"] = mem["acc"] & mem["mask"]
+        mem["y"] = (mem["d"] & mem["mask"]) | 1
+        for k, m in enumerate(U256_MODULI):
+            x, y = mem["x"], mem["y"]
+            r1 = (x + y) % m
+            r2 = (r1 - x) % m
+            r3 = (r1 * r2) % m
+            q = (r3 * pow(y, -1, m)) % m
+            mem["r1"], mem["r2"], mem["r3"] = r1, r2, r3
+            mem["r4" if k == 0 else "d"] = q
+            flags[k] = int(q == r1) if k == 0 else int(r3 == x)
+    pv = (mem["acc"].to_bytes(32, "little")[:4] + mem["acc"].to_bytes(32, "little")[28:]
+          + mem["d"].to_bytes(32, "little")[:4]
+          + bytes([flags[0], 0, 0, 0, flags[1], 0, 0, 0]))
+    return list(pv + bytes(32 - len(pv)))

@@ -1,10 +1,12 @@
 """VirtualMachine: config, keygen, prove, verify, for RV32IM on the card.
 
 Port of openvm_tpu/vm/machine.py for the volatile- and persistent-memory
-configurations: ``Rv32Config`` (with ``keccak``, ``sha256`` and
-``persistent``) and ``VirtualMachine`` (:44-96, :104-119 the keccak and
-sha256 AIRs and executor names, :135-193 with the executors appended at
-:171-176, the persistent system AIRs :150-158), ``keygen``
+configurations: ``Rv32Config`` (with ``bigint``, ``moduli``, ``keccak``,
+``sha256`` and ``persistent``) and ``VirtualMachine`` (:44-96, :98-119 the
+int256, keccak and sha256 AIRs and executor names, :135-193 with the
+executors appended at :168-176, int256 before keccak and sha256, the
+modular AIRs after RangeTupleCheckerAir :182-185, the persistent system
+AIRs :150-158), ``_interp`` with the moduli (:236-240), ``keygen``
 without the disk cache (:195), ``commit_exe`` (:211) on the port's ``ntt``
 and ``merkle``, ``_segment_ctx`` (:242), ``execute_metered`` (:279),
 ``_initial_tree`` (:305), ``_persistent_traces`` (:316), ``prove``
@@ -16,7 +18,7 @@ interpreter's columns mode), the continuations ``_segment_sweep`` (:663),
 ``segment_height_profile`` (:698), ``prove_continuations`` (:718) and
 ``verify_segments`` (:745), ``verify`` (:790-833, the persistent branch
 :819-826) and ``commit_init_memory`` (:834).  The native (recursion) VM
-and the other extension chips are later slices of the port.
+and the ECC, Fp2 and pairing chips are later slices of the port.
 
 Every trace goes to the device once, as Montgomery words: the histograms
 read the executor traces there, and the prover takes the same tensors.
@@ -55,8 +57,10 @@ from .circuit.system import (BitwiseLookupAir, ConnectorAir, PhantomAir,
                              ProgramAir, PublicValuesAir, RangeCheckerAir,
                              RangeTupleCheckerAir, VolatileBoundaryAir,
                              connector_trace, program_cached_trace)
+from .circuit.bigint import INT256_AIRS
 from .circuit.keccak import KECCAK_AIRS
 from .circuit.merkle_chip import MemoryMerkleAir
+from .circuit.modular import modular_airs
 from .circuit.persistent_boundary import PersistentBoundaryAir
 from .circuit.poseidon2_chip import Poseidon2Air
 from .circuit.sha256 import SHA256_AIRS
@@ -84,10 +88,16 @@ class Rv32Config:
     # executor chip families to include (reference VmConfig's modular
     # extension list, config.rs:60-103); tests can use a reduced set
     executors: tuple = FULL_EXECUTORS
+    # enable the Int256 (bigint) extension chips (reference
+    # extensions/bigint, SURVEY.md section 2.8)
+    bigint: bool = False
     # keccak256 extension (reference extensions/keccak256, SURVEY.md 2.6)
     keccak: bool = False
     # sha256 extension (reference extensions/sha256, SURVEY.md 2.7)
     sha256: bool = False
+    # modular-arithmetic (algebra) extension: one chip trio per modulus
+    # (reference ModularExtension{supported_moduli}, SURVEY.md section 2.9)
+    moduli: tuple = ()
     # persistent memory: Merkle-committed memory state (continuations mode,
     # reference SystemConfig.continuation_enabled)
     persistent: bool = False
@@ -106,8 +116,11 @@ _EXECUTOR_AIRS = {
     "blt": BranchLtAir, "jal_lui": JalLuiAir, "jalr": JalrAir,
     "auipc": AuipcAir, "loadstore": LoadStoreAir, "shift": ShiftAir,
     "mul": MulAir, "divrem": DivRemAir, "hintstore": HintStoreAir,
-    **KECCAK_AIRS, **SHA256_AIRS,
+    **INT256_AIRS, **KECCAK_AIRS, **SHA256_AIRS,
 }
+
+INT256_EXECUTORS = ("int256_alu", "int256_lt", "int256_mul", "int256_beq",
+                    "int256_blt", "int256_shift")
 
 KECCAK_EXECUTORS = ("keccak_sponge", "keccakf")
 
@@ -136,6 +149,9 @@ class VirtualMachine:
             ]
         self.NUM_SYSTEM_AIRS = len(system)
         executors = tuple(self.config.executors)
+        if self.config.bigint:
+            executors += tuple(n for n in INT256_EXECUTORS
+                               if n not in executors)
         if self.config.keccak:
             executors += tuple(n for n in KECCAK_EXECUTORS
                                if n not in executors)
@@ -147,6 +163,8 @@ class VirtualMachine:
             # mul chips check (product limb, carry) pairs via the tuple
             # table (reference Rv32M periphery, extension/mod.rs:484-487)
             self.airs.append(RangeTupleCheckerAir())
+        if self.config.moduli:
+            self.airs += list(modular_airs(self.config.moduli).values())
         self.air_index = {a.name: i for i, a in enumerate(self.airs)}
         self.pk = None
 
@@ -164,6 +182,10 @@ class VirtualMachine:
         return merkle.commit([lde]).root
 
     # -- preflight plumbing ---------------------------------------------
+    def _interp(self, exe: VmExe) -> PreflightInterpreter:
+        return PreflightInterpreter(exe, self.config.num_pv_words,
+                                    moduli=self.config.moduli)
+
     def _segment_ctx(self, nvm, limits: dict | None = None) -> SegmentCtx:
         """Install metered segmentation thresholds on the handle and build
         the Python-side chip accounting (machine.py:242; reference
@@ -210,8 +232,7 @@ class VirtualMachine:
         nvm = NativeVmHandle(exe) if native else None
         if nvm is not None:
             nvm.set_mode(True)
-        pre = PreflightInterpreter(exe, self.config.num_pv_words).execute(
-            inputs, max_insns, nvm=nvm)
+        pre = self._interp(exe).execute(inputs, max_insns, nvm=nvm)
         heights = {}
         for air in self.airs[self.NUM_SYSTEM_AIRS:]:
             rec = pre.records.get(air.name)
@@ -344,7 +365,7 @@ class VirtualMachine:
             nvm = NativeVmHandle(exe)
         if nvm is not None:
             nvm.set_mode(False)
-        pre = PreflightInterpreter(exe, self.config.num_pv_words).execute(
+        pre = self._interp(exe).execute(
             inputs, max_insns, state=state, nvm=nvm, seg_ctx=seg_ctx)
         mark("preflight")
 

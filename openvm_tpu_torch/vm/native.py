@@ -2,7 +2,9 @@
 
 Copy of openvm_tpu/vm/native.py:125-442 (``NativeVmHandle``, its memory
 shim and the record layouts) over the port's own copy of the JAX
-package's csrc/preflight.cpp.  ``g++`` builds it at first use into
+package's csrc/preflight.cpp.  The shim makes the ctypes pointers of its
+one-word scratch once, where the JAX package's makes six a word: the
+extension handlers move most words through it (26 a 256-bit op).  ``g++`` builds it at first use into
 ``build/openvm_tpu_torch/host/<hash of the source and flags>/`` at the root of
 the checkout; a failed build or load raises.  There is no fallback to the
 Python loop: a caller that wants the Python loop says so
@@ -169,35 +171,34 @@ class NativeMemShim:
 
     def __init__(self, nvm: "NativeVmHandle"):
         self.nvm = nvm
-        self._wa = np.zeros(1, dtype=np.int64)
-        self._now = np.zeros(1, dtype=np.int64)
-        self._val = np.zeros(1, dtype=np.int64)
-        self._pts = np.zeros(1, dtype=np.int64)
+        # one-word scratch and its ctypes pointers, made once: the handlers
+        # of the extension opcodes read and write memory a word a call
+        self._words = np.zeros(5, dtype=np.int64)  # wa, now, val, pts, prev
+        self._ptrs = [ctypes.cast(self._words.ctypes.data + 8 * k, _I64P)
+                      for k in range(5)]
 
     def read(self, a_s, wa, now_ts):
-        self._wa[0] = wa
-        self._now[0] = now_ts
-        self.nvm.lib.pf_vm_read_words(self.nvm.h, a_s, _p(self._wa),
-                                      _p(self._now), 1, _p(self._val),
-                                      _p(self._pts))
+        w, (p_wa, p_now, p_val, p_pts, _) = self._words, self._ptrs
+        w[0] = wa
+        w[1] = now_ts
+        self.nvm.lib.pf_vm_read_words(self.nvm.h, a_s, p_wa, p_now, 1, p_val, p_pts)
         self.nvm.check_mem_error()
-        v = int(self._val[0])
+        v = int(w[2])
         return [v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF,
-                (v >> 24) & 0xFF], int(self._pts[0])
+                (v >> 24) & 0xFF], int(w[3])
 
     def write(self, a_s, wa, new_data, now_ts):
-        self._wa[0] = wa
-        self._now[0] = now_ts
-        self._val[0] = (new_data[0] | (new_data[1] << 8)
-                        | (new_data[2] << 16) | (new_data[3] << 24))
-        prev = np.zeros(1, dtype=np.int64)
-        self.nvm.lib.pf_vm_write_words(self.nvm.h, a_s, _p(self._wa),
-                                       _p(self._val), _p(self._now), 1,
-                                       _p(prev), _p(self._pts))
+        w, (p_wa, p_now, p_val, p_pts, p_prev) = self._words, self._ptrs
+        w[0] = wa
+        w[1] = now_ts
+        w[2] = (new_data[0] | (new_data[1] << 8)
+                | (new_data[2] << 16) | (new_data[3] << 24))
+        self.nvm.lib.pf_vm_write_words(self.nvm.h, a_s, p_wa, p_val, p_now, 1,
+                                       p_prev, p_pts)
         self.nvm.check_mem_error()
-        v = int(prev[0])
+        v = int(w[4])
         return [v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF,
-                (v >> 24) & 0xFF], int(self._pts[0])
+                (v >> 24) & 0xFF], int(w[3])
 
     def _get(self, key):
         # peek without bus access (used for partial-store current words)

@@ -1,19 +1,23 @@
 """Preflight (E3) execution: the record-generating interpreter, RV32IM,
-keccak256 and sha256.
+int256, modular arithmetic, keccak256 and sha256.
 
 Copy of openvm_tpu/vm/preflight.py:45-510 (records, memory, the RV32IM
-dispatch loop), :1199-1364 (the KECCAK256 and SHA256 handlers, their
-record layouts unchanged), :1365-1476 (phantom, terminate, finalize) and the
-continuation half: ``PreflightResult.suspended_state`` and ``segment_full``,
+dispatch loop), :511-613 (the int256 handler), :614-697 (the modular
+handler, taken only when the config has moduli, as the JAX package's
+guard takes it), :1199-1364 (the KECCAK256 and SHA256 handlers, their
+record layouts unchanged), :1365-1476 (phantom with the HINT_NON_QR and
+HINT_SQRT phantoms :1415-1430, terminate, finalize) and the continuation
+half: ``PreflightResult.suspended_state`` and ``segment_full``,
 ``SegmentCtx`` (:46-70), ``PreflightMemory(initial_words=...)`` (:72-86),
 the resume and ``py_stats`` logic of ``execute`` (:133-200), its
 ``max_insns`` suspend and metered boundary, and the suspended-state dicts
 (:1440-1476).  With a
 ``native.NativeVmHandle`` the C++ core (csrc/host/preflight.cpp) runs the
 RV32IM instruction runs and this loop dispatches what it yields on.  The
-extension opcodes (int256, modular, ecc, fp2, native, keccak, sha256 and
-their phantoms) raise NotImplementedError: their chips are a later slice of
-the port.
+opcodes of the native, ECC, Fp2 and pairing extensions and their phantoms
+raise NotImplementedError: their chips are a later slice of the port.  A
+modular opcode in a config without moduli ends as in the JAX package, in
+an ExecutionError.
 
 Timestamp discipline mirrors the AIRs exactly: each instruction starts at
 `ts` and performs its accesses at fixed ticks (slot k at ts+k), advancing
@@ -34,13 +38,16 @@ from .circuit.sha256 import BLOCK_WORDS as SW
 from .circuit.sha256 import H0, sha_compress
 from .circuit.sha256 import TS_PER_BLOCK as STS
 from .circuit.sha256 import W_WINDOW as SWW
-from .instructions import (BaseAluOpcode, BranchEqualOpcode,
-                           BranchLessThanOpcode, DivRemOpcode,
-                           LessThanOpcode, MulHOpcode, MulOpcode, P,
-                           Rv32AuipcOpcode, Rv32HintStoreOpcode,
-                           Rv32JalLuiOpcode, Rv32JalrOpcode,
-                           Rv32KeccakOpcode, Rv32LoadStoreOpcode,
-                           Rv32Phantom, Rv32Sha256Opcode, ShiftOpcode,
+from .instructions import (BaseAlu256Opcode, BaseAluOpcode,
+                           BranchEqual256Opcode, BranchEqualOpcode,
+                           BranchLessThan256Opcode, BranchLessThanOpcode,
+                           DivRemOpcode, LessThan256Opcode, LessThanOpcode,
+                           ModularPhantom, Mul256Opcode, MulHOpcode,
+                           MulOpcode, P, Rv32AuipcOpcode,
+                           Rv32HintStoreOpcode, Rv32JalLuiOpcode,
+                           Rv32JalrOpcode, Rv32KeccakOpcode,
+                           Rv32LoadStoreOpcode, Rv32Phantom,
+                           Rv32Sha256Opcode, Shift256Opcode, ShiftOpcode,
                            SystemOpcode, VmExe)
 from .interpreter import ExecutionError, Streams, _imm16, _imm24, _s32
 from .native import PF_INSN_LIMIT, PF_MEM_ERROR, PF_SEGMENT_FULL
@@ -49,16 +56,14 @@ M32 = 0xFFFFFFFF
 
 
 def _is_extension(op: int) -> bool:
-    """Native (0x100-0x1ff) and int256, modular, ecc, fp2 opcodes (0x300
-    and above but KECCAK256 and SHA256; instructions.py): a later slice of
-    the port."""
-    return (0x100 <= op < 0x200 or op >= 0x300) and op not in (
-        Rv32KeccakOpcode.KECCAK256, Rv32Sha256Opcode.SHA256)
+    """Native (0x100-0x1ff), ECC (0x600-0x70f), Fp2 (0x710-) opcodes
+    (instructions.py): a later slice of the port."""
+    return 0x100 <= op < 0x200 or op >= 0x600
 
 
-# NativePhantom (0x10-0x14), PairingPhantom (0x30), ModularPhantom (0x50,
-# 0x51): extension phantoms (instructions.py).
-_EXTENSION_PHANTOMS = frozenset(range(0x10, 0x15)) | {0x30, 0x50, 0x51}
+# NativePhantom (0x10-0x14), PairingPhantom (0x30): extension phantoms
+# (instructions.py).
+_EXTENSION_PHANTOMS = frozenset(range(0x10, 0x15)) | {0x30}
 
 
 @dataclass
@@ -144,9 +149,10 @@ def _from_limbs(limbs):
 
 
 class PreflightInterpreter:
-    def __init__(self, exe: VmExe, num_pv_words: int = 8):
+    def __init__(self, exe: VmExe, num_pv_words: int = 8, moduli=()):
         self.exe = exe
         self.num_pv_words = num_pv_words
+        self.moduli = tuple(moduli)
 
     def execute(self, inputs=None, max_insns: int | None = None,
                 state: dict | None = None, nvm=None,
@@ -523,6 +529,194 @@ class PreflightInterpreter:
                 del hs[:4 * num_words]
                 pc, ts = pc + 4, ts + 2 + num_words
 
+            elif ((BaseAlu256Opcode.ADD <= op <= LessThan256Opcode.SLTU)
+                  or op == Mul256Opcode.MUL
+                  or (BranchEqual256Opcode.BEQ <= op
+                      <= BranchLessThan256Opcode.BGEU)):
+                is_branch = (BranchEqual256Opcode.BEQ <= op
+                             <= BranchLessThan256Opcode.BGEU)
+
+                def ptr_of(limbs):
+                    p = _from_limbs(limbs)
+                    if p % 4 != 0 or p >= (1 << 29):
+                        raise ExecutionError(
+                            f"bad int256 pointer {p:#x} at pc {pc:#x}")
+                    return p // 4
+
+                def read_block(wa, tick0):
+                    limbs, pts = [], []
+                    for k in range(8):
+                        data, p2_ = mem.read(2, wa + k, ts + tick0 + k)
+                        limbs.extend(data)
+                        pts.append(p2_)
+                    return limbs, pts
+
+                if is_branch:
+                    rs1p, p1 = reg_read(a // 4, 0)
+                    rs2p, p2 = reg_read(b // 4, 1)
+                    x, pts_x = read_block(ptr_of(rs1p), 2)
+                    y, pts_y = read_block(ptr_of(rs2p), 10)
+                    xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
+                    yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
+                    off = c if c <= P // 2 else c - P
+                    if op <= BranchEqual256Opcode.BNE:
+                        chip = "int256_beq"
+                        oi = op - BranchEqual256Opcode.BEQ
+                        taken = (xi == yi) if oi == 0 else (xi != yi)
+                    else:
+                        chip = "int256_blt"
+                        oi = op - BranchLessThan256Opcode.BLT
+                        if oi in (0, 2):  # signed
+                            sxi = xi - (1 << 256) if x[31] >= 128 else xi
+                            syi = yi - (1 << 256) if y[31] >= 128 else yi
+                            lt = sxi < syi
+                        else:
+                            lt = xi < yi
+                        taken = lt if oi in (0, 1) else not lt
+                    to_pc = (pc + off) if taken else pc + 4
+                    _append(recs[chip], pc=pc, ts=ts, op_idx=oi, a=a // 4,
+                            b=b // 4, c=c, rs1p=rs1p, rs2p=rs2p, x=x, y=y,
+                            pts_r1=p1, pts_r2=p2, pts_x=pts_x, pts_y=pts_y,
+                            to_pc=to_pc)
+                    pc, ts = to_pc, ts + 18
+                else:
+                    rs1p, p1 = reg_read(b // 4, 0)
+                    rs2p, p2 = reg_read(c // 4, 1)
+                    rdp, p3 = reg_read(a // 4, 2)
+                    x, pts_x = read_block(ptr_of(rs1p), 3)
+                    y, pts_y = read_block(ptr_of(rs2p), 11)
+                    xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
+                    yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
+                    M = (1 << 256) - 1
+                    if op <= BaseAlu256Opcode.AND:
+                        chip = "int256_alu"
+                        oi = op - BaseAlu256Opcode.ADD
+                        zi = [(xi + yi) & M, (xi - yi) & M, xi ^ yi,
+                              xi | yi, xi & yi][oi]
+                    elif op <= Shift256Opcode.SRA:
+                        chip = "int256_shift"
+                        oi = op - Shift256Opcode.SLL
+                        s = y[0]
+                        if oi == 0:
+                            zi = (xi << s) & M
+                        elif oi == 1:
+                            zi = xi >> s
+                        else:
+                            sxi = xi - (1 << 256) if x[31] >= 128 else xi
+                            zi = (sxi >> s) & M
+                    elif op <= LessThan256Opcode.SLTU:
+                        chip = "int256_lt"
+                        oi = op - LessThan256Opcode.SLT
+                        if oi == 0:
+                            sxi = xi - (1 << 256) if x[31] >= 128 else xi
+                            syi = yi - (1 << 256) if y[31] >= 128 else yi
+                            zi = int(sxi < syi)
+                        else:
+                            zi = int(xi < yi)
+                    else:
+                        chip = "int256_mul"
+                        oi = 0
+                        zi = (xi * yi) & M
+                    z = [(zi >> (8 * i)) & 255 for i in range(32)]
+                    wad = ptr_of(rdp)
+                    prevz, pts_z = [], []
+                    for k in range(8):
+                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
+                                             ts + 19 + k)
+                        prevz.extend(pw_)
+                        pts_z.append(pzk)
+                    _append(recs[chip], pc=pc, ts=ts, op_idx=oi, a=a // 4,
+                            b=b // 4, c=c // 4, rs1p=rs1p, rs2p=rs2p,
+                            rdp=rdp, x=x, y=y, z=z, prevz=prevz,
+                            pts_r1=p1, pts_r2=p2, pts_rd=p3, pts_x=pts_x,
+                            pts_y=pts_y, pts_z=pts_z)
+                    pc, ts = pc + 4, ts + 27
+
+            elif 0x500 <= op < 0x500 + 8 * max(len(self.moduli), 1) \
+                    and self.moduli:
+                from .circuit.modular import (ADD, DIV, IS_EQ, MOD_KINDS,
+                                              MODULAR_BASE, MUL, SUB)
+                mod_idx = (op - MODULAR_BASE) // MOD_KINDS
+                base = (op - MODULAR_BASE) % MOD_KINDS
+                if mod_idx >= len(self.moduli):
+                    raise ExecutionError(
+                        f"modulus index {mod_idx} not configured")
+                Nmod = self.moduli[mod_idx]
+
+                def ptr_of(limbs):
+                    p_ = _from_limbs(limbs)
+                    if p_ % 4 != 0 or p_ >= (1 << 29):
+                        raise ExecutionError(
+                            f"bad modular pointer {p_:#x} at pc {pc:#x}")
+                    return p_ // 4
+
+                def read_block(wa, tick0):
+                    limbs, pts = [], []
+                    for k in range(8):
+                        data, pk_ = mem.read(2, wa + k, ts + tick0 + k)
+                        limbs.extend(data)
+                        pts.append(pk_)
+                    return limbs, pts
+
+                if base == IS_EQ:
+                    rs1p, p1 = reg_read(b // 4, 0)
+                    rs2p, p2 = reg_read(c // 4, 1)
+                    x, pts_x = read_block(ptr_of(rs1p), 2)
+                    y, pts_y = read_block(ptr_of(rs2p), 10)
+                    xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
+                    yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
+                    if xi >= Nmod or yi >= Nmod:
+                        raise ExecutionError("is_eq input not reduced")
+                    res = int(xi == yi)
+                    prevrd, prd = mem.write(1, a // 4, [res, 0, 0, 0],
+                                            ts + 18)
+                    _append(recs[f"modular_iseq_{mod_idx}"], pc=pc, ts=ts,
+                            a=a // 4, b=b // 4, c=c // 4, rs1p=rs1p,
+                            rs2p=rs2p, x=x, y=y, pts_r1=p1, pts_r2=p2,
+                            pts_x=pts_x, pts_y=pts_y, pts_rd=prd,
+                            prevrd=prevrd)
+                    pc, ts = pc + 4, ts + 19
+                elif base in (ADD, SUB, MUL, DIV):
+                    rs1p, p1 = reg_read(b // 4, 0)
+                    rs2p, p2 = reg_read(c // 4, 1)
+                    rdp, p3 = reg_read(a // 4, 2)
+                    x, pts_x = read_block(ptr_of(rs1p), 3)
+                    y, pts_y = read_block(ptr_of(rs2p), 11)
+                    xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
+                    yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
+                    if base == ADD:
+                        chip, oi = f"modular_addsub_{mod_idx}", 0
+                        zi = (xi + yi) % Nmod
+                    elif base == SUB:
+                        chip, oi = f"modular_addsub_{mod_idx}", 1
+                        zi = (xi - yi) % Nmod
+                    elif base == MUL:
+                        chip, oi = f"modular_muldiv_{mod_idx}", 0
+                        zi = (xi * yi) % Nmod
+                    else:
+                        chip, oi = f"modular_muldiv_{mod_idx}", 1
+                        if yi % Nmod == 0:
+                            raise ExecutionError("modular division by zero")
+                        zi = (xi * pow(yi, -1, Nmod)) % Nmod
+                    z = [(zi >> (8 * i)) & 255 for i in range(32)]
+                    wad = ptr_of(rdp)
+                    prevz, pts_z = [], []
+                    for k in range(8):
+                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
+                                             ts + 19 + k)
+                        prevz.extend(pw_)
+                        pts_z.append(pzk)
+                    _append(recs[chip], pc=pc, ts=ts, op_idx=oi, a=a // 4,
+                            b=b // 4, c=c // 4, rs1p=rs1p, rs2p=rs2p,
+                            rdp=rdp, x=x, y=y, z=z, prevz=prevz,
+                            pts_r1=p1, pts_r2=p2, pts_rd=p3, pts_x=pts_x,
+                            pts_y=pts_y, pts_z=pts_z)
+                    pc, ts = pc + 4, ts + 27
+                else:
+                    raise ExecutionError(
+                        f"modular opcode base {base} unsupported")
+
+
             elif op == Rv32KeccakOpcode.KECCAK256:
                 r = recs["keccak_sponge"]
                 rf = recs["keccakf"]
@@ -695,6 +889,22 @@ class PreflightInterpreter:
                         len(hint).to_bytes(4, "little"))
                     pad = (-len(hint)) % 4
                     streams.hint_stream.extend(hint + [0] * pad)
+                elif disc == ModularPhantom.HINT_NON_QR:
+                    from .modhints import non_qr_hint_bytes
+                    mod = self.moduli[c >> 16]
+                    streams.hint_stream.clear()
+                    streams.hint_stream.extend(non_qr_hint_bytes(mod))
+                elif disc == ModularPhantom.HINT_SQRT:
+                    from .modhints import num_limbs, sqrt_hint_bytes
+                    mod = self.moduli[c >> 16]
+                    ptr = int.from_bytes(
+                        bytes(mem._get((1, a // 4))[:4]), "little")
+                    nl = num_limbs(mod)
+                    xv = int.from_bytes(
+                        bytes(mem._get((2, (ptr + k) // 4))[(ptr + k) % 4]
+                              for k in range(nl)), "little")
+                    streams.hint_stream.clear()
+                    streams.hint_stream.extend(sqrt_hint_bytes(xv, mod))
                 elif disc in _EXTENSION_PHANTOMS:
                     raise NotImplementedError(
                         f"phantom {disc:#x} belongs to an extension the port "

@@ -1,12 +1,17 @@
-"""RISC-V -> VM instruction transpiler: RV32IM, IO, keccak256 and sha256.
+"""RISC-V -> VM instruction transpiler: RV32IM, IO, int256, modular
+arithmetic, keccak256 and sha256.
 
 Copy of openvm_tpu/vm/transpiler.py:1-306 (decoder, ``Rv32ITranspiler-
 Extension``, ``Rv32MTranspilerExtension``, ``Rv32IoTranspilerExtension``),
-:309-332 (``Keccak256TranspilerExtension``: KECCAK256 and SHA256) and
-:507-557 (``Transpiler``, ``transpile_elf``).  The default extension list
-keeps the JAX package's order (:521-530) with only the extensions the port
-has; the other extension opcodes (int256, modular, ecc, fp2, pairing) wait
-for the slice that ports their chips, and a word only they would claim
+:309-332 (``Keccak256TranspilerExtension``: KECCAK256 and SHA256), :335-381
+(``Int256TranspilerExtension``: the eleven ALU-type funct7s and BEQ256;
+like the JAX package's, it lowers no other 256-bit branch), :383-417
+(``ModularTranspilerExtension``: SETUP lowers to ``nop``, rd = 0 to ``nop``
+except for DIV, HintNonQr and HintSqrt to phantoms with the modulus index
+in the high half of c) and :507-557 (``Transpiler``, ``transpile_elf``).
+The default extension list keeps the JAX package's order (:521-530) with
+only the extensions the port has; the ECC, Fp2 and pairing words wait for
+the slice that ports their chips, and a word only they would claim
 transpiles to ``unimp`` here.
 """
 
@@ -15,15 +20,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from .elf import Elf, memory_image_to_init_memory
-from .instructions import (BaseAluOpcode, BranchEqualOpcode,
+from .instructions import (BaseAlu256Opcode, BaseAluOpcode,
+                           BranchEqual256Opcode, BranchEqualOpcode,
                            BranchLessThanOpcode, DivRemOpcode, Instruction,
-                           LessThanOpcode, MulHOpcode, MulOpcode, P, Program,
+                           LessThan256Opcode, LessThanOpcode, Mul256Opcode,
+                           MulHOpcode, MulOpcode, P, Program,
                            Rv32AuipcOpcode, Rv32HintStoreOpcode,
                            Rv32JalLuiOpcode, Rv32JalrOpcode,
                            Rv32KeccakOpcode, Rv32LoadStoreOpcode,
-                           Rv32Phantom, Rv32Sha256Opcode, ShiftOpcode,
-                           SysPhantom, SystemOpcode, VmExe, nop, phantom,
-                           unimp)
+                           Rv32Phantom, Rv32Sha256Opcode, Shift256Opcode,
+                           ShiftOpcode, SysPhantom, SystemOpcode, VmExe, nop,
+                           phantom, unimp)
 
 # RISC-V base opcodes
 OP_LUI = 0b0110111
@@ -332,6 +339,90 @@ class Keccak256TranspilerExtension:
                                c=4 * d.rs2, d=1, e=2))
 
 
+INT256_FUNCT3 = 0b101
+BEQ256_FUNCT3 = 0b110
+
+# funct7 -> global opcode (reference Int256Funct7,
+# extensions/bigint/guest/src/lib.rs:13 + transpiler/src/lib.rs:98-140)
+_INT256_FUNCT7 = {
+    0: BaseAlu256Opcode.ADD, 1: BaseAlu256Opcode.SUB,
+    2: BaseAlu256Opcode.XOR, 3: BaseAlu256Opcode.OR,
+    4: BaseAlu256Opcode.AND, 5: Shift256Opcode.SLL,
+    6: Shift256Opcode.SRL, 7: Shift256Opcode.SRA,
+    8: LessThan256Opcode.SLT, 9: LessThan256Opcode.SLTU,
+    10: Mul256Opcode.MUL,
+}
+
+
+class Int256TranspilerExtension:
+    """256-bit integer intrinsics (reference Int256TranspilerExtension)."""
+
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_CUSTOM0:
+            return None
+        d = decode(w)
+        if d.funct3 == INT256_FUNCT3:
+            op = _INT256_FUNCT7.get(d.funct7)
+            if op is None:
+                return None
+            return one(Instruction(op, a=4 * d.rd, b=4 * d.rs1,
+                                   c=4 * d.rs2, d=1, e=2))
+        if d.funct3 == BEQ256_FUNCT3:
+            return one(Instruction(BranchEqual256Opcode.BEQ, a=4 * d.rs1,
+                                   b=4 * d.rs2, c=d.imm_b % P, d=1, e=2))
+        return None
+
+
+OP_CUSTOM1 = 0x2B
+MODULAR_ARITHMETIC_FUNCT3 = 0b000
+
+# base funct7 (mod 8) -> local opcode offset within the modulus block
+# (reference ModArithBaseFunct7 {AddMod, SubMod, MulMod, DivMod, IsEqMod,
+# SetupMod, HintNonQr, HintSqrt} -> Rv32ModularArithmeticOpcode order,
+# extensions/algebra/transpiler/src/lib.rs:131-154)
+_MOD_BASE_TO_LOCAL = {0: 0, 1: 1, 2: 3, 3: 4, 4: 6}
+_MOD_SETUP = 5
+
+
+class ModularTranspilerExtension:
+    """Modular-arithmetic intrinsics on custom-1 (reference
+    ModularTranspilerExtension).  SETUP_* lowers to a no-op: the modulus
+    is a keygen-time constant in this framework, so runtime setup rows
+    carry no information the verifying key doesn't already pin."""
+
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_CUSTOM1:
+            return None
+        d = decode(w)
+        if d.funct3 != MODULAR_ARITHMETIC_FUNCT3:
+            return None
+        base = d.funct7 % 8
+        mod_idx = d.funct7 // 8
+        if base == _MOD_SETUP:  # setup -> nop (modulus is a vk constant)
+            return one(nop())
+        if base in (6, 7):  # HintNonQr / HintSqrt -> phantom sub-executor
+            # (reference algebra/transpiler/src/lib.rs:111-130: phantom
+            # with ModularPhantom disc, a = 4*rs1 for sqrt, c_upper =
+            # mod_idx; the hint fills the stream, guest verifies)
+            disc = 0x50 if base == 6 else 0x51
+            return one(Instruction(SystemOpcode.PHANTOM,
+                                   a=4 * d.rs1 if base == 7 else 0,
+                                   b=0, c=disc | (mod_idx << 16)))
+        local = _MOD_BASE_TO_LOCAL.get(base)
+        if local is None:
+            return None
+        if d.rd == 0 and base != 4:
+            return one(nop())
+        return one(Instruction(0x500 + mod_idx * 8 + local, a=4 * d.rd,
+                               b=4 * d.rs1, c=4 * d.rs2, d=1, e=2))
+
+
 @dataclass
 class TranspilerOutput:
     instructions: list
@@ -352,6 +443,8 @@ class Transpiler:
         self.extensions = extensions or [Rv32ITranspilerExtension(),
                                          Rv32MTranspilerExtension(),
                                          Rv32IoTranspilerExtension(),
+                                         Int256TranspilerExtension(),
+                                         ModularTranspilerExtension(),
                                          Keccak256TranspilerExtension()]
 
     def transpile(self, words: list) -> list:

@@ -380,13 +380,15 @@ def _code_sha(prog) -> str:
 
 @functools.lru_cache(maxsize=None)
 def _vm_airs() -> dict:
-    """The port's AIRs of paths 3 to 6 by name (volatile and persistent
-    system AIRs, FIB_EXECUTORS, keccak and sha256), without a keygen."""
+    """The port's AIRs of paths 3 to 7 by name (volatile and persistent
+    system AIRs, FIB_EXECUTORS, keccak, sha256, int256 and the modular
+    chips of secp256k1's prime), without a keygen."""
     from openvm_tpu_torch.vm.guest import FIB_EXECUTORS
     from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
     airs = {}
     for cfg in (Rv32Config(executors=FIB_EXECUTORS),
-                Rv32Config(executors=FIB_EXECUTORS, persistent=True, sha256=True)):
+                Rv32Config(executors=FIB_EXECUTORS, persistent=True, sha256=True),
+                Rv32Config(executors=FIB_EXECUTORS, bigint=True, moduli=(SECP_P,))):
         for air in VirtualMachine(cfg, device="cpu").airs:
             airs.setdefault(air.name, air)
     return airs
@@ -622,9 +624,15 @@ EXTENSION_AIRS = {"keccakf": (71568, 48, 15194, 93), "keccak_sponge": (14993, 48
                   "modular_muldiv_0": (13252, 48, 4053, 46),
                   "sw_add_ne_0": (26865, 48, 5378, 552), "sw_double_0": (30512, 48, 7269, 592),
                   "fp2_muldiv_0": (45093, 48, 17268, 67)}
-# the same of the port's sha256 chips and Poseidon2Air (paths 6 and 4)
+# the same of the port's sha256 chips and Poseidon2Air (paths 6 and 4), and
+# of its int256 chips and the modular chips modular_muldiv_0 is not pinned
+# above for (path 7)
 LARGE_VM_AIRS = {"sha256": (7734, 48, 1396, 45), "sha256_sponge": (6725, 48, 1125, 184),
-                 "poseidon2": (4181, 48, 301, 111)}
+                 "poseidon2": (4181, 48, 301, 111),
+                 "int256_alu": (4292, 48, 624, 194), "int256_lt": (3221, 48, 465, 72),
+                 "int256_mul": (3866, 48, 621, 34), "int256_beq": (1620, 48, 221, 45),
+                 "int256_blt": (2004, 48, 290, 19), "int256_shift": (8247, 48, 1227, 43),
+                 "modular_addsub_0": (2960, 48, 389, 34), "modular_iseq_0": (2920, 48, 430, 53)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -632,6 +640,7 @@ def _extension(name):
     """(air, JAX DAG, the port's DAG, its code), the DAG built as the JAX
     package's keygen builds it: AirBuilder + append_logup_constraints at
     degree 3."""
+    from openvm_tpu.vm.circuit.bigint import Shift256Air
     from openvm_tpu.vm.circuit.ecc import EcAddNeAir, EcDoubleAir
     from openvm_tpu.vm.circuit.fp2 import Fp2MulDivAir
     from openvm_tpu.vm.circuit.keccak import KeccakfAir, KeccakVmAir
@@ -640,7 +649,8 @@ def _extension(name):
            "modular_muldiv_0": lambda: ModularMulDivAir(SECP_P, 0),
            "sw_add_ne_0": lambda: EcAddNeAir(SECP_P, 0, 0),
            "sw_double_0": lambda: EcDoubleAir(SECP_P, 0, 0),
-           "fp2_muldiv_0": lambda: Fp2MulDivAir(BN254_P, 0)}[name]()
+           "fp2_muldiv_0": lambda: Fp2MulDivAir(BN254_P, 0),
+           "int256_shift": Shift256Air}[name]()
     builder = JaxAirBuilder(air)
     air.eval(builder)
     jax_append_logup(builder, 3)

@@ -6,8 +6,9 @@ domain by the JAX package's DeviceOps (eagerly, about 6 s) and by the
 port's bytecode interpreter (plain version); the alpha-folded, 1/Z_H-scaled
 results are equal word for word.  keccakf's and sw_double_0's quotient
 values on a 4-row domain (tests/test_torch_quotient.py's extension cases),
-through their programs compiled at the budget, equal the JAX package's
-HostOps (about 4 s).  A file of its own, queued by
+and int256_shift's (the largest int256 AIR, path 7), through their
+programs compiled at the budget, equal the JAX package's HostOps (about
+4 s).  A file of its own, queued by
 ``--dist loadfile`` after tests/test_aggregation.py."""
 
 import numpy as np
@@ -44,7 +45,7 @@ def test_bytecode_interpreter_equals_jax():
     np.testing.assert_array_equal(jfold, bb.to_numpy(got))
 
 
-@pytest.mark.parametrize("name", ["keccakf", "sw_double_0"])
+@pytest.mark.parametrize("name", ["keccakf", "sw_double_0", "int256_shift"])
 def test_extension_air_quotient_equals_host_ops(name):
     prog = _extension(name)[3]
     assert prog.budget == quotient.BUDGET and prog.reloads

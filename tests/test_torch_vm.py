@@ -24,13 +24,15 @@ import torch
 
 from openvm_tpu.stark import codec as jcodec
 from openvm_tpu.vm import machine as jmachine
+from openvm_tpu.vm import transpiler as jtranspiler
 from openvm_tpu_torch.field import babybear as bb
 from openvm_tpu_torch.stark import FriParameters, StarkConfig, codec
 from openvm_tpu_torch.vm import machine, native
 from openvm_tpu_torch.vm.guest import FIB_EXECUTORS, build_fib_program
-from openvm_tpu_torch.vm.instructions import BaseAlu256Opcode, Instruction, Program, VmExe
+from openvm_tpu_torch.vm.instructions import Instruction, Program, VmExe, unimp
 from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
 from openvm_tpu_torch.vm.preflight import PreflightInterpreter
+from openvm_tpu_torch.vm.transpiler import Transpiler
 
 from test_vm_prove import TEST_STARK as JAX_TEST_STARK
 from test_vm_prove import build_fib_program as jax_build_fib_program
@@ -189,10 +191,16 @@ def test_preflight_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_extension_opcode_raises_not_implemented():
+    """An opcode of a family the port does not have yet (ECC's EC_ADD_NE,
+    0x600) raises, and the port's transpiler leaves an ECC word (custom-1,
+    funct3 0b001) as ``unimp``, where the JAX package's gives EC_ADD_NE."""
     exe = VmExe(program=Program(instructions=[
-        Instruction(BaseAlu256Opcode.ADD, a=4, b=8, c=12, d=1, e=2)]), pc_start=0)
+        Instruction(0x600, a=4, b=8, c=12, d=1, e=2)]), pc_start=0)
     with pytest.raises(NotImplementedError):
         PreflightInterpreter(exe).execute()
+    word = (2 << 20) | (1 << 15) | (0b001 << 12) | (3 << 7) | 0x2B
+    assert Transpiler().transpile([word]) == [unimp()]
+    assert jtranspiler.Transpiler().transpile([word])[0].opcode == 0x600
 
 
 def test_jax_prove_reproduces_pinned_hash():
