@@ -130,9 +130,9 @@ Phases, each printing one JSON line:
   keccak    path 5, the keccak256 extension through continuations:
             VirtualMachine(keccak=True, persistent=True) keygen ->
             execute_metered -> prove_continuations -> verify_segments of
-            build_keccak_iter_program(30,000), 90,009 instructions, at a cap
-            of 80 M trace cells (the metered count's: one keccakf row a hash):
-            2 segments, keccakf 2^19 and 2^18 rows; the final public values
+            build_keccak_iter_program(10,000), 30,009 instructions, at a cap
+            of 20 M trace cells (the metered count's: one keccakf row a hash):
+            2 segments, keccakf 2^17 rows each; the final public values
             (digest words 0 and 7 of the iterated keccak256) through the
             memory tree's public-values proof; stages, insn/s and blocks/s
             cold and warm (the same bytes twice), peak memory, the segment
@@ -166,8 +166,23 @@ Phases, each printing one JSON line:
             rv32_base_alu's job equal in either launch, the streamed launch
             alone and the shared one without it against their bounds;
             every kernel against plain on the prove's own inputs
+  ecrecover path 8, the short-Weierstrass ECC extension with keccak and the
+            modular chips of secp256k1's p and n and the default (full
+            RV32IM) executors: VirtualMachine keygen -> prove -> verify of
+            build_ecrecover_program(64), the EVM's ecrecover over 64
+            signatures (360,528 instructions, 28,612 EC ops), one cold
+            prove; instructions, EC and modular rows and keccak blocks equal
+            to ecrecover_counts, a real row in every RV32IM chip, the
+            pinned heights (ECRECOVER_LOG_HEIGHTS), the public values
+            against ecrecover_reference, the proof's SHA-256
+            (ECRECOVER_PROOF_SHA256), stages and each ECC chip's tracegen
+            seconds, insn/s, signatures/s, EC ops/s, peak memory; K7's two
+            launches (the ten extension programs streamed), the streamed
+            launch alone with its jobs and the shared one without it
+            against their bounds; every kernel against plain on the
+            prove's own inputs
 
-then a {"kernels": [...]} line (each kernel's launches on paths 1 to 7, its
+then a {"kernels": [...]} line (each kernel's launches on paths 1 to 8, its
 __global__ entries, and K7's streamed launch on path 5's shapes) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -197,12 +212,14 @@ from openvm_tpu_torch.stark.config import FriParameters, StarkConfig
 from openvm_tpu_torch.stark.debug import check_constraints
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
 from openvm_tpu_torch.vm.circuit.poseidon2_chip import Poseidon2Air
-from openvm_tpu_torch.vm.guest import (FIB_EXECUTORS, U256_MODULI, build_fib_program,
-                                       build_keccak_iter_program,
+from openvm_tpu_torch.vm.guest import (ECRECOVER_MODULI, FIB_EXECUTORS, SECP256K1_CURVE,
+                                       U256_MODULI, build_ecrecover_program,
+                                       build_fib_program, build_keccak_iter_program,
                                        build_sha256_iter_program,
-                                       build_u256_iter_program, fib, iter_insns,
-                                       u256_iter_counts, u256_iter_reference)
-from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
+                                       build_u256_iter_program, ecrecover_counts,
+                                       ecrecover_reference, ecrecover_stream, fib,
+                                       iter_insns, u256_iter_counts, u256_iter_reference)
+from openvm_tpu_torch.vm.machine import FULL_EXECUTORS, Rv32Config, VirtualMachine
 from openvm_tpu_torch.vm.memory_tree import pv_proof, verify_pv_proof
 
 SEED = 0
@@ -274,25 +291,27 @@ CONTINUATION_PROOF_SHA256 = (
     "dca8f075362035ea89b85630d335c05db55dcac836446fe5ee62c913a8af15c2")
 # Path 5: the keccak-iteration guest in persistent memory through
 # continuations, the reference's keccak workload (bench.py:161-182 proves
-# its keccak256 guest ELF, not in this repository, that way): 30,000
-# keccak256 hashes of a 32-byte buffer in place, 90,009 instructions.  The
+# its keccak256 guest ELF, not in this repository, that way): 10,000
+# keccak256 hashes of a 32-byte buffer in place, 30,009 instructions.  The
 # metered segmentation (the JAX package's, copied) counts one keccakf row a
 # hash where the trace has 24 (2,633 + 1,253 + 74 cells a hash counted), so
-# the cells' cap splits the run: 2 segments, 20,332 hashes in the first
-# (keccakf 487,968 rows, padded to 2^19), 9,668 in the second (2^18).
-KECCAK_ITER_N = 30_000
-KECCAK_LIMITS = {"max_height": (1 << 20) - 10_000, "max_cells": 80_000_000}
+# the cells' cap splits the run: 2 segments, 5,332 hashes in the first
+# (keccakf 127,968 rows, padded to 2^17), 4,668 in the second (2^17).  Until
+# path 8 came, 30,000 hashes at an 80 M cap (keccakf 2^19 and 2^18): the
+# whole script then took 1,106 s, and 1,001 s at 15,000 hashes (PERF.md).
+KECCAK_ITER_N = 10_000
+KECCAK_LIMITS = {"max_height": (1 << 20) - 10_000, "max_cells": 20_000_000}
 KECCAK_SEGMENTS = 2
-KECCAK_LOG_HEIGHTS = ({"keccakf": 19, "keccak_sponge": 15}, {"keccakf": 18, "keccak_sponge": 14})
+KECCAK_LOG_HEIGHTS = ({"keccakf": 17, "keccak_sponge": 13}, {"keccakf": 17, "keccak_sponge": 13})
 # Digest words 0 and 7 after keccak256 is applied KECCAK_ITER_N times to 32
 # zero bytes (vm.circuit.keccak.keccak256): the guest's public values.
-KECCAK_ITER_PVS = [132, 23, 18, 116, 127, 16, 149, 150]
-# The SHA-256 of path 5's segment proofs (3,126,097 and 3,065,249 bytes) as
-# this script's first run of path 5 on the H100 made them: every later
-# change is held to the same bytes.
+KECCAK_ITER_PVS = [6, 123, 68, 203, 53, 119, 168, 205]
+# The SHA-256 of path 5's segment proofs (3,007,089 bytes each) as this
+# script's first run of path 5 at KECCAK_ITER_N on the H100 made them:
+# every later change is held to the same bytes.
 KECCAK_PROOF_SHA256 = (
-    "887e3d9b9489f34f960ef1afd774945945c295116c169d96f0843956397b3925",
-    "2911754e62ec3322891ecefeb179843e9c810252020dc3a2bf4cb36ca1d5f81b")
+    "ff8ec00e8fbf002fe93de0106a87ee1af4a7d85045e9228aac5167527b59df8a",
+    "601504b69cf246760b3224d21b322a9805914e482d404d8809fdad16c63f1cd8")
 # Path 6: the sha256-iteration guest in volatile memory, one cold prove (no
 # warm one: the script's time): 4,000 sha256 hashes of a 32-byte buffer in
 # place (Sha256Air 256,000 rows, sha256_sponge 4,000: 2^18 and 2^12).
@@ -321,6 +340,34 @@ U256_STREAMED = tuple(U256_LOG_HEIGHTS)
 # The SHA-256 of path 7's proof (4,423,001 bytes) as this script's first
 # run of path 7 at U256_ITER_N on the H100 made it.
 U256_PROOF_SHA256 = "5adef6d64193ba1fc63322b1eec849427815f530243a5a553e9a31230c823591"
+# Path 8: the ecrecover guest in volatile memory, one cold prove: BASELINE.json's
+# config 4 ("ECDSA verify guest (k256 ECC MSM + modular arithmetic chips)"),
+# the reference's ecrecover bench (SURVEY.md:571), in the JAX package's
+# ecrecover config (tests/test_real_elf_breadth.py:193-196): the default
+# executors, keccak, the modular chips of secp256k1's p and n and the curve.
+# ECRECOVER_N signatures, each from its own seeded key: about 5,630
+# instructions, 255 EC_DOUBLE and 190 EC_ADD_NE a signature.  At 128
+# signatures the phase took 161.4 s of command time, past the 150 s it may
+# take (PERF.md), so it runs 64: sw_add_ne_0 and sw_double_0 2^14 rows.
+ECRECOVER_N = 64
+ECRECOVER_SEED = SEED
+ECRECOVER_CONFIG = dict(executors=FULL_EXECUTORS, keccak=True, moduli=ECRECOVER_MODULI,
+                        curves=(SECP256K1_CURVE,))
+ECRECOVER_LOG_HEIGHTS = {"rv32_base_alu": 17, "rv32_load_store": 16, "rv32_shift": 16,
+                         "rv32_branch_eq": 15, "rv32_branch_lt": 15, "rv32_div_rem": 15,
+                         "rv32_mul": 14, "rv32_hint_store": 12, "rv32_jal_lui": 9,
+                         "rv32_jalr": 9, "rv32_auipc": 7, "rv32_less_than": 6,
+                         "range_tuple": 19, "sw_add_ne_0": 14, "sw_double_0": 14,
+                         "keccakf": 11, "keccak_sponge": 6, "modular_muldiv_0": 8,
+                         "modular_muldiv_1": 8, "modular_addsub_0": 7, "modular_addsub_1": 6,
+                         "modular_iseq_0": 6, "modular_iseq_1": 0}
+# The programs of K7's streamed launch on path 8: every extension AIR's.
+ECRECOVER_STREAMED = ("keccak_sponge", "keccakf", "sw_add_ne_0", "sw_double_0",
+                      *(f"modular_{kind}_{k}" for k in (0, 1)
+                        for kind in ("addsub", "muldiv", "iseq")))
+# The SHA-256 of path 8's proof (6,070,653 bytes) as this script's first run
+# of path 8 at ECRECOVER_N on the H100 made it.
+ECRECOVER_PROOF_SHA256 = "c072ba3ccab75f79a898bb4f9b16fba6cf0c3a0eda9ac26984bfa4bb150bc6c4"
 # The plain K7 keeps every slot of a program over every row it evaluates:
 # a job whose slots over its whole quotient domain take more than this is
 # held to the kernel on blocks of QUOTIENT_BLOCK rows (keccakf's 2,890
@@ -1411,12 +1458,15 @@ def run_prove(dev, cfg: StarkConfig, airs, ctxs) -> dict:
             "s": {"keygen": t1 - t0, "prove": t2 - t1, "verify": t3 - t2}}
 
 
-def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, **flags) -> dict:
-    """Path 3 (paths 6 and 7 with ``exe`` and the config's extension ``flags``):
-    VirtualMachine keygen -> prove -> verify of the guest through the
-    port's entry points, the fibonacci guest by default; then, with
-    ``warm``, a warm prove that must give the same bytes."""
-    vm = VirtualMachine(Rv32Config(stark=cfg, executors=FIB_EXECUTORS, **flags), device=dev)
+def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, inputs=None,
+           **flags) -> dict:
+    """Path 3 (paths 6 to 8 with ``exe``, its ``inputs`` and the config's
+    ``flags``, FIB_EXECUTORS unless they name the executors): VirtualMachine
+    keygen -> prove -> verify of the guest through the port's entry points,
+    the fibonacci guest by default; then, with ``warm``, a warm prove that
+    must give the same bytes."""
+    flags.setdefault("executors", FIB_EXECUTORS)
+    vm = VirtualMachine(Rv32Config(stark=cfg, **flags), device=dev)
     exe = exe or build_fib_program(VM_FIB_N)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1426,7 +1476,7 @@ def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, **flags) -> dict:
     t1 = time.perf_counter()
     stages: dict = {}
     record: dict = {}
-    proof, pre = vm.prove(exe, stages=stages, record=record)
+    proof, pre = vm.prove(exe, inputs=inputs, stages=stages, record=record)
     t2 = time.perf_counter()
     result = vm.verify(proof, expected_exe_commit=commit, exe=exe)
     t3 = time.perf_counter()
@@ -1438,7 +1488,7 @@ def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, **flags) -> dict:
         # again, warm, as bench.py:91-96 re-measures a prove that took under
         # a third of its budget: the domain tables are built by now
         out["warm_stages_s"] = {}
-        again, _ = vm.prove(exe, stages=out["warm_stages_s"])
+        again, _ = vm.prove(exe, inputs=inputs, stages=out["warm_stages_s"])
         out["s"]["prove_warm"] = time.perf_counter() - t3
         require(codec.encode_proof(again) == codec.encode_proof(proof),
                 "a second prove of the same guest gave other bytes")
@@ -1813,8 +1863,10 @@ def run_keccak(dev, cfg: StarkConfig) -> dict:
 
 
 # K7's streamed launch on path 5's keccakf job, the global-memory mode it
-# replaced beside it (ms, measured on an NVIDIA H100 80GB HBM3, 700.00 W)
-GLOBAL_MODE_MS = {"keccakf": (258.6, 262.0), "keccak_sponge": (4.47, 4.53)}
+# replaced beside it (ms, measured on an NVIDIA H100 80GB HBM3, 700.00 W, on
+# path 5's first segment at 30,000 iterations: these quotient rows)
+GLOBAL_MODE_MS = {"keccakf": {"rows": 1 << 20, "ms": (258.6, 262.0)},
+                  "keccak_sponge": {"rows": 1 << 16, "ms": (4.47, 4.53)}}
 STREAM_BUDGETS = (48, 64, 128, 256, 384)
 
 
@@ -2104,6 +2156,84 @@ def phase_u256(dev, cfg: StarkConfig, err: dict) -> dict:
           "launches": ur["launches"], "quotient": ur["quotient"],
           "plain_checks": ur["plain_checks"]})
     return ur["launches"]
+
+
+def run_ecrecover(dev, cfg: StarkConfig) -> dict:
+    """Path 8: the ecrecover guest's volatile VM proof (run_vm with the
+    default executors, keccak, both moduli and the curve), held to its
+    counts, its heights, its public values and its pinned proof; K7's two
+    launches (the extension programs streamed), the streamed launch alone
+    with its jobs and the shared one without it beside their bounds, and
+    every kernel against plain on the prove's own inputs."""
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    r = run_vm(dev, cfg, build_ecrecover_program(ECRECOVER_N), warm=False,
+               inputs=ecrecover_stream(ECRECOVER_N, ECRECOVER_SEED), **ECRECOVER_CONFIG)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches, vm, pre = r["launches"], r["vm"], r["pre"]
+    require_one_prove(launches, "path 8")
+    counts = ecrecover_counts(ECRECOVER_N, ECRECOVER_SEED)
+    rows = {k: len(next(iter(v.values()))) for k, v in pre.records.items()}
+    got = {"insns": pre.instret, "ec_add_ne": rows.get("sw_add_ne_0", 0),
+           "ec_double": rows.get("sw_double_0", 0),
+           "keccak_blocks": rows.get("keccak_sponge", 0),
+           **{k: rows.get(k, 0) for k in counts if k.startswith("modular_")}}
+    require(pre.exit_code == 0 and got == counts,
+            f"path 8's guest: exit {pre.exit_code}, {got} against {counts}")
+    idle = [a.name for a in vm.airs if a.name.startswith("rv32_") and not rows.get(a.name)]
+    require(not idle, f"RV32IM chips without a real row on path 8: {idle}")
+    heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
+    require(ECRECOVER_LOG_HEIGHTS is not None
+            and all(heights[name] == 1 << lh for name, lh in ECRECOVER_LOG_HEIGHTS.items()),
+            f"path 8's heights: {heights}")
+    pvs = list(r["result"]["public_values"])
+    require(pvs == ecrecover_reference(ECRECOVER_N, ECRECOVER_SEED),
+            f"path 8's public values {pvs}")
+    blob = codec.encode_proof(r["proof"])
+    sha = hashlib.sha256(blob).hexdigest()
+    require(sha == ECRECOVER_PROOF_SHA256, f"path 8's proof sha {sha}")
+    qrec = r["record"]["quotient"]
+    both, alone, rest = quotient_split(vm, qrec, ECRECOVER_STREAMED, "path 8")
+    alone["jobs"] = {a.name: {"log_rows": q[2] + q[3], "instructions": int(q[0].code.shape[0])}
+                     for a, q in zip(vm.airs, qrec) if a.name in ECRECOVER_STREAMED}
+    alone["instruction_rows"] = sum(int(q[0].code.shape[0]) << (q[2] + q[3])
+                                    for a, q in zip(vm.airs, qrec)
+                                    if a.name in ECRECOVER_STREAMED)
+    quotient = {**both, "streamed_alone": alone, "without_streamed": rest}
+    tracegen_s = r["record"]["tracegen_s"]
+    r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
+             peak_gb=peak_gb, start_gb=start_gb, quotient=quotient, rows=rows, counts=counts,
+             tracegen_s={k: tracegen_s[k] for k in ("sw_add_ne_0", "sw_double_0", "keccakf")},
+             plain_checks=check_vm_kernels(vm, r.pop("record")))
+    return r
+
+
+def phase_ecrecover(dev, cfg: StarkConfig, err: dict) -> dict:
+    """Path 8 (``run_ecrecover``) and its line; folds its plain checks into
+    ``err``.  Returns its launches."""
+    t0 = time.perf_counter()
+    er = run_ecrecover(dev, cfg)
+    err.update({k: max(v, err.get(k, 0)) for k, v in er["plain_checks"]["max"].items()})
+    insns, prove_s, c = er["pre"].instret, er["s"]["prove"], er["counts"]
+    ec_ops = c["ec_add_ne"] + c["ec_double"]
+    emit({"phase": "ecrecover", "guest": f"build_ecrecover_program({ECRECOVER_N})",
+          "seed": ECRECOVER_SEED, "executors": list(FULL_EXECUTORS), "keccak": True,
+          "moduli": [hex(m) for m in ECRECOVER_MODULI],
+          "curves": [[hex(m), a] for m, a in ECRECOVER_CONFIG["curves"]],
+          "signatures": ECRECOVER_N, "insns": insns, "counts": c, "rows": er["rows"],
+          "heights": er["heights"], "queries": cfg.fri.num_queries,
+          "pow_bits": cfg.fri.proof_of_work_bits, "s": er["s"], "stage_s": er["stages_s"],
+          "tracegen_s": er["tracegen_s"], "insn_per_s_cold": insns / prove_s,
+          "signatures_per_s_cold": ECRECOVER_N / prove_s,
+          "ec_ops_per_s_cold": ec_ops / prove_s,
+          "verified": True, "public_values": er["public_values"][:24],
+          "proof_bytes": len(er["blob"]), "proof_sha256": er["sha"],
+          "peak_gb": er["peak_gb"], "peak_above_start_gb": er["peak_gb"] - er["start_gb"],
+          "launches": er["launches"], "quotient": er["quotient"],
+          "plain_checks": er["plain_checks"], "phase_s": time.perf_counter() - t0})
+    return er["launches"]
 
 
 def tamper_poseidon2(vm, ctxs: list, device) -> list:
@@ -2622,6 +2752,8 @@ def run(dev: torch.device) -> int:
     s_launches = phase_sha(dev, cfg, err)
     # ---- path 7: sha256, int256 and modular arithmetic ---------------------
     u_launches = phase_u256(dev, cfg, err)
+    # ---- path 8: ecrecover, the ECC chips and every RV32IM chip -------------
+    e_launches = phase_ecrecover(dev, cfg, err)
     # the streamed launch's transpose, launched on paths 4-6 only: its row
     # from keccakf's main LDE on path 5
     tr = k_stream["transpose"]
@@ -2641,7 +2773,7 @@ def run(dev: torch.device) -> int:
         "shape": tr["shape"]})
     for k in kernels:
         k["launches_path5"], k["launches_path6"] = k_launches[k["name"]], s_launches[k["name"]]
-        k["launches_path7"] = u_launches[k["name"]]
+        k["launches_path7"], k["launches_path8"] = u_launches[k["name"]], e_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err.get(k["name"], 0))
     next(k for k in kernels if k["name"] == "quotient")["stream_path5"] = k_stream
     print(setup["nvidia_smi"].splitlines()[0], flush=True)

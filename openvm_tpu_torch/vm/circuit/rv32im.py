@@ -1,7 +1,9 @@
 """RV32IM executor AIRs + vectorized tracegen.
 
 Copy of openvm_tpu/vm/circuit/rv32im.py (the whole module: every
-RV32IM executor chip, not only the eight a fibonacci guest uses).
+RV32IM executor chip, not only the eight a fibonacci guest uses), with one
+repair: ``HintStoreAir.trace`` sets ``is_buffer`` on a HINT_BUFFER's start
+row only, as its constraints ask (ROADMAP.md, F4).
 
 Each chip mirrors a reference chip family (reference extensions/rv32im/circuit
 /src/{base_alu,branch_eq,branch_lt,less_than,jal_lui,jalr,auipc,loadstore}/,
@@ -1749,10 +1751,16 @@ class HintStoreAir(Air):
             return _pad_pow2(t)
         c = self.c
         t[:n, c.index["is_valid"]] = 1
-        for nm in ("is_start", "is_buffer", "pc", "ts0", "a", "b", "rem",
+        for nm in ("is_start", "pc", "ts0", "a", "b", "rem",
                    "ptr", "ts_w", "p_ts1", "p_ts2", "p_tsw"):
             t[:n, c.index[nm]] = rec[nm]
         st = rec["is_start"].astype(bool)
+        # the records mark every row of a HINT_BUFFER; the constraints
+        # (buf * (1 - st) = 0, one length read) want its start row only.
+        # openvm_tpu/vm/circuit/rv32im.py:1749 copies the records' flag, so
+        # a multi-word HINT_BUFFER fails its constraints there (F4).
+        bufm = rec["is_buffer"].astype(bool) & st
+        t[:n, c.index["is_buffer"]] = bufm
         t[:n, c.index["is_cont"]] = (~st).astype(np.uint64)
         rem = rec["rem"]
         rio = (rem == 1).astype(np.uint64)
@@ -1769,7 +1777,6 @@ class HintStoreAir(Air):
         lo, hi = _ts_diff(rec["p_ts1"], rec["ts0"])
         t[:n, c.index["dlo1"]] = np.where(stm, lo, 0)
         t[:n, c.index["dhi1"]] = np.where(stm, hi, 0)
-        bufm = rec["is_buffer"].astype(bool)
         lo, hi = _ts_diff(rec["p_ts2"], rec["ts0"] + 1)
         t[:n, c.index["dlo2"]] = np.where(bufm, lo, 0)
         t[:n, c.index["dhi2"]] = np.where(bufm, hi, 0)

@@ -26,8 +26,12 @@ below 2048 the words are the original's, instruction for instruction.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 
+import numpy as np
+
+from .circuit.keccak import keccak256
 from .instructions import (BranchEqual256Opcode, BranchLessThan256Opcode,
                            Instruction, Program, VmExe)
 from .transpiler import Transpiler
@@ -145,9 +149,13 @@ def hint_storew(rd):
     return (0b001 << 12) | (rd << 7) | 0x0B
 
 
+def phantom_hint_input():
+    return (0 << 20) | (0b011 << 12) | 0x0B
+
+
 def hinted_input_words(n_bytes):
     """Words that read the hinted input of n_bytes into memory at SRC."""
-    words = [(0 << 20) | (0b011 << 12) | 0x0B]          # phantom hint_input
+    words = [phantom_hint_input()]
     words += [asm_i(0x13, 1, 0, SRC - 4, 0), hint_storew(1)]  # len header
     for k in range(0, n_bytes, 4):
         words += [asm_i(0x13, 1, 0, SRC + k, 0), hint_storew(1)]
@@ -282,7 +290,7 @@ PTR_A, PTR_B, PTR_C, PTR_D = 0x100, 0x140, 0x180, 0x1C0
 def _operand_words():
     """Hint the two 32-byte operands into [PTR_A] and [PTR_B] and point
     x1-x4 at the four blocks."""
-    words = [(0 << 20) | (0b011 << 12) | 0x0B]          # phantom hint_input
+    words = [phantom_hint_input()]
     words += [asm_i(0x13, 1, 0, PTR_A, 0), hint_storew(1)]  # length word
     for k in range(8):
         words += [asm_i(0x13, 1, 0, PTR_A + 4 * k, 0), hint_storew(1)]
@@ -507,3 +515,465 @@ def u256_iter_reference(n):
           + mem["d"].to_bytes(32, "little")[:4]
           + bytes([flags[0], 0, 0, 0, flags[1], 0, 0, 0]))
     return list(pv + bytes(32 - len(pv)))
+
+
+# -- the full RV32IM opcode mix (tests/test_vm_full_ops.py:23-63) -----------
+
+def build_full_ops_program():
+    """Every shift, MUL/MULH/MULHSU/MULHU, DIV/DIVU/REM/REMU (and a division
+    by zero), a hinted word loaded back by lw and lh; reveals the mul result
+    and the hinted word.  Input ``FULL_OPS_INPUTS``; the default executors.
+    (The original's comments call the two loads lb and lh: funct3 2 and 1
+    are lw and lh.)"""
+    return _program([
+        asm_i(0x13, 1, 0, 0x355, 0),     # x1 = 0x355
+        asm_i(0x13, 2, 0, 7, 0),         # x2 = 7
+        asm_r(0x33, 3, 1, 2, 1, 0),      # sll x3, x1, x2
+        asm_i(0x13, 4, 1, 3, 1),         # slli x4, x1, 3
+        asm_r(0x33, 5, 1, 2, 5, 0),      # srl x5, x1, x2
+        asm_i(0x13, 6, 1, 2, 5),         # srli
+        asm_r(0x33, 7, 1, 2, 5, 0x20),   # sra
+        asm_i(0x13, 8, 0, -100, 0),      # x8 = -100
+        asm_i(0x13, 9, 8, 4, 5) | (0x20 << 25),  # srai x9, x8, 4
+        asm_r(0x33, 10, 1, 2, 0, 1),     # mul x10, x1, x2
+        asm_r(0x33, 11, 8, 2, 1, 1),     # mulh x11, x8, x2
+        asm_r(0x33, 12, 8, 2, 2, 1),     # mulhsu
+        asm_r(0x33, 13, 1, 2, 3, 1),     # mulhu
+        asm_r(0x33, 14, 8, 2, 4, 1),     # div x14, x8, x2
+        asm_r(0x33, 15, 1, 2, 5, 1),     # divu
+        asm_r(0x33, 16, 8, 2, 6, 1),     # rem
+        asm_r(0x33, 17, 1, 2, 7, 1),     # remu
+        asm_r(0x33, 18, 1, 0, 4, 1),     # div by zero
+        phantom_hint_input(),
+        asm_i(0x13, 20, 0, 0x100, 0),    # x20 = 0x100 (ptr)
+        hint_storew(20),                 # writes length word
+        hint_storew(20),                 # writes first data word
+        asm_i(0x03, 21, 20, 0, 2),       # lw x21, 0(x20)
+        asm_i(0x03, 22, 20, 0, 1),       # lh x22, 0(x20)
+        reveal(10, 0, 0),                # reveal mul result
+        reveal(21, 0, 4),                # reveal the hinted word
+        TERMINATE,
+    ])
+
+
+FULL_OPS_INPUTS = [[0xAB, 0xCD, 0x12, 0x99]]
+
+
+# -- short-Weierstrass ECC (tests/test_vm_ecc.py:20-64,
+# tests/test_real_elf_breadth.py:116-165) -----------------------------------
+
+SECP256K1_GX = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
+SECP256K1_GY = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
+SECP256K1_G = (SECP256K1_GX, SECP256K1_GY)
+# (modulus, a) of secp256k1: y^2 = x^3 + 7
+SECP256K1_CURVE = (SECP256K1_P, 0)
+# EC base funct7s (reference SwBaseFunct7)
+EC_ADD_NE_F7, EC_DOUBLE_F7, EC_SETUP_F7 = range(3)
+
+PT_A, PT_C, PT_D = 0x200, 0x280, 0x300
+
+
+def ec_r(base_f7, rd, rs1, rs2, curve_idx=0):
+    return (((curve_idx * 8 + base_f7) << 25) | (rs2 << 20) | (rs1 << 15)
+            | (0b001 << 12) | (rd << 7) | 0x2B)
+
+
+def build_ecc_program():
+    """G hinted into [PT_A]; [PT_C] = 2G by EC_DOUBLE, [PT_D] = G + 2G by
+    EC_ADD_NE (after a SETUP, a nop); reveals 3G.x's low word.  Input
+    ``ecc_inputs()``; executors alu, loadstore, hintstore."""
+    words = [phantom_hint_input()]
+    words += [asm_i(0x13, 1, 0, PT_A, 0), hint_storew(1)]   # length scratch
+    for k in range(16):
+        words += [asm_i(0x13, 1, 0, PT_A + 4 * k, 0), hint_storew(1)]
+    return _program(words + [
+        asm_i(0x13, 1, 0, PT_A, 0),    # x1 = &G
+        asm_i(0x13, 3, 0, PT_C, 0),    # x3 = &2G
+        asm_i(0x13, 4, 0, PT_D, 0),    # x4 = &3G
+        ec_r(EC_SETUP_F7, 0, 0, 0),    # setup -> nop
+        ec_r(EC_DOUBLE_F7, 3, 1, 0),   # [x3] = double([x1]) = 2G
+        ec_r(EC_ADD_NE_F7, 4, 1, 3),   # [x4] = [x1] + [x3] = 3G
+        asm_i(0x03, 6, 4, 0, 2),       # lw x6, 0(x4): 3G.x low word
+        reveal(6, 0, 0),
+        TERMINATE,
+    ])
+
+
+def ecc_inputs():
+    return [list(SECP256K1_GX.to_bytes(32, "little") + SECP256K1_GY.to_bytes(32, "little"))]
+
+
+def ec_add(p1, p2):
+    """Affine addition on secp256k1, None the point at infinity."""
+    if p1 is None:
+        return p2
+    if p2 is None:
+        return p1
+    (x1, y1), (x2, y2) = p1, p2
+    p = SECP256K1_P
+    if x1 == x2:
+        if (y1 + y2) % p == 0:
+            return None
+        lam = 3 * x1 * x1 * pow(2 * y1, -1, p) % p
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, p) % p
+    x3 = (lam * lam - x1 - x2) % p
+    return x3, (lam * (x1 - x3) - y1) % p
+
+
+def ec_mul(k, pt):
+    acc = None
+    while k:
+        if k & 1:
+            acc = ec_add(acc, pt)
+        pt = ec_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+def ecdsa_sign_recoverable(z: int, d: int, k: int):
+    """(r, s, recid) with low-s normalization (what k256 recovery expects;
+    EVM precompile input format v = 27 + recid)."""
+    n = SECP256K1_N
+    rx, ry = ec_mul(k, SECP256K1_G)
+    r = rx % n
+    assert r != 0 and rx < n
+    s = pow(k, -1, n) * (z + r * d) % n
+    assert s != 0
+    recid = ry & 1
+    if s > n // 2:
+        s = n - s
+        recid ^= 1
+    return r, s, recid
+
+
+# -- the ecrecover guest -----------------------------------------------------
+
+# Heap layout: every block below 2^11, so that addi from x0 and lw/sw
+# offsets from x0 reach it.  IN holds the 148 hinted bytes of a signature
+# (the 128-byte precompile input z || v || r || s, big-endian, and the
+# expected 20-byte address); the 32-byte blocks are little-endian.  TABLE +
+# 64k is the point of Shamir's table for the bit pair k = b1 + 2 b2 of
+# (u1, u2): G, R, G + R.
+ER_LEN, ER_IN = 0x0FC, 0x100
+ER_ZERO, ER_ONE, ER_SEVEN = 0x1A0, 0x1C0, 0x1E0
+ER_Z, ER_S, ER_T1, ER_T2, ER_RHS = 0x200, 0x220, 0x240, 0x260, 0x280
+ER_W, ER_U1, ER_U2, ER_OK = 0x2A0, 0x2C0, 0x2E0, 0x300
+ER_TABLE = 0x340
+ER_G, ER_R, ER_GR = ER_TABLE + 64, ER_TABLE + 128, ER_TABLE + 192
+ER_RY = ER_R + 32
+ER_ACC, ER_BUF, ER_HASH = 0x440, 0x480, 0x4C0
+ER_INPUT_BYTES = 148
+# public values: the matched count, then the XOR of the recovered
+# addresses' five words
+ER_ADDR_WORDS = 5
+ER_REGS = {"count": 9, "xor": (10, 11, 12, 13, 14), "n": 8, "bit": 15, "pair": 16,
+           "acc": 20, "table": 21, "entry": 22, "c64": 18, "c32": 19}
+
+
+def hint_buffer(rd, rs1):
+    """HINT_BUFFER: rs1 words of the hint stream to [rd]."""
+    return (1 << 20) | (rs1 << 15) | (0b001 << 12) | (rd << 7) | 0x0B
+
+
+def _imm32(rd, value):
+    """Words that set rd to any 32-bit value: lui + addi."""
+    value &= 0xFFFFFFFF
+    hi = ((value + 0x800) >> 12) & 0xFFFFF
+    lo = (value - (hi << 12)) & 0xFFF
+    return [(hi << 12) | (rd << 7) | 0x37, asm_i(0x13, rd, rd, lo, 0)]
+
+
+class _Asm:
+    """A word list with labels; branches, jumps and calls resolved at the
+    end, each offset checked against its immediate's reach."""
+
+    def __init__(self):
+        self.words, self.labels, self._fix = [], {}, []
+
+    def label(self, name):
+        self.labels[name] = len(self.words)
+
+    def emit(self, *words):
+        self.words.extend(words)
+
+    def _later(self, target, bits, enc, base=None):
+        at = len(self.words)
+        self._fix.append((at, at if base is None else base, target, bits, enc))
+        self.words.append(None)
+
+    def branch(self, f3, rs1, rs2, target):
+        self._later(target, 13, lambda off: asm_b(f3, rs1, rs2, off))
+
+    def jal(self, rd, target):
+        self._later(target, 21, lambda off: asm_jal(rd, off))
+
+    def call(self, target):
+        """auipc x1, 0; jalr x1, x1, target - auipc's pc."""
+        self.emit((1 << 7) | 0x17)
+        self._later(target, 12, lambda off: asm_i(0x67, 1, 1, off, 0),
+                    base=len(self.words) - 1)
+
+    def resolve(self):
+        for at, base, target, bits, enc in self._fix:
+            off = 4 * (self.labels[target] - base)
+            if not -(1 << (bits - 1)) <= off < 1 << (bits - 1):
+                raise ValueError(f"{target} is out of reach at word {at}")
+            self.words[at] = enc(off)
+        return self.words
+
+
+def _mod(f7, rd_addr, rs1_addr, rs2_addr, k):
+    """A modular op on the blocks at those addresses (pointers in x25-x27)."""
+    return [asm_i(0x13, 25, 0, rd_addr, 0), asm_i(0x13, 26, 0, rs1_addr, 0),
+            asm_i(0x13, 27, 0, rs2_addr, 0), modular_r(f7, 25, 26, 27, k)]
+
+
+def _rev32_call(a, src, dst, auipc=False):
+    """rev32 from src to dst, called by jal, or by auipc + jalr."""
+    a.emit(asm_i(0x13, 2, 0, src, 0), asm_i(0x13, 3, 0, dst, 0))
+    if auipc:
+        a.call("rev32")
+    else:
+        a.jal(1, "rev32")
+
+
+def _pair_words(r):
+    """The bit pair of step x15: bit x15 of u1 plus twice that of u2, read
+    from the guest's own words (divu/remu by 32, loads, shifts, masks)."""
+    return [asm_r(0x33, 17, r["bit"], r["c32"], 5, 1),   # divu x17 = word index
+            asm_r(0x33, r["pair"], r["bit"], r["c32"], 7, 1),  # remu: bit index
+            asm_i(0x13, 17, 17, 2, 1),                   # slli x17, 2
+            asm_i(0x13, 4, 17, ER_U1, 0),                # x4 = &u1 word
+            asm_i(0x03, 5, 4, 0, 2),                     # lw u1 word
+            asm_r(0x33, 5, 5, r["pair"], 5, 0),          # srl
+            asm_i(0x13, 5, 5, 1, 7),                     # andi 1
+            asm_i(0x03, 6, 4, ER_U2 - ER_U1, 2),         # lw u2 word
+            asm_r(0x33, 6, 6, r["pair"], 5, 0),          # srl
+            asm_i(0x13, 6, 6, 1, 7),                     # andi 1
+            asm_i(0x13, 6, 6, 1, 1),                     # slli 1
+            asm_r(0x33, r["pair"], 5, 6, 6, 0)]          # or: the pair
+
+
+def ecrecover_asm(n):
+    """The guest's assembled words and labels (``build_ecrecover_program``)."""
+    if n < 1:
+        raise ValueError("at least one signature")
+    r = ER_REGS
+    a = _Asm()
+    for k in range(16):                                  # G into the table
+        a.emit(*_imm32(5, (SECP256K1_G[k // 8] >> (32 * (k % 8))) & 0xFFFFFFFF),
+               asm_s(2, 0, 5, ER_G + 4 * k))
+    a.emit(asm_i(0x13, 5, 0, 1, 0), asm_s(2, 0, 5, ER_ONE),
+           asm_i(0x13, 5, 0, 7, 0), asm_s(2, 0, 5, ER_SEVEN),
+           *load_imm(r["n"], n), asm_i(0x13, r["c64"], 0, 64, 0),
+           asm_i(0x13, r["c32"], 0, 32, 0), asm_i(0x13, r["table"], 0, ER_TABLE, 0),
+           asm_i(0x13, r["acc"], 0, ER_ACC, 0))
+    a.jal(0, "sig")
+    # rev32: 32 bytes from x2 to x3, reversed; returns to x1
+    a.label("rev32")
+    a.emit(asm_i(0x13, 4, 2, 31, 0), asm_i(0x13, 5, 3, 32, 0))
+    a.label("rev32_loop")
+    a.emit(asm_i(0x03, 6, 4, 0, 4),                      # lbu
+           asm_s(0, 3, 6, 0),                            # sb
+           asm_i(0x13, 4, 4, -1, 0), asm_i(0x13, 3, 3, 1, 0))
+    a.branch(6, 3, 5, "rev32_loop")                      # bltu x3, x5
+    a.emit(asm_i(0x67, 0, 1, 0, 0))                      # ret
+    # -- one signature --
+    a.label("sig")
+    a.emit(phantom_hint_input(),
+           asm_i(0x13, 2, 0, ER_LEN, 0), hint_storew(2),
+           asm_i(0x13, 2, 0, ER_IN, 0), asm_i(0x13, 3, 0, ER_INPUT_BYTES // 4, 0),
+           hint_buffer(2, 3))
+    _rev32_call(a, ER_IN, ER_Z)                          # z
+    _rev32_call(a, ER_IN + 64, ER_R, auipc=True)           # R.x = r
+    _rev32_call(a, ER_IN + 96, ER_S)                     # s
+    # R.y: sqrt(r^3 + 7) over p, hinted and checked
+    a.emit(*_mod(MUL_F7, ER_T1, ER_R, ER_R, 0), *_mod(MUL_F7, ER_T2, ER_T1, ER_R, 0),
+           *_mod(ADD_F7, ER_RHS, ER_T2, ER_SEVEN, 0),
+           modular_r(7, 0, 25, 0, 0),                    # HintSqrt [x25]
+           asm_i(0x13, 2, 0, ER_OK, 0), hint_storew(2),
+           asm_i(0x13, 2, 0, ER_RY, 0), asm_i(0x13, 3, 0, 8, 0), hint_buffer(2, 3),
+           *_mod(MUL_F7, ER_T1, ER_RY, ER_RY, 0),
+           asm_i(0x13, 26, 0, ER_T1, 0), asm_i(0x13, 27, 0, ER_RHS, 0),
+           modular_r(ISEQ_F7, 6, 26, 27, 0),             # x6 = (y^2 == rhs)
+           asm_i(0x03, 5, 0, ER_OK, 2),                  # lw x5 = hint ok
+           asm_r(0x33, 7, 5, 6, 7, 0))                   # and
+    a.branch(0, 7, 0, "fail")                            # beq x7, x0
+    a.emit(asm_i(0x03, 5, 0, ER_RY, 4), asm_i(0x13, 5, 5, 1, 7),   # y parity
+           asm_i(0x03, 6, 0, ER_IN + 63, 4), asm_i(0x13, 6, 6, -27, 0))  # v - 27
+    a.branch(0, 5, 6, "parity_ok")
+    a.emit(*_mod(SUB_F7, ER_RY, ER_ZERO, ER_RY, 0))      # y = p - y
+    a.label("parity_ok")
+    # over n: w = 1/r, u1 = -z w, u2 = s w
+    a.emit(*_mod(DIV_F7, ER_W, ER_ONE, ER_R, 1), *_mod(MUL_F7, ER_U1, ER_Z, ER_W, 1),
+           *_mod(SUB_F7, ER_U1, ER_ZERO, ER_U1, 1), *_mod(MUL_F7, ER_U2, ER_S, ER_W, 1),
+           asm_i(0x13, 25, 0, ER_GR, 0), asm_i(0x13, 26, 0, ER_G, 0),
+           asm_i(0x13, 27, 0, ER_R, 0),
+           ec_r(EC_ADD_NE_F7, 25, 26, 27),               # G + R
+           asm_i(0x13, r["bit"], 0, 255, 0))
+    # Shamir's ladder: skip the leading zero pairs
+    a.label("skip")
+    a.emit(*_pair_words(r))
+    a.branch(1, r["pair"], 0, "found")                   # bne pair, x0
+    a.emit(asm_i(0x13, r["bit"], r["bit"], -1, 0))
+    a.jal(0, "skip")
+    a.label("found")                                     # acc = table[pair]
+    a.emit(asm_r(0x33, 17, r["pair"], r["c64"], 0, 1),   # mul: pair * 64
+           asm_r(0x33, r["entry"], r["table"], 17, 0, 0))
+    for k in range(16):
+        a.emit(asm_i(0x03, 5, r["entry"], 4 * k, 2), asm_s(2, r["acc"], 5, 4 * k))
+    a.jal(0, "next")
+    a.label("step")
+    a.emit(ec_r(EC_DOUBLE_F7, r["acc"], r["acc"], 0), *_pair_words(r))
+    a.branch(0, r["pair"], 0, "next")                    # beq pair, x0
+    a.emit(asm_r(0x33, 17, r["pair"], r["c64"], 0, 1),
+           asm_r(0x33, r["entry"], r["table"], 17, 0, 0),
+           ec_r(EC_ADD_NE_F7, r["acc"], r["acc"], r["entry"]))
+    a.label("next")
+    a.emit(asm_i(0x13, r["bit"], r["bit"], -1, 0))
+    a.branch(5, r["bit"], 0, "step")                     # bge bit, x0
+    # keccak256(Qx || Qy, big-endian) against the expected address
+    a.label("ladder_done")
+    _rev32_call(a, ER_ACC, ER_BUF)
+    _rev32_call(a, ER_ACC + 32, ER_BUF + 32, auipc=True)
+    a.emit(asm_i(0x13, 2, 0, ER_HASH, 0), asm_i(0x13, 3, 0, ER_BUF, 0),
+           asm_i(0x13, 4, 0, 64, 0), keccak_r(2, 3, 4), asm_i(0x13, 7, 0, 0, 0))
+    for k, xr in enumerate(r["xor"]):
+        a.emit(asm_i(0x03, 5, 0, ER_HASH + 12 + 4 * k, 2),
+               asm_i(0x03, 6, 0, ER_IN + 128 + 4 * k, 2),
+               asm_r(0x33, 6, 5, 6, 4, 0), asm_r(0x33, 7, 7, 6, 6, 0),    # xor, or
+               asm_r(0x33, xr, xr, 5, 4, 0))
+    a.emit(asm_r(0x33, 7, 0, 7, 3, 0), asm_i(0x13, 7, 7, 1, 4),   # sltu, xori
+           asm_r(0x33, r["count"], r["count"], 7, 0, 0),
+           asm_i(0x13, r["n"], r["n"], -1, 0))
+    a.branch(1, r["n"], 0, "sig")                        # bne n, x0
+    a.label("end")
+    a.emit(reveal(r["count"], 0, 0),
+           *(reveal(xr, 0, 4 + 4 * k) for k, xr in enumerate(r["xor"])), TERMINATE)
+    a.label("fail")
+    a.emit((1 << 20) | 0x0B)                             # terminate, exit code 1
+    return a.resolve(), a.labels
+
+
+def build_ecrecover_program(n):
+    """Recovers n secp256k1 signers' addresses, as the EVM's ecrecover
+    precompile does, and counts those equal to the expected ones.  A
+    signature's 148 hinted bytes (``ecrecover_stream``) are read with
+    hint_storew and hint_buffer; z, r and s are byte-reversed into
+    little-endian blocks; R.y = sqrt(r^3 + 7) comes from the HintSqrt
+    phantom, checked by MUL and IS_EQ (exit code 1 if it fails), and is
+    negated mod p when its parity is not v - 27; over n, w = 1/r, u1 = -z w,
+    u2 = s w; Q = u1 G + u2 R by Shamir's ladder over the table {G, R,
+    G + R} (one EC_ADD_NE), its bit pairs read from the guest's own u1 and
+    u2 from the top, leading zero pairs skipped, then EC_DOUBLE in place
+    and EC_ADD_NE for each nonzero pair; keccak256 of Q big-endian and its
+    bytes 12-31 compared with the expected address.  Reveals the number
+    matched and the XOR of the recovered addresses' five words
+    (``ecrecover_reference``).  Config: the default executors, keccak,
+    moduli (secp256k1's p, n) and curves (SECP256K1_CURVE,)."""
+    return _program(ecrecover_asm(n)[0])
+
+
+ECRECOVER_MODULI = (SECP256K1_P, SECP256K1_N)
+
+
+def _shamir(u1, u2, table):
+    """The guest's ladder on the host: (Q, top bit index, adds after the
+    first entry), or None where it would meet an EC_ADD_NE of equal x or a
+    point at infinity."""
+    pair = lambda i: ((u1 >> i) & 1) | (((u2 >> i) & 1) << 1)
+    i = 255
+    while pair(i) == 0:
+        i -= 1
+    top, acc, adds = i, table[pair(i)], 0
+    for i in range(top - 1, -1, -1):
+        acc = ec_add(acc, acc)
+        if acc is None:
+            return None
+        if pair(i):
+            if acc[0] == table[pair(i)][0]:
+                return None
+            acc, adds = ec_add(acc, table[pair(i)]), adds + 1
+    return acc, top, adds
+
+
+@functools.lru_cache(maxsize=None)
+def _ecrecover_signatures(n, seed):
+    """n signatures from seeded keys, messages and nonces: per signature
+    (the 128-byte precompile input, the expected 20-byte address, whether
+    R.y was negated, the ladder's top bit and its adds)."""
+    rng = np.random.default_rng(seed)
+    big = lambda: int.from_bytes(rng.bytes(32), "big")
+    N, p = SECP256K1_N, SECP256K1_P
+    out = []
+    while len(out) < n:
+        d = big() % N
+        msg = rng.bytes(32)
+        z = int.from_bytes(keccak256(msg), "big")
+        k = big() % N
+        if d == 0 or k == 0 or z >= N:
+            continue
+        rx, _ = ec_mul(k, SECP256K1_G)
+        if rx >= N or rx == SECP256K1_GX:
+            continue
+        r, s, recid = ecdsa_sign_recoverable(z, d, k)
+        y = pow(r ** 3 + 7, (p + 1) // 4, p)
+        negated = (y & 1) != recid
+        R = (r, p - y if negated else y)
+        w = pow(r, -1, N)
+        u1, u2 = (-z * w) % N, (s * w) % N
+        ladder = _shamir(u1, u2, (None, SECP256K1_G, R, ec_add(SECP256K1_G, R)))
+        qx, qy = ec_mul(d, SECP256K1_G)
+        if ladder is None or ladder[0] != (qx, qy):
+            continue
+        addr = keccak256(qx.to_bytes(32, "big") + qy.to_bytes(32, "big"))[12:]
+        inp = (z.to_bytes(32, "big") + (27 + recid).to_bytes(32, "big")
+               + r.to_bytes(32, "big") + s.to_bytes(32, "big"))
+        out.append((inp, addr, negated, ladder[1], ladder[2]))
+    return tuple(out)
+
+
+def ecrecover_inputs(n, seed=0):
+    """[(128-byte precompile input, expected 20-byte address)] for n
+    signatures, each from its own key (seeded by ``seed``)."""
+    return [(inp, addr) for inp, addr, *_ in _ecrecover_signatures(n, seed)]
+
+
+def ecrecover_stream(n, seed=0):
+    """The guest's input stream: a signature's 148 bytes an input."""
+    return [list(inp + addr) for inp, addr in ecrecover_inputs(n, seed)]
+
+
+def ecrecover_reference(n, seed=0):
+    """The 32 public-value bytes: n (every signature matched) and the XOR
+    of the expected addresses' five little-endian words, from Python ints."""
+    xor = [0] * ER_ADDR_WORDS
+    for _, addr in ecrecover_inputs(n, seed):
+        for k in range(ER_ADDR_WORDS):
+            xor[k] ^= int.from_bytes(addr[4 * k:4 * k + 4], "little")
+    pv = n.to_bytes(4, "little") + b"".join(v.to_bytes(4, "little") for v in xor)
+    return list(pv + bytes(32 - len(pv)))
+
+
+def ecrecover_counts(n, seed=0):
+    """Instructions the guest runs (its label distances over the host
+    ladder's control flow), EC adds and doubles, modular ops by chip and
+    keccak blocks."""
+    _, lab = ecrecover_asm(n)
+    loop = lab["sig"] - 1 - lab["rev32_loop"]              # lbu, sb, addi, addi, bltu
+    rev = (lab["rev32_loop"] - lab["rev32"]) + 32 * loop + 1
+    skip_iter = lab["found"] - lab["skip"]               # pair, bne, addi, jal
+    step_add = lab["ladder_done"] - lab["step"]          # double, pair, beq, mul, add,
+    step_zero = step_add - 3                             # add_ne; addi, bge
+    insns = lab["rev32"] + (lab["fail"] - 1 - lab["end"])   # prologue; reveals
+    adds = doubles = negs = 0
+    for _, _, negated, top, n_add in _ecrecover_signatures(n, seed):
+        insns += (lab["skip"] - lab["sig"]) - 4 * (not negated) + 3 * rev
+        insns += (255 - top) * skip_iter + skip_iter - 2
+        insns += (lab["step"] - lab["found"]) + 2 + top * step_zero + n_add * 3
+        insns += (lab["end"] - lab["ladder_done"]) + 2 * rev
+        adds, doubles, negs = adds + 1 + n_add, doubles + top, negs + negated
+    return {"insns": insns, "ec_add_ne": adds, "ec_double": doubles,
+            "modular_muldiv_0": 3 * n, "modular_addsub_0": n + negs, "modular_iseq_0": n,
+            "modular_muldiv_1": 3 * n, "modular_addsub_1": n, "keccak_blocks": n}

@@ -1,12 +1,13 @@
 """VirtualMachine: config, keygen, prove, verify, for RV32IM on the card.
 
 Port of openvm_tpu/vm/machine.py for the volatile- and persistent-memory
-configurations: ``Rv32Config`` (with ``bigint``, ``moduli``, ``keccak``,
-``sha256`` and ``persistent``) and ``VirtualMachine`` (:44-96, :98-119 the
-int256, keccak and sha256 AIRs and executor names, :135-193 with the
+configurations: ``Rv32Config`` (with ``bigint``, ``moduli``, ``curves``,
+``keccak``, ``sha256`` and ``persistent``) and ``VirtualMachine`` (:44-96,
+:98-119 the int256, keccak and sha256 AIRs and executor names, :135-193 with the
 executors appended at :168-176, int256 before keccak and sha256, the
-modular AIRs after RangeTupleCheckerAir :182-185, the persistent system
-AIRs :150-158), ``_interp`` with the moduli (:236-240), ``keygen``
+modular AIRs after RangeTupleCheckerAir :182-185 and the ECC AIRs after
+them :186-188, the persistent system AIRs :150-158), ``_interp`` with the
+moduli and curves (:236-240), ``keygen``
 without the disk cache (:195), ``commit_exe`` (:211) on the port's ``ntt``
 and ``merkle``, ``_segment_ctx`` (:242), ``execute_metered`` (:279),
 ``_initial_tree`` (:305), ``_persistent_traces`` (:316), ``prove``
@@ -18,7 +19,7 @@ interpreter's columns mode), the continuations ``_segment_sweep`` (:663),
 ``segment_height_profile`` (:698), ``prove_continuations`` (:718) and
 ``verify_segments`` (:745), ``verify`` (:790-833, the persistent branch
 :819-826) and ``commit_init_memory`` (:834).  The native (recursion) VM
-and the ECC, Fp2 and pairing chips are later slices of the port.
+and the Fp2 and pairing chips are later slices of the port.
 
 Every trace goes to the device once, as Montgomery words: the histograms
 read the executor traces there, and the prover takes the same tensors.
@@ -58,6 +59,7 @@ from .circuit.system import (BitwiseLookupAir, ConnectorAir, PhantomAir,
                              RangeTupleCheckerAir, VolatileBoundaryAir,
                              connector_trace, program_cached_trace)
 from .circuit.bigint import INT256_AIRS
+from .circuit.ecc import ecc_airs
 from .circuit.keccak import KECCAK_AIRS
 from .circuit.merkle_chip import MemoryMerkleAir
 from .circuit.modular import modular_airs
@@ -98,6 +100,9 @@ class Rv32Config:
     # modular-arithmetic (algebra) extension: one chip trio per modulus
     # (reference ModularExtension{supported_moduli}, SURVEY.md section 2.9)
     moduli: tuple = ()
+    # ECC extension: (modulus, a_coeff) per short-Weierstrass curve
+    # (reference WeierstrassExtension{supported_curves}, SURVEY.md 2.10)
+    curves: tuple = ()
     # persistent memory: Merkle-committed memory state (continuations mode,
     # reference SystemConfig.continuation_enabled)
     persistent: bool = False
@@ -165,6 +170,8 @@ class VirtualMachine:
             self.airs.append(RangeTupleCheckerAir())
         if self.config.moduli:
             self.airs += list(modular_airs(self.config.moduli).values())
+        if self.config.curves:
+            self.airs += list(ecc_airs(self.config.curves).values())
         self.air_index = {a.name: i for i, a in enumerate(self.airs)}
         self.pk = None
 
@@ -184,7 +191,8 @@ class VirtualMachine:
     # -- preflight plumbing ---------------------------------------------
     def _interp(self, exe: VmExe) -> PreflightInterpreter:
         return PreflightInterpreter(exe, self.config.num_pv_words,
-                                    moduli=self.config.moduli)
+                                    moduli=self.config.moduli,
+                                    curves=self.config.curves)
 
     def _segment_ctx(self, nvm, limits: dict | None = None) -> SegmentCtx:
         """Install metered segmentation thresholds on the handle and build
@@ -322,8 +330,9 @@ class VirtualMachine:
         ``native=False`` runs the preflight's Python loop instead of the C++
         core.  ``stages`` (a dict) gets the seconds of each stage, the STARK
         prover's included; ``record`` (a dict) gets the proving contexts
-        (``"ctxs"``), the inputs of the histogram kernels (``"lookup"``) and
-        of the prover's kernels (see ``stark.prove``).
+        (``"ctxs"``), each executor AIR's tracegen seconds
+        (``"tracegen_s"``), the inputs of the histogram kernels
+        (``"lookup"``) and of the prover's kernels (see ``stark.prove``).
 
         A continuation segment passes the suspended ``state`` of the one
         before, the memory tree it ends with (``initial_tree``: (tree,
@@ -448,10 +457,15 @@ class VirtualMachine:
             if name != "phantom" and name not in self.air_index:
                 raise RuntimeError(
                     f"program uses {name} but the VM config excludes it")
+        tracegen_s = {}
         for air in self.airs[self.NUM_SYSTEM_AIRS:]:
             rec = pre.records.get(air.name)
+            t0 = time.perf_counter()
             traces[air.name] = (air.trace(rec) if rec else
                                 np.zeros((1, air.width), dtype=np.uint64))
+            tracegen_s[air.name] = time.perf_counter() - t0
+        if record is not None:
+            record["tracegen_s"] = tracegen_s
 
         # fixed-height padding: every segment proved at one shape
         if fixed_heights:

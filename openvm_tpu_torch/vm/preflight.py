@@ -1,10 +1,12 @@
 """Preflight (E3) execution: the record-generating interpreter, RV32IM,
-int256, modular arithmetic, keccak256 and sha256.
+int256, modular arithmetic, short-Weierstrass ECC, keccak256 and sha256.
 
 Copy of openvm_tpu/vm/preflight.py:45-510 (records, memory, the RV32IM
 dispatch loop), :511-613 (the int256 handler), :614-697 (the modular
 handler, taken only when the config has moduli, as the JAX package's
-guard takes it), :1199-1364 (the KECCAK256 and SHA256 handlers, their
+guard takes it), :698-778 (the EC_ADD_NE and EC_DOUBLE handler, taken only
+for a configured curve, its record layouts and ExecutionErrors unchanged),
+:1199-1364 (the KECCAK256 and SHA256 handlers, their
 record layouts unchanged), :1365-1476 (phantom with the HINT_NON_QR and
 HINT_SQRT phantoms :1415-1430, terminate, finalize) and the continuation
 half: ``PreflightResult.suspended_state`` and ``segment_full``,
@@ -14,10 +16,10 @@ the resume and ``py_stats`` logic of ``execute`` (:133-200), its
 (:1440-1476).  With a
 ``native.NativeVmHandle`` the C++ core (csrc/host/preflight.cpp) runs the
 RV32IM instruction runs and this loop dispatches what it yields on.  The
-opcodes of the native, ECC, Fp2 and pairing extensions and their phantoms
-raise NotImplementedError: their chips are a later slice of the port.  A
-modular opcode in a config without moduli ends as in the JAX package, in
-an ExecutionError.
+opcodes of the native and Fp2 extensions and the native and pairing
+phantoms raise NotImplementedError: their chips are a later slice of the
+port.  A modular or ECC opcode in a config without its modulus or curve
+ends as in the JAX package, in an ExecutionError.
 
 Timestamp discipline mirrors the AIRs exactly: each instruction starts at
 `ts` and performs its accesses at fixed ticks (slot k at ts+k), advancing
@@ -32,6 +34,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .circuit import buses as B
+from .circuit.ecc import (EC_ADD_NE, EC_DOUBLE, SW_BASE, SW_KINDS,
+                          _lambda_add, _lambda_double)
 from .circuit.keccak import RATE_BYTES, TS_PER_BLOCK, W_WINDOW, keccak_f
 from .circuit.sha256 import BLOCK_BYTES as SB
 from .circuit.sha256 import BLOCK_WORDS as SW
@@ -56,9 +60,9 @@ M32 = 0xFFFFFFFF
 
 
 def _is_extension(op: int) -> bool:
-    """Native (0x100-0x1ff), ECC (0x600-0x70f), Fp2 (0x710-) opcodes
-    (instructions.py): a later slice of the port."""
-    return 0x100 <= op < 0x200 or op >= 0x600
+    """Native (0x100-0x1ff) and Fp2 (0x710-) opcodes (instructions.py): a
+    later slice of the port."""
+    return 0x100 <= op < 0x200 or op >= 0x710
 
 
 # NativePhantom (0x10-0x14), PairingPhantom (0x30): extension phantoms
@@ -149,10 +153,12 @@ def _from_limbs(limbs):
 
 
 class PreflightInterpreter:
-    def __init__(self, exe: VmExe, num_pv_words: int = 8, moduli=()):
+    def __init__(self, exe: VmExe, num_pv_words: int = 8, moduli=(),
+                 curves=()):
         self.exe = exe
         self.num_pv_words = num_pv_words
         self.moduli = tuple(moduli)
+        self.curves = tuple(curves)
 
     def execute(self, inputs=None, max_insns: int | None = None,
                 state: dict | None = None, nvm=None,
@@ -715,6 +721,84 @@ class PreflightInterpreter:
                 else:
                     raise ExecutionError(
                         f"modular opcode base {base} unsupported")
+
+            elif 0x600 <= op < 0x600 + 4 * len(self.curves):
+                curve_idx = (op - SW_BASE) // SW_KINDS
+                base = (op - SW_BASE) % SW_KINDS
+                pmod, acoef = self.curves[curve_idx]
+
+                def ptr_of(limbs):
+                    p_ = _from_limbs(limbs)
+                    if p_ % 4 != 0 or p_ >= (1 << 29):
+                        raise ExecutionError(
+                            f"bad ec pointer {p_:#x} at pc {pc:#x}")
+                    return p_ // 4
+
+                def read_point(wa, tick0):
+                    limbs, pts = [], []
+                    for k in range(16):
+                        data, pk_ = mem.read(2, wa + k, ts + tick0 + k)
+                        limbs.extend(data)
+                        pts.append(pk_)
+                    return limbs, pts
+
+                def to_int(limbs):
+                    return sum(v_ << (8 * i) for i, v_ in enumerate(limbs))
+
+                if base == EC_ADD_NE:
+                    rs1p, p1 = reg_read(b // 4, 0)
+                    rs2p, p2 = reg_read(c // 4, 1)
+                    rdp, p3 = reg_read(a // 4, 2)
+                    xb, pts_x = read_point(ptr_of(rs1p), 3)
+                    yb, pts_y = read_point(ptr_of(rs2p), 19)
+                    x1, y1 = to_int(xb[:32]), to_int(xb[32:])
+                    x2, y2 = to_int(yb[:32]), to_int(yb[32:])
+                    if (x1 - x2) % pmod == 0:
+                        raise ExecutionError("EC_ADD_NE with equal x")
+                    lam = _lambda_add(pmod, x1, y1, x2, y2)
+                    x3 = (lam * lam - x1 - x2) % pmod
+                    y3 = (lam * (x1 - x3) - y1) % pmod
+                    z = [(x3 >> (8 * i)) & 255 for i in range(32)] + \
+                        [(y3 >> (8 * i)) & 255 for i in range(32)]
+                    wad = ptr_of(rdp)
+                    prevz, pts_z = [], []
+                    for k in range(16):
+                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
+                                             ts + 35 + k)
+                        prevz.extend(pw_)
+                        pts_z.append(pzk)
+                    _append(recs[f"sw_add_ne_{curve_idx}"], pc=pc, ts=ts,
+                            a=a // 4, b=b // 4, c=c // 4, rs1p=rs1p,
+                            rs2p=rs2p, rdp=rdp, x=xb, y=yb, z=z,
+                            prevz=prevz, pts_r1=p1, pts_r2=p2, pts_rd=p3,
+                            pts_x=pts_x, pts_y=pts_y, pts_z=pts_z)
+                    pc, ts = pc + 4, ts + 51
+                elif base == EC_DOUBLE:
+                    rs1p, p1 = reg_read(b // 4, 0)
+                    rdp, p3 = reg_read(a // 4, 1)
+                    xb, pts_x = read_point(ptr_of(rs1p), 2)
+                    x1, y1 = to_int(xb[:32]), to_int(xb[32:])
+                    if y1 % pmod == 0:
+                        raise ExecutionError("EC_DOUBLE of 2-torsion point")
+                    lam = _lambda_double(pmod, acoef, x1, y1)
+                    x3 = (lam * lam - 2 * x1) % pmod
+                    y3 = (lam * (x1 - x3) - y1) % pmod
+                    z = [(x3 >> (8 * i)) & 255 for i in range(32)] + \
+                        [(y3 >> (8 * i)) & 255 for i in range(32)]
+                    wad = ptr_of(rdp)
+                    prevz, pts_z = [], []
+                    for k in range(16):
+                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
+                                             ts + 18 + k)
+                        prevz.extend(pw_)
+                        pts_z.append(pzk)
+                    _append(recs[f"sw_double_{curve_idx}"], pc=pc, ts=ts,
+                            a=a // 4, b=b // 4, rs1p=rs1p, rdp=rdp, x=xb,
+                            z=z, prevz=prevz, pts_r1=p1, pts_rd=p3,
+                            pts_x=pts_x, pts_z=pts_z)
+                    pc, ts = pc + 4, ts + 34
+                else:
+                    raise ExecutionError(f"ec opcode base {base} is setup")
 
 
             elif op == Rv32KeccakOpcode.KECCAK256:

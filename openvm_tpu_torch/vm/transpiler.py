@@ -1,5 +1,5 @@
 """RISC-V -> VM instruction transpiler: RV32IM, IO, int256, modular
-arithmetic, keccak256 and sha256.
+arithmetic, short-Weierstrass ECC, keccak256 and sha256.
 
 Copy of openvm_tpu/vm/transpiler.py:1-306 (decoder, ``Rv32ITranspiler-
 Extension``, ``Rv32MTranspilerExtension``, ``Rv32IoTranspilerExtension``),
@@ -8,10 +8,12 @@ Extension``, ``Rv32MTranspilerExtension``, ``Rv32IoTranspilerExtension``),
 like the JAX package's, it lowers no other 256-bit branch), :383-417
 (``ModularTranspilerExtension``: SETUP lowers to ``nop``, rd = 0 to ``nop``
 except for DIV, HintNonQr and HintSqrt to phantoms with the modulus index
-in the high half of c) and :507-557 (``Transpiler``, ``transpile_elf``).
+in the high half of c), :453-480 (``EccTranspilerExtension``: custom-1
+funct3 0b001, funct7 = curve index * 8 + {EC_ADD_NE 0, EC_DOUBLE 1, SETUP
+2 to ``nop``}) and :507-557 (``Transpiler``, ``transpile_elf``).
 The default extension list keeps the JAX package's order (:521-530) with
-only the extensions the port has; the ECC, Fp2 and pairing words wait for
-the slice that ports their chips, and a word only they would claim
+only the extensions the port has; the Fp2 and pairing words wait for the
+slice that ports their chips, and a word only they would claim
 transpiles to ``unimp`` here.
 """
 
@@ -423,6 +425,36 @@ class ModularTranspilerExtension:
                                b=4 * d.rs1, c=4 * d.rs2, d=1, e=2))
 
 
+SW_FUNCT3 = 0b001
+
+
+class EccTranspilerExtension:
+    """Short-Weierstrass intrinsics on custom-1 funct3=001 (reference
+    EccTranspilerExtension, extensions/ecc/transpiler/src/lib.rs:14-80).
+    funct7 = curve_idx*8 + {SwAddNe=0, SwDouble=1, SwSetup=2}."""
+
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_CUSTOM1:
+            return None
+        d = decode(w)
+        if d.funct3 != SW_FUNCT3:
+            return None
+        base = d.funct7 % 8
+        curve_idx = d.funct7 // 8
+        if base == 0:  # EC_ADD_NE
+            return one(Instruction(0x600 + curve_idx * 4, a=4 * d.rd,
+                                   b=4 * d.rs1, c=4 * d.rs2, d=1, e=2))
+        if base == 1:  # EC_DOUBLE (rs2 unused)
+            return one(Instruction(0x600 + curve_idx * 4 + 2, a=4 * d.rd,
+                                   b=4 * d.rs1, c=0, d=1, e=2))
+        if base == 2:  # setup -> no-op (curve constants live in the vk)
+            return one(nop())
+        return None
+
+
 @dataclass
 class TranspilerOutput:
     instructions: list
@@ -445,6 +477,7 @@ class Transpiler:
                                          Rv32IoTranspilerExtension(),
                                          Int256TranspilerExtension(),
                                          ModularTranspilerExtension(),
+                                         EccTranspilerExtension(),
                                          Keccak256TranspilerExtension()]
 
     def transpile(self, words: list) -> list:

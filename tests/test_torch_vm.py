@@ -29,7 +29,7 @@ from openvm_tpu_torch.field import babybear as bb
 from openvm_tpu_torch.stark import FriParameters, StarkConfig, codec
 from openvm_tpu_torch.vm import machine, native
 from openvm_tpu_torch.vm.guest import FIB_EXECUTORS, build_fib_program
-from openvm_tpu_torch.vm.instructions import Instruction, Program, VmExe, unimp
+from openvm_tpu_torch.vm.instructions import Instruction, Program, SystemOpcode, VmExe, unimp
 from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
 from openvm_tpu_torch.vm.preflight import PreflightInterpreter
 from openvm_tpu_torch.vm.transpiler import Transpiler
@@ -191,16 +191,22 @@ def test_preflight_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_extension_opcode_raises_not_implemented():
-    """An opcode of a family the port does not have yet (ECC's EC_ADD_NE,
-    0x600) raises, and the port's transpiler leaves an ECC word (custom-1,
-    funct3 0b001) as ``unimp``, where the JAX package's gives EC_ADD_NE."""
-    exe = VmExe(program=Program(instructions=[
-        Instruction(0x600, a=4, b=8, c=12, d=1, e=2)]), pc_start=0)
-    with pytest.raises(NotImplementedError):
-        PreflightInterpreter(exe).execute()
-    word = (2 << 20) | (1 << 15) | (0b001 << 12) | (3 << 7) | 0x2B
-    assert Transpiler().transpile([word]) == [unimp()]
-    assert jtranspiler.Transpiler().transpile([word])[0].opcode == 0x600
+    """An opcode of a family the port does not have yet (Fp2's ADD, 0x710)
+    and the pairing phantom (HintFinalExp, 0x30) raise, and the port's
+    transpiler leaves an Fp2 word (custom-1, funct3 0b010) and a pairing
+    word (funct3 0b011) as ``unimp``, where the JAX package's gives Fp2's
+    ADD and the phantom."""
+    for insn in (Instruction(0x710, a=4, b=8, c=12, d=1, e=2),
+                 Instruction(SystemOpcode.PHANTOM, a=4, b=8, c=0x30)):
+        exe = VmExe(program=Program(instructions=[insn]), pc_start=0)
+        with pytest.raises(NotImplementedError):
+            PreflightInterpreter(exe).execute()
+    fp2 = (2 << 20) | (1 << 15) | (0b010 << 12) | (3 << 7) | 0x2B
+    pairing = (2 << 20) | (1 << 15) | (0b011 << 12) | 0x2B
+    assert Transpiler().transpile([fp2, pairing]) == [unimp(), unimp()]
+    theirs = jtranspiler.Transpiler().transpile([fp2, pairing])
+    assert theirs[0].opcode == 0x710
+    assert (theirs[1].opcode, theirs[1].c & 0xFFFF) == (SystemOpcode.PHANTOM, 0x30)
 
 
 def test_jax_prove_reproduces_pinned_hash():
