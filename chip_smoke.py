@@ -181,8 +181,23 @@ Phases, each printing one JSON line:
             launch alone with its jobs and the shared one without it
             against their bounds; every kernel against plain on the
             prove's own inputs
+  pairing   path 9, BN254 pairing checks on the Fp2 chips, with BN254's
+            modular chips and the default executors: VirtualMachine
+            keygen -> prove -> verify of build_pairing_program(2), the
+            Miller loop and residue check over two inputs of four finite,
+            valid pairs (60,127 instructions, 48,222 Fp2 ops, two
+            HintFinalExp phantoms), one cold prove;
+            instructions and Fp2 and modular rows equal to pairing_counts,
+            the pinned heights (PAIRING_LOG_HEIGHTS), the public values
+            (every check held, c's words) against pairing_reference, the
+            proof's SHA-256 (PAIRING_PROOF_SHA256), stages, the Fp2 chips'
+            tracegen seconds and the hints' host seconds, insn/s, checks/s,
+            Fp2 ops/s, peak memory; K7's two launches (the five extension
+            programs streamed), the streamed launch alone with its jobs and
+            the shared one without it against their bounds; every kernel
+            against plain on the prove's own inputs
 
-then a {"kernels": [...]} line (each kernel's launches on paths 1 to 8, its
+then a {"kernels": [...]} line (each kernel's launches on paths 1 to 9, its
 __global__ entries, and K7's streamed launch on path 5's shapes) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -212,13 +227,16 @@ from openvm_tpu_torch.stark.config import FriParameters, StarkConfig
 from openvm_tpu_torch.stark.debug import check_constraints
 from openvm_tpu_torch.stark.symbolic import SymbolicDag
 from openvm_tpu_torch.vm.circuit.poseidon2_chip import Poseidon2Air
-from openvm_tpu_torch.vm.guest import (ECRECOVER_MODULI, FIB_EXECUTORS, SECP256K1_CURVE,
-                                       U256_MODULI, build_ecrecover_program,
-                                       build_fib_program, build_keccak_iter_program,
+from openvm_tpu_torch.vm.guest import (BN254_P, ECRECOVER_MODULI, FIB_EXECUTORS,
+                                       SECP256K1_CURVE, U256_MODULI,
+                                       build_ecrecover_program, build_fib_program,
+                                       build_keccak_iter_program, build_pairing_program,
                                        build_sha256_iter_program,
                                        build_u256_iter_program, ecrecover_counts,
                                        ecrecover_reference, ecrecover_stream, fib,
-                                       iter_insns, u256_iter_counts, u256_iter_reference)
+                                       iter_insns, pairing_counts, pairing_reference,
+                                       pairing_stream, u256_iter_counts,
+                                       u256_iter_reference)
 from openvm_tpu_torch.vm.machine import FULL_EXECUTORS, Rv32Config, VirtualMachine
 from openvm_tpu_torch.vm.memory_tree import pv_proof, verify_pv_proof
 
@@ -368,6 +386,30 @@ ECRECOVER_STREAMED = ("keccak_sponge", "keccakf", "sw_add_ne_0", "sw_double_0",
 # The SHA-256 of path 8's proof (6,070,653 bytes) as this script's first run
 # of path 8 at ECRECOVER_N on the H100 made it.
 ECRECOVER_PROOF_SHA256 = "c072ba3ccab75f79a898bb4f9b16fba6cf0c3a0eda9ac26984bfa4bb150bc6c4"
+# Path 9: the pairing guest in volatile memory, one cold prove: the
+# reference's pairing bench (SURVEY.md:571, section 2.11) as the Miller
+# loop and residue check of four finite, valid pairs (one Groth16
+# verification's check; EIP-197's on-curve, subgroup and infinity cases
+# are not run), every check run in the VM on the Fp2 chips:
+# Rv32Config(moduli=(BN254_P,), fp2=(BN254_P,)) with the default
+# executors.  PAIRING_N inputs, each from its own seed: 30,385
+# instructions, 24,131 Fp2 ops (13,669 MUL, 364 DIV, 7,628 ADD, 2,450 SUB)
+# and 60 modular ops an input.
+PAIRING_N = 2
+PAIRING_PAIRS = 4
+PAIRING_SEED = SEED
+PAIRING_CONFIG = dict(executors=FULL_EXECUTORS, moduli=(BN254_P,), fp2=(BN254_P,))
+PAIRING_LOG_HEIGHTS = {"fp2_muldiv_0": 15, "fp2_addsub_0": 15, "modular_addsub_0": 7,
+                       "modular_muldiv_0": 4, "modular_iseq_0": 5, "rv32_base_alu": 14,
+                       "rv32_hint_store": 10, "rv32_load_store": 9, "rv32_jal_lui": 8,
+                       "program": 15, "memory_boundary": 11, "range_tuple": 19}
+# The programs of K7's streamed launch on path 9: every extension AIR's
+# (fp2_muldiv_0 45,093 instructions at 48 words, fp2_addsub_0 5,659).
+PAIRING_STREAMED = ("modular_addsub_0", "modular_muldiv_0", "modular_iseq_0",
+                    "fp2_addsub_0", "fp2_muldiv_0")
+# The SHA-256 of path 9's proof (3,357,917 bytes) as this script's first
+# run of path 9 at PAIRING_N on the H100 made it.
+PAIRING_PROOF_SHA256 = "6b64d550e5ab4bd4179053ca6f404e89f7eebb8438d6d9a7dd157ff30a78d8a4"
 # The plain K7 keeps every slot of a program over every row it evaluates:
 # a job whose slots over its whole quotient domain take more than this is
 # held to the kernel on blocks of QUOTIENT_BLOCK rows (keccakf's 2,890
@@ -1891,6 +1933,7 @@ def stream_timing(vm, qrec: list) -> dict:
     STREAM_BUDGETS and 32, 64 and 128 threads a block, each budget's words
     held against plain on the first QUOTIENT_BLOCK rows; the segment's
     whole quotient call (both launches) and its shared launch alone;
+    a job of fewer rows than QUOTIENT_BLOCK is compared on all its rows;
     keccak_sponge's plain version, and keccakf's on one block of
     QUOTIENT_BLOCK rows; the column-major copy of keccakf's main LDE.  The
     bound reads the program's function: reloads, spills and fills cost
@@ -1919,8 +1962,8 @@ def stream_timing(vm, qrec: list) -> dict:
                 sweep[str(budget)] = f"does not compile: {e}"
                 continue
             got = qmod.evaluate(*brec)
-            err = max_abs_err(got[:QUOTIENT_BLOCK],
-                              qmod.evaluate_plain(*brec, 0, QUOTIENT_BLOCK))
+            block = min(QUOTIENT_BLOCK, 1 << (log_n + lqd))
+            err = max_abs_err(got[:block], qmod.evaluate_plain(*brec, 0, block))
             require(err == 0, f"{name} at budget {budget} differs from plain")
             del got
             row = {"instructions": int(brec[0].code.shape[0]), "reloads": brec[0].reloads,
@@ -2234,6 +2277,82 @@ def phase_ecrecover(dev, cfg: StarkConfig, err: dict) -> dict:
           "launches": er["launches"], "quotient": er["quotient"],
           "plain_checks": er["plain_checks"], "phase_s": time.perf_counter() - t0})
     return er["launches"]
+
+
+def run_pairing(dev, cfg: StarkConfig) -> dict:
+    """Path 9: the pairing guest's volatile VM proof (run_vm with the
+    default executors, BN254's modular and Fp2 chips), held to its counts,
+    its heights, its public values and its pinned proof; the host seconds
+    of the HintFinalExp phantoms (``PreflightResult.hint_s``); K7's two
+    launches (the extension programs streamed), the streamed launch alone
+    with its jobs and the shared one without it beside their bounds, and
+    every kernel against plain on the prove's own inputs."""
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    r = run_vm(dev, cfg, build_pairing_program(PAIRING_N, PAIRING_PAIRS), warm=False,
+               inputs=pairing_stream(PAIRING_N, PAIRING_PAIRS, PAIRING_SEED), **PAIRING_CONFIG)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches, vm, pre = r["launches"], r["vm"], r["pre"]
+    hint_s = pre.hint_s
+    require_one_prove(launches, "path 9")
+    counts = pairing_counts(PAIRING_N, PAIRING_PAIRS)
+    rows = {k: len(next(iter(v.values()))) for k, v in pre.records.items()}
+    got = {"insns": pre.instret, **{k: rows.get(k, 0) for k in counts if k != "insns"}}
+    require(pre.exit_code == 0 and got == counts and len(hint_s) == PAIRING_N,
+            f"path 9's guest: exit {pre.exit_code}, {got} against {counts}, "
+            f"{len(hint_s)} hints")
+    heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
+    require(all(heights[name] == 1 << lh for name, lh in PAIRING_LOG_HEIGHTS.items()),
+            f"path 9's heights: {heights}")
+    pvs = list(r["result"]["public_values"])
+    require(pvs == pairing_reference(PAIRING_N, PAIRING_PAIRS, PAIRING_SEED)
+            and pvs[:4] == list(PAIRING_N.to_bytes(4, "little")),
+            f"path 9's public values {pvs}")
+    blob = codec.encode_proof(r["proof"])
+    sha = hashlib.sha256(blob).hexdigest()
+    require(sha == PAIRING_PROOF_SHA256, f"path 9's proof sha {sha}")
+    qrec = r["record"]["quotient"]
+    both, alone, rest = quotient_split(vm, qrec, PAIRING_STREAMED, "path 9")
+    alone["jobs"] = {a.name: {"log_rows": q[2] + q[3], "instructions": int(q[0].code.shape[0])}
+                     for a, q in zip(vm.airs, qrec) if a.name in PAIRING_STREAMED}
+    alone["instruction_rows"] = sum(int(q[0].code.shape[0]) << (q[2] + q[3])
+                                    for a, q in zip(vm.airs, qrec)
+                                    if a.name in PAIRING_STREAMED)
+    quotient = {**both, "streamed_alone": alone, "without_streamed": rest}
+    tracegen_s = r["record"]["tracegen_s"]
+    r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
+             peak_gb=peak_gb, start_gb=start_gb, quotient=quotient, rows=rows, counts=counts,
+             hint_s=hint_s,
+             tracegen_s={k: tracegen_s[k] for k in ("fp2_muldiv_0", "fp2_addsub_0")},
+             plain_checks=check_vm_kernels(vm, r.pop("record")))
+    return r
+
+
+def phase_pairing(dev, cfg: StarkConfig, err: dict) -> dict:
+    """Path 9 (``run_pairing``) and its line; folds its plain checks into
+    ``err``.  Returns its launches."""
+    t0 = time.perf_counter()
+    pr = run_pairing(dev, cfg)
+    err.update({k: max(v, err.get(k, 0)) for k, v in pr["plain_checks"]["max"].items()})
+    insns, prove_s, c = pr["pre"].instret, pr["s"]["prove"], pr["counts"]
+    fp2_ops = c["fp2_addsub_0"] + c["fp2_muldiv_0"]
+    emit({"phase": "pairing", "guest": f"build_pairing_program({PAIRING_N}, {PAIRING_PAIRS})",
+          "seed": PAIRING_SEED, "executors": list(FULL_EXECUTORS),
+          "moduli": [hex(BN254_P)], "fp2": [hex(BN254_P)], "checks": PAIRING_N,
+          "pairs": PAIRING_PAIRS, "insns": insns, "counts": c, "rows": pr["rows"],
+          "heights": pr["heights"], "queries": cfg.fri.num_queries,
+          "pow_bits": cfg.fri.proof_of_work_bits, "s": pr["s"], "stage_s": pr["stages_s"],
+          "tracegen_s": pr["tracegen_s"], "hint_s": pr["hint_s"],
+          "insn_per_s_cold": insns / prove_s, "checks_per_s_cold": PAIRING_N / prove_s,
+          "fp2_ops_per_s_cold": fp2_ops / prove_s,
+          "verified": True, "public_values": pr["public_values"],
+          "proof_bytes": len(pr["blob"]), "proof_sha256": pr["sha"],
+          "peak_gb": pr["peak_gb"], "peak_above_start_gb": pr["peak_gb"] - pr["start_gb"],
+          "launches": pr["launches"], "quotient": pr["quotient"],
+          "plain_checks": pr["plain_checks"], "phase_s": time.perf_counter() - t0})
+    return pr["launches"]
 
 
 def tamper_poseidon2(vm, ctxs: list, device) -> list:
@@ -2754,6 +2873,8 @@ def run(dev: torch.device) -> int:
     u_launches = phase_u256(dev, cfg, err)
     # ---- path 8: ecrecover, the ECC chips and every RV32IM chip -------------
     e_launches = phase_ecrecover(dev, cfg, err)
+    # ---- path 9: BN254 pairing checks on the Fp2 chips ----------------------
+    b_launches = phase_pairing(dev, cfg, err)
     # the streamed launch's transpose, launched on paths 4-6 only: its row
     # from keccakf's main LDE on path 5
     tr = k_stream["transpose"]
@@ -2774,6 +2895,7 @@ def run(dev: torch.device) -> int:
     for k in kernels:
         k["launches_path5"], k["launches_path6"] = k_launches[k["name"]], s_launches[k["name"]]
         k["launches_path7"], k["launches_path8"] = u_launches[k["name"]], e_launches[k["name"]]
+        k["launches_path9"] = b_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err.get(k["name"], 0))
     next(k for k in kernels if k["name"] == "quotient")["stream_path5"] = k_stream
     print(setup["nvidia_smi"].splitlines()[0], flush=True)

@@ -26,11 +26,20 @@ below 2048 the words are the original's, instruction for instruction.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 import hashlib
+import heapq
+from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..pairing.curve import BN254, PairingCurveParams
+from ..pairing.final_exp import final_exp_hint, final_exp_product
+from ..pairing.miller import (g1_fracs, miller_add_step, miller_double_step,
+                              multi_miller_loop)
+from ..pairing.tower import F2_ONE, F2_ZERO, F12_ONE, Tower
 from .circuit.keccak import keccak256
 from .instructions import (BranchEqual256Opcode, BranchLessThan256Opcode,
                            Instruction, Program, VmExe)
@@ -977,3 +986,527 @@ def ecrecover_counts(n, seed=0):
     return {"insns": insns, "ec_add_ne": adds, "ec_double": doubles,
             "modular_muldiv_0": 3 * n, "modular_addsub_0": n + negs, "modular_iseq_0": n,
             "modular_muldiv_1": 3 * n, "modular_addsub_1": n, "keccak_blocks": n}
+
+
+# -- Fp2 and the pairing hint (tests/test_vm_fp2.py:19-63,
+# tests/test_pairing.py:138-194) ---------------------------------------------
+
+BN254_P = BN254.p
+# Fp2 base funct7s (reference ComplexExtFieldBaseFunct7)
+FP2_ADD_F7, FP2_SUB_F7, FP2_MUL_F7, FP2_DIV_F7, FP2_SETUP_F7 = range(5)
+
+FP2_A0 = 0x1234_5678_9ABC_DEF0_1111_2222_3333_4444_5555_6666_7777_8888_9999_AAAA_BBBB_CCCC % BN254_P
+FP2_A1 = 0x0FED_CBA9_8765_4321_AAAA_BBBB_CCCC_DDDD_EEEE_FFFF_0000_1111_2222_3333_4444_5555 % BN254_P
+FP2_B0 = 0x0101_0202_0303_0404_0505_0606_0707_0808_0909_0A0A_0B0B_0C0C_0D0D_0E0E_0F0F_1010 % BN254_P
+FP2_B1 = 0x1111_2222_0000_0001_0000_0000_0000_0000_0000_0000_0000_0000_0000_0000_0000_0007 % BN254_P
+FP2_PT_A, FP2_PT_B, FP2_PT_C = 0x200, 0x280, 0x300
+
+
+def fp2_r(base_f7, rd, rs1, rs2, fp2_idx=0):
+    return (((fp2_idx * 8 + base_f7) << 25) | (rs2 << 20) | (rs1 << 15)
+            | (0b010 << 12) | (rd << 7) | 0x2B)
+
+
+def build_fp2_program():
+    """a and b hinted into [FP2_PT_A] and [FP2_PT_B]; c = a + b, c = c * b,
+    c = c / b, c = c - b (so c = a) over BN254's prime after a SETUP (a
+    nop); reveals c's low word.  Input ``fp2_hint_input()``; executors alu,
+    loadstore, hintstore; ``fp2=(BN254_P,)``."""
+    words = [phantom_hint_input()]
+    words += [asm_i(0x13, 1, 0, FP2_PT_A, 0), hint_storew(1)]
+    for k in range(16):
+        words += [asm_i(0x13, 1, 0, FP2_PT_A + 4 * k, 0), hint_storew(1)]
+    for k in range(16):
+        words += [asm_i(0x13, 1, 0, FP2_PT_B + 4 * k, 0), hint_storew(1)]
+    return _program(words + [
+        asm_i(0x13, 1, 0, FP2_PT_A, 0),
+        asm_i(0x13, 2, 0, FP2_PT_B, 0),
+        asm_i(0x13, 3, 0, FP2_PT_C, 0),
+        fp2_r(FP2_SETUP_F7, 3, 1, 2),    # setup -> nop
+        fp2_r(FP2_ADD_F7, 3, 1, 2),      # c = a + b
+        fp2_r(FP2_MUL_F7, 3, 3, 2),      # c = (a+b) * b
+        fp2_r(FP2_DIV_F7, 3, 3, 2),      # c = c / b = a + b
+        fp2_r(FP2_SUB_F7, 3, 3, 2),      # c = c - b = a
+        asm_i(0x03, 6, 3, 0, 2),
+        reveal(6, 0, 0),
+        TERMINATE,
+    ])
+
+
+def fp2_hint_input():
+    blob = (FP2_A0.to_bytes(32, "little") + FP2_A1.to_bytes(32, "little")
+            + FP2_B0.to_bytes(32, "little") + FP2_B1.to_bytes(32, "little"))
+    return [list(blob)]
+
+
+PH_BUF = 0x400     # hinted P||Q bytes land here
+PH_DESC_P = 0x600  # (p_ptr, p_len)
+PH_DESC_Q = 0x608  # (q_ptr, q_len)
+PH_OUT = 0x700     # hint readback (768 bytes for BN254)
+
+
+def pairing_hint_insn(rs1, rs2, pairing_idx=0):
+    """The HintFinalExp phantom over the descriptors at [rs1] and [rs2]."""
+    return ((pairing_idx * 16) << 25) | (rs2 << 20) | (rs1 << 15) \
+        | (0b011 << 12) | 0x2B
+
+
+def build_pairing_hint_program(n_points=2):
+    """n_points BN254 pairs hinted into [PH_BUF] with one HINT_BUFFER, their
+    descriptors written, HintFinalExp issued, its (c, u) read back into
+    [PH_OUT] with another; reveals c's low word.  Input
+    ``pairing_hint_stream()``; executors alu, loadstore, hintstore."""
+    n = BN254.num_limbs
+    p_bytes = n_points * 2 * n
+    q_bytes = n_points * 4 * n
+    hint_words = 2 * 12 * n // 4  # c + u
+    return _program([
+        phantom_hint_input(),
+        asm_i(0x13, 1, 0, PH_BUF - 4, 0),        # x1 = PH_BUF-4 (len header)
+        asm_i(0x13, 2, 0, (p_bytes + q_bytes + 4) // 4, 0),
+        hint_buffer(1, 2),                       # read len + P||Q
+        # descriptors
+        asm_i(0x13, 3, 0, PH_BUF, 0),            # p_ptr
+        asm_i(0x13, 4, 0, n_points, 0),          # p_len (count)
+        asm_i(0x13, 10, 0, PH_DESC_P, 0),
+        asm_s(2, 10, 3, 0),                      # sw x3, 0(x10)
+        asm_s(2, 10, 4, 4),                      # sw x4, 4(x10)
+        asm_i(0x13, 3, 0, PH_BUF + p_bytes, 0),  # q_ptr
+        asm_i(0x13, 11, 0, PH_DESC_Q, 0),
+        asm_s(2, 11, 3, 0),
+        asm_s(2, 11, 4, 4),
+        pairing_hint_insn(10, 11, pairing_idx=0),
+        # read the hint back into PH_OUT
+        asm_i(0x13, 1, 0, PH_OUT, 0),
+        asm_i(0x13, 2, 0, hint_words, 0),
+        hint_buffer(1, 2),
+        asm_i(0x03, 8, 1, 0, 2),                 # lw x8, 0(PH_OUT)
+        reveal(8, 0, 0),
+        TERMINATE,
+    ])
+
+
+def g1_neg(p):
+    return (p[0], (-p[1]) % BN254_P)
+
+
+def pairing_bytes(ps, qs) -> bytes:
+    """The descriptors' layout: each P's x || y, then each Q's x0 || x1 ||
+    y0 || y1, 32 bytes little-endian apiece."""
+    out = b"".join(x.to_bytes(32, "little") + y.to_bytes(32, "little") for x, y in ps)
+    return out + b"".join(c.to_bytes(32, "little") for q in qs for xy in q for c in xy)
+
+
+def pairing_hint_stream():
+    """``build_pairing_hint_program()``'s input: (G1, -G1) and (G2, G2)."""
+    return [list(pairing_bytes([BN254.g1, g1_neg(BN254.g1)], [BN254.g2, BN254.g2]))]
+
+
+# -- the pairing guest ---------------------------------------------------------
+
+# The guest's heap: 64-byte slots from PG_REGION (the hinted pairs at
+# PG_IN, the hint's c and u, the descriptors and the public-value
+# accumulators, then G1's fractions, the constants and the value pool).
+# A pointer reaches its slot by one addi from a base register: base k
+# holds PG_REGION + 2048 + 4096 k.
+PG_REGION = 0x10000
+PG_IN = PG_REGION + 64
+PG_REGS = {"n": 8, "held": 9, "eq": 5, "all": 6, "tmp": 7}
+PG_PTR_REGS = tuple(range(10, 28))   # the pointer cache, least recently used first out
+PG_BASE_REGS = (28, 29, 30, 31)
+PG_PV_WORDS = 7  # public values after the count: the XOR of c's first seven Fp words
+
+
+class _Val:
+    """A value of the recording tower: an Fp2 element in a 64-byte slot."""
+
+    __slots__ = ("n",)
+
+    def __init__(self, n):
+        self.n = n
+
+
+class _Body:
+    """The pairing guest's Fp2 ops as the recording tower makes them: each
+    value numbered, as an input or constant slot or the output of one op
+    ("add", "sub", "mul", "div" on the Fp2 chips; "conj" on the modular
+    ones)."""
+
+    def __init__(self):
+        self.slots = {}    # value -> fixed address (inputs and fractions)
+        self.consts = {}   # (c0, c1) -> value
+        self.ops = []      # (name, out, a, b)
+        self.count = 0
+
+    def fixed(self, addr):
+        v = _Val(self.count)
+        self.count += 1
+        self.slots[v.n] = addr
+        return v
+
+    def ref(self, x):
+        if isinstance(x, _Val):
+            return x.n
+        key = (x[0] % BN254_P, x[1] % BN254_P)
+        if key not in self.consts:
+            self.consts[key] = self.count
+            self.count += 1
+        return self.consts[key]
+
+    def op(self, name, a, b=None):
+        out = _Val(self.count)
+        self.count += 1
+        self.ops.append((name, out.n, self.ref(a), None if b is None else self.ref(b)))
+        return out
+
+
+@dataclass(frozen=True)
+class _RecordingTower(Tower):
+    """``Tower`` whose Fp2 ops on ``_Val``s append ops to ``body``; on
+    constants they compute as ``Tower``'s do.  Adds of zero and products
+    by zero or one make no op."""
+
+    body: object = field(default=None, compare=False, hash=False)
+
+    def _is(self, x, v):
+        return isinstance(x, tuple) and (x[0] % self.p, x[1] % self.p) == v
+
+    def f2_add(self, a, b):
+        if isinstance(a, tuple) and isinstance(b, tuple):
+            return super().f2_add(a, b)
+        if self._is(a, F2_ZERO):
+            return b
+        return a if self._is(b, F2_ZERO) else self.body.op("add", a, b)
+
+    def f2_sub(self, a, b):
+        if isinstance(a, tuple) and isinstance(b, tuple):
+            return super().f2_sub(a, b)
+        return a if self._is(b, F2_ZERO) else self.body.op("sub", a, b)
+
+    def f2_neg(self, a):
+        return super().f2_neg(a) if isinstance(a, tuple) else self.body.op("sub", F2_ZERO, a)
+
+    def f2_mul(self, a, b):
+        if isinstance(a, tuple) and isinstance(b, tuple):
+            return super().f2_mul(a, b)
+        if self._is(a, F2_ZERO) or self._is(b, F2_ZERO):
+            return F2_ZERO
+        if self._is(a, F2_ONE):
+            return b
+        return a if self._is(b, F2_ONE) else self.body.op("mul", a, b)
+
+    def f2_sq(self, a):
+        return super().f2_sq(a) if isinstance(a, tuple) else self.body.op("mul", a, a)
+
+    def f2_smul(self, a, k):
+        return super().f2_smul(a, k) if isinstance(a, tuple) else self.f2_mul(a, (k, 0))
+
+    def f2_conj(self, a):
+        return super().f2_conj(a) if isinstance(a, tuple) else self.body.op("conj", a)
+
+    def f2_inv(self, a):
+        return super().f2_inv(a) if isinstance(a, tuple) else self.body.op("div", F2_ONE, a)
+
+    def f2_embed(self, x):
+        # a fraction's slot already holds (x, 0)
+        return x if isinstance(x, _Val) else super().f2_embed(x)
+
+
+@dataclass(frozen=True)
+class _RecordingCurve(PairingCurveParams):
+    """A curve's parameters whose ``tower`` is a ``_RecordingTower`` that
+    appends to ``body``."""
+
+    body: object = field(default=None, compare=False, hash=False)
+
+    @functools.cached_property
+    def tower(self) -> Tower:
+        return _RecordingTower(self.p, self.xi, body=self.body)
+
+
+def _slot(k):
+    return PG_REGION + 64 * k
+
+
+@functools.lru_cache(maxsize=None)
+def _pairing_plan(pairs):
+    """The pairing guest's straight-line check, its slots and op counts:
+    ``final_exp_product`` run over the recording tower on the hinted
+    pairs, c and u, then dead ops dropped and each op's output given the
+    lowest pool slot free at that op (its operands freed first when it is
+    their last use, so that an op may write over its input)."""
+    if pairs < 1:
+        raise ValueError("at least one pair")
+    body = _Body()
+    out_slot = 1 + 3 * pairs                  # slot 0 ends in the length header
+    ps = [(_slot(1 + k), _slot(1 + k) + 32) for k in range(pairs)]
+    qs = [(body.fixed(_slot(1 + pairs + 2 * k)), body.fixed(_slot(2 + pairs + 2 * k)))
+          for k in range(pairs)]
+    c = tuple(body.fixed(_slot(out_slot + k)) for k in range(6))
+    u = tuple(body.fixed(_slot(out_slot + 6 + k)) for k in range(6))
+    misc = out_slot + 12                      # descriptors, then the accumulators
+    fracs_at = misc + 1
+    fracs = [(body.fixed(_slot(fracs_at + 2 * k)), body.fixed(_slot(fracs_at + 2 * k + 1)))
+             for k in range(pairs)]
+    cv = _RecordingCurve(**{f.name: getattr(BN254, f.name)
+                            for f in dataclasses.fields(BN254)}, body=body)
+    product = final_exp_product(cv, c, u, fracs, qs)
+    body.ref(F2_ZERO), body.ref(F2_ONE)       # the check's and the conjugates' operands
+    outs = [body.ref(x) for x in product]
+    # constants after the fractions, the pool after the constants
+    const_at = fracs_at + 2 * pairs
+    for k, (value, n) in enumerate(sorted(body.consts.items(), key=lambda kv: kv[1])):
+        body.slots[n] = _slot(const_at + k)
+    pool_at = const_at + len(body.consts)
+    needed = {n for n in outs if n not in body.slots}
+    kept = []
+    for op in reversed(body.ops):
+        if op[1] in needed:
+            kept.append(op)
+            needed.update(x for x in op[2:] if x is not None and x not in body.slots)
+    kept.reverse()
+    last = {}
+    for i, (_, _, a, b) in enumerate(kept):
+        last[a] = last[b] = i
+    for n in outs:
+        last[n] = len(kept)
+    free, top, slots = [], pool_at, dict(body.slots)
+    for i, (_, out, a, b) in enumerate(kept):
+        for x in {a, b}:
+            if x is not None and x not in body.slots and last[x] == i:
+                heapq.heappush(free, slots[x])
+        if free:
+            slots[out] = heapq.heappop(free)
+        else:
+            slots[out], top = _slot(top), top + 1
+    names = [op[0] for op in kept]
+    return {"ops": [(name, slots[out], slots[a], None if b is None else slots[b])
+                    for name, out, a, b in kept],
+            "outs": [slots[n] for n in outs], "ps": ps,
+            "fracs": [(slots[x.n], slots[y.n]) for x, y in fracs],
+            "desc": _slot(misc), "acc": _slot(misc) + 16, "out": _slot(out_slot),
+            "zero": slots[body.consts[F2_ZERO]], "one": slots[body.consts[F2_ONE]],
+            "consts": {slots[n]: value for value, n in body.consts.items()},
+            "end": _slot(top), "counts": {k: names.count(k) for k in
+                                          ("add", "sub", "mul", "div", "conj")}}
+
+
+class _PtrCache:
+    """Pointer registers: an address in a register is used again; one that
+    is not gets the least recently used register not named by the same
+    instruction, set by one addi from its base register."""
+
+    def __init__(self, a):
+        self.a, self.regs = a, collections.OrderedDict()
+
+    def get(self, addrs):
+        out, pinned = [], set()
+        for addr in addrs:
+            reg = self.regs.get(addr)
+            if reg is None:
+                free = [r for r in PG_PTR_REGS if r not in self.regs.values()]
+                if free:
+                    reg = free[0]
+                else:
+                    old = next(x for x, r in self.regs.items() if r not in pinned)
+                    reg = self.regs.pop(old)
+                self.a.emit(asm_i(0x13, reg, *_base_off(addr), 0))
+            else:
+                self.regs.pop(addr)
+            self.regs[addr] = reg
+            pinned.add(reg)
+            out.append(reg)
+        return out
+
+
+def _base_off(addr):
+    """(base register, offset) that reach the heap address ``addr``."""
+    k = (addr - PG_REGION) // 4096
+    return PG_BASE_REGS[k], addr - (PG_REGION + 2048 + 4096 * k)
+
+
+def pairing_asm(n, pairs=4):
+    """The pairing guest's words and labels (``build_pairing_program``)."""
+    if n < 1:
+        raise ValueError("at least one check")
+    plan = _pairing_plan(pairs)
+    if plan["end"] - PG_REGION > 4096 * len(PG_BASE_REGS):
+        raise ValueError(f"the guest's heap passes its base registers: {plan['end']:#x}")
+    r = PG_REGS
+    a = _Asm()
+    for k, reg in enumerate(PG_BASE_REGS):
+        a.emit(*_imm32(reg, PG_REGION + 2048 + 4096 * k))
+    for addr, value in sorted(plan["consts"].items()):
+        for w in range(16):
+            word = (value[w // 8] >> (32 * (w % 8))) & 0xFFFFFFFF
+            if word:
+                base, off = _base_off(addr + 4 * w)
+                a.emit(*_imm32(r["tmp"], word), asm_s(2, base, r["tmp"], off))
+    # the descriptors: (P's pointer, pairs), (Q's pointer, pairs)
+    for off, value in ((0, PG_IN), (4, pairs), (8, PG_IN + 64 * pairs), (12, pairs)):
+        base, imm = _base_off(plan["desc"] + off)
+        a.emit(*_imm32(r["tmp"], value), asm_s(2, base, r["tmp"], imm))
+    a.emit(*load_imm(r["n"], n), asm_i(0x13, r["held"], 0, 0, 0))
+    a.label("loop")
+    a.emit(phantom_hint_input(), asm_i(0x13, 1, *_base_off(PG_IN - 4), 0),
+           asm_i(0x13, 2, 0, 1 + 48 * pairs, 0), hint_buffer(1, 2),
+           asm_i(0x13, 3, *_base_off(plan["desc"]), 0),
+           asm_i(0x13, 4, *_base_off(plan["desc"] + 8), 0), pairing_hint_insn(3, 4),
+           asm_i(0x13, 1, *_base_off(plan["out"]), 0), asm_i(0x13, 2, 0, 192, 0),
+           hint_buffer(1, 2))
+    cache = _PtrCache(a)
+    one = plan["one"]
+    for (xy, yi), (px, py) in zip(plan["fracs"], plan["ps"]):
+        a.emit(modular_r(DIV_F7, *cache.get([xy, px, py])))
+        a.emit(modular_r(DIV_F7, *cache.get([yi, one, py])))
+    f7 = {"add": FP2_ADD_F7, "sub": FP2_SUB_F7, "mul": FP2_MUL_F7, "div": FP2_DIV_F7}
+    zero = plan["zero"]
+    for name, out, x, y in plan["ops"]:
+        if name == "conj":
+            a.emit(modular_r(ADD_F7, *cache.get([out, x, zero])),
+                   modular_r(SUB_F7, *cache.get([out + 32, zero, x + 32])))
+        else:
+            a.emit(fp2_r(f7[name], *cache.get([out, x, y])))
+    # held when the product's 12 Fp words equal one's: IS_EQ, whose inputs
+    # must be reduced
+    a.emit(asm_i(0x13, r["all"], 0, 1, 0))
+    for k, addr in enumerate(plan["outs"]):
+        for h in (0, 32):
+            want = one if (k, h) == (0, 0) else zero
+            x, w = cache.get([addr + h, want])
+            a.emit(modular_r(ISEQ_F7, r["eq"], x, w), asm_r(0x33, r["all"], r["all"], r["eq"], 7, 0))
+    a.emit(asm_r(0x33, r["held"], r["held"], r["all"], 0, 0))
+    for k in range(PG_PV_WORDS):                          # XOR of c's words
+        acc, c_word = _base_off(plan["acc"] + 4 * k), _base_off(plan["out"] + 32 * k)
+        a.emit(asm_i(0x03, r["eq"], *acc, 2), asm_i(0x03, r["tmp"], *c_word, 2),
+               asm_r(0x33, r["eq"], r["eq"], r["tmp"], 4, 0), asm_s(2, acc[0], r["eq"], acc[1]))
+    a.emit(asm_i(0x13, r["n"], r["n"], -1, 0))
+    a.branch(0, r["n"], 0, "end")
+    a.label("back")
+    a.jal(0, "loop")
+    a.label("end")
+    a.emit(reveal(r["held"], 0, 0))
+    for k in range(PG_PV_WORDS):
+        a.emit(asm_i(0x03, r["eq"], *_base_off(plan["acc"] + 4 * k), 2),
+               reveal(r["eq"], 0, 4 + 4 * k))
+    a.label("terminate")
+    a.emit(TERMINATE)
+    return a.resolve(), a.labels
+
+
+def build_pairing_program(n, pairs=4):
+    """BN254 pairing checks, the Miller loop and residue check of
+    ``assert_final_exp_is_one``, over n inputs of ``pairs`` finite, valid
+    pairs each (``pairing_stream``), every check in the VM.  It is not
+    EIP-197's ecPairing: there are no on-curve or subgroup checks and no
+    points at infinity (a P with y = 0 ends in a modular DIV's
+    ExecutionError).  An input's pairs are read
+    with one HINT_BUFFER; the HintFinalExp phantom gives the residue
+    witness (c, u), read back with another; each P's x/y and 1/y come from
+    modular DIVs over p into slots whose high half is zero (Fp2's
+    embedding); then ``final_exp_product``'s arithmetic, recorded once over
+    the Fp2 ops and emitted as one straight-line body of Fp2 instructions
+    (the conjugates as a modular ADD and SUB) over reused heap slots, each
+    pointer from the pointer cache; the check holds when IS_EQ finds the
+    product's 12 Fp words equal to one's.  The body runs once an input in a
+    loop.  Reveals the number of checks held and the XOR over inputs of the
+    low words of c's first seven Fp coefficients (``pairing_reference``).
+    Config: the default executors, ``moduli=(BN254_P,)``,
+    ``fp2=(BN254_P,)``."""
+    return _program(pairing_asm(n, pairs)[0])
+
+
+def _g1_add(p1, p2):
+    """Affine addition on BN254's G1 (y^2 = x^3 + 3), None at infinity."""
+    if p1 is None:
+        return p2
+    if p2 is None:
+        return p1
+    (x1, y1), (x2, y2) = p1, p2
+    p = BN254_P
+    if x1 == x2:
+        if (y1 + y2) % p == 0:
+            return None
+        lam = 3 * x1 * x1 * pow(2 * y1, -1, p) % p
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, p) % p
+    x3 = (lam * lam - x1 - x2) % p
+    return x3, (lam * (x1 - x3) - y1) % p
+
+
+def _g2_mul(k, q):
+    """k Q on the twist by double-and-add, from the Miller loop's steps."""
+    acc = None
+    for bit in bin(k)[2:]:
+        if acc is not None:
+            acc = miller_double_step(BN254, acc)[0]
+        if bit == "1":
+            acc = q if acc is None else miller_add_step(BN254, acc, q)[0]
+    return acc
+
+
+def _g1_mul(k, pt):
+    acc = None
+    while k:
+        if k & 1:
+            acc = _g1_add(acc, pt)
+        pt = _g1_add(pt, pt)
+        k >>= 1
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def pairing_inputs(n, pairs=4, seed=0):
+    """n inputs of ``pairs`` (P, Q) each, every input from its own seed:
+    P_i = a_i G1 and Q_i = b_i G2 for i < pairs - 1, then
+    P = -(sum a_i b_i) G1 and Q = G2, so that every check holds."""
+    if pairs < 2:
+        raise ValueError("a check that holds needs two pairs or more")
+    r = BN254.r
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng([seed, i])
+        while True:
+            ab = [(int.from_bytes(rng.bytes(32), "big") % r,
+                   int.from_bytes(rng.bytes(32), "big") % r) for _ in range(pairs - 1)]
+            s = sum(x * y for x, y in ab) % r
+            if s and all(x and y for x, y in ab):
+                break
+        ps = [_g1_mul(x, BN254.g1) for x, _ in ab] + [_g1_mul(r - s, BN254.g1)]
+        qs = [_g2_mul(y, BN254.g2) for _, y in ab] + [BN254.g2]
+        out.append((tuple(ps), tuple(qs)))
+    return tuple(out)
+
+
+def pairing_stream(n, pairs=4, seed=0):
+    """The guest's inputs: an input's P's then Q's (``pairing_bytes``)."""
+    return [list(pairing_bytes(ps, qs)) for ps, qs in pairing_inputs(n, pairs, seed)]
+
+
+@functools.lru_cache(maxsize=None)
+def pairing_reference(n, pairs=4, seed=0):
+    """The 32 public-value bytes from the host library: the number of
+    inputs whose residue check holds (the Miller loop, the hint (c, u),
+    ``final_exp_product`` against one) and the XOR over inputs of the low
+    words of c's first seven Fp coefficients."""
+    held, xor = 0, [0] * PG_PV_WORDS
+    for ps, qs in pairing_inputs(n, pairs, seed):
+        c, u = final_exp_hint(BN254, multi_miller_loop(BN254, ps, qs))
+        held += final_exp_product(BN254, c, u, g1_fracs(BN254, ps), qs) == F12_ONE
+        cb = BN254.tower.f12_to_bytes(c, 32)
+        for k in range(PG_PV_WORDS):
+            xor[k] ^= int.from_bytes(cb[32 * k:32 * k + 4], "little")
+    return list(b"".join(v.to_bytes(4, "little") for v in [held, *xor]))
+
+
+def pairing_counts(n, pairs=4):
+    """Instructions the guest runs (its label distances; the body is
+    straight-line), and the rows of each Fp2 and modular chip."""
+    _, lab = pairing_asm(n, pairs)
+    ops = _pairing_plan(pairs)["counts"]
+    insns = lab["loop"] + n * (lab["back"] - lab["loop"]) + (n - 1) \
+        + (lab["terminate"] - lab["end"])
+    return {"insns": insns, "fp2_addsub_0": n * (ops["add"] + ops["sub"]),
+            "fp2_muldiv_0": n * (ops["mul"] + ops["div"]),
+            "modular_addsub_0": n * 2 * ops["conj"], "modular_muldiv_0": n * 2 * pairs,
+            "modular_iseq_0": n * 12}

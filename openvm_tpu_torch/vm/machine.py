@@ -2,12 +2,13 @@
 
 Port of openvm_tpu/vm/machine.py for the volatile- and persistent-memory
 configurations: ``Rv32Config`` (with ``bigint``, ``moduli``, ``curves``,
-``keccak``, ``sha256`` and ``persistent``) and ``VirtualMachine`` (:44-96,
+``fp2``, ``keccak``, ``sha256`` and ``persistent``) and ``VirtualMachine`` (:44-96,
 :98-119 the int256, keccak and sha256 AIRs and executor names, :135-193 with the
 executors appended at :168-176, int256 before keccak and sha256, the
-modular AIRs after RangeTupleCheckerAir :182-185 and the ECC AIRs after
-them :186-188, the persistent system AIRs :150-158), ``_interp`` with the
-moduli and curves (:236-240), ``keygen``
+modular AIRs after RangeTupleCheckerAir :182-185, the ECC AIRs after
+them :186-188 and the Fp2 AIRs after those :189-191, the persistent system
+AIRs :150-158), ``_interp`` with the moduli, curves and Fp2 moduli
+(:236-240), ``keygen``
 without the disk cache (:195), ``commit_exe`` (:211) on the port's ``ntt``
 and ``merkle``, ``_segment_ctx`` (:242), ``execute_metered`` (:279),
 ``_initial_tree`` (:305), ``_persistent_traces`` (:316), ``prove``
@@ -19,7 +20,7 @@ interpreter's columns mode), the continuations ``_segment_sweep`` (:663),
 ``segment_height_profile`` (:698), ``prove_continuations`` (:718) and
 ``verify_segments`` (:745), ``verify`` (:790-833, the persistent branch
 :819-826) and ``commit_init_memory`` (:834).  The native (recursion) VM
-and the Fp2 and pairing chips are later slices of the port.
+is a later slice of the port.
 
 Every trace goes to the device once, as Montgomery words: the histograms
 read the executor traces there, and the prover takes the same tensors.
@@ -60,6 +61,7 @@ from .circuit.system import (BitwiseLookupAir, ConnectorAir, PhantomAir,
                              connector_trace, program_cached_trace)
 from .circuit.bigint import INT256_AIRS
 from .circuit.ecc import ecc_airs
+from .circuit.fp2 import fp2_airs
 from .circuit.keccak import KECCAK_AIRS
 from .circuit.merkle_chip import MemoryMerkleAir
 from .circuit.modular import modular_airs
@@ -103,6 +105,8 @@ class Rv32Config:
     # ECC extension: (modulus, a_coeff) per short-Weierstrass curve
     # (reference WeierstrassExtension{supported_curves}, SURVEY.md 2.10)
     curves: tuple = ()
+    # Fp2 (complex extension field) moduli (reference Fp2Extension)
+    fp2: tuple = ()
     # persistent memory: Merkle-committed memory state (continuations mode,
     # reference SystemConfig.continuation_enabled)
     persistent: bool = False
@@ -172,6 +176,8 @@ class VirtualMachine:
             self.airs += list(modular_airs(self.config.moduli).values())
         if self.config.curves:
             self.airs += list(ecc_airs(self.config.curves).values())
+        if self.config.fp2:
+            self.airs += list(fp2_airs(self.config.fp2).values())
         self.air_index = {a.name: i for i, a in enumerate(self.airs)}
         self.pk = None
 
@@ -192,7 +198,8 @@ class VirtualMachine:
     def _interp(self, exe: VmExe) -> PreflightInterpreter:
         return PreflightInterpreter(exe, self.config.num_pv_words,
                                     moduli=self.config.moduli,
-                                    curves=self.config.curves)
+                                    curves=self.config.curves,
+                                    fp2=self.config.fp2)
 
     def _segment_ctx(self, nvm, limits: dict | None = None) -> SegmentCtx:
         """Install metered segmentation thresholds on the handle and build

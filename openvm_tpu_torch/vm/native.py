@@ -117,6 +117,8 @@ PREFLIGHT_LAYOUTS = [
 ]
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
+# the most words NativeMemShim.read_block and write_block move in a call
+BLOCK_WORDS = 16
 
 
 def load_preflight_library():
@@ -176,6 +178,10 @@ class NativeMemShim:
         self._words = np.zeros(5, dtype=np.int64)  # wa, now, val, pts, prev
         self._ptrs = [ctypes.cast(self._words.ctypes.data + 8 * k, _I64P)
                       for k in range(5)]
+        # a block's words in one call: (wa, now, val, pts, prev) rows
+        self._block = np.zeros((5, BLOCK_WORDS), dtype=np.int64)
+        self._block_ptrs = [ctypes.cast(self._block[k].ctypes.data, _I64P)
+                            for k in range(5)]
 
     def read(self, a_s, wa, now_ts):
         w, (p_wa, p_now, p_val, p_pts, _) = self._words, self._ptrs
@@ -199,6 +205,32 @@ class NativeMemShim:
         v = int(w[4])
         return [v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF,
                 (v >> 24) & 0xFF], int(w[3])
+
+    def read_block(self, a_s, wa, n, ts0):
+        """``read`` of the n words from wa at timestamps ts0, ts0 + 1, ...
+        in one call: (their 4n bytes, their previous timestamps)."""
+        blk, (p_wa, p_now, p_val, p_pts, _) = self._block, self._block_ptrs
+        blk[0, :n] = np.arange(wa, wa + n)
+        blk[1, :n] = np.arange(ts0, ts0 + n)
+        self.nvm.lib.pf_vm_read_words(self.nvm.h, a_s, p_wa, p_now, n, p_val, p_pts)
+        self.nvm.check_mem_error()
+        return (list(blk[2, :n].astype("<u4").tobytes()),
+                blk[3, :n].tolist())
+
+    def write_block(self, a_s, wa, data, ts0):
+        """``write`` of len(data) / 4 words from wa at timestamps ts0,
+        ts0 + 1, ... in one call: (the bytes they held, their previous
+        timestamps)."""
+        n = len(data) // 4
+        blk, (p_wa, p_now, p_val, p_pts, p_prev) = self._block, self._block_ptrs
+        blk[0, :n] = np.arange(wa, wa + n)
+        blk[1, :n] = np.arange(ts0, ts0 + n)
+        blk[2, :n] = np.frombuffer(bytes(data), dtype="<u4")
+        self.nvm.lib.pf_vm_write_words(self.nvm.h, a_s, p_wa, p_val, p_now, n,
+                                       p_prev, p_pts)
+        self.nvm.check_mem_error()
+        return (list(blk[4, :n].astype("<u4").tobytes()),
+                blk[3, :n].tolist())
 
     def _get(self, key):
         # peek without bus access (used for partial-store current words)

@@ -1,14 +1,19 @@
 """Preflight (E3) execution: the record-generating interpreter, RV32IM,
-int256, modular arithmetic, short-Weierstrass ECC, keccak256 and sha256.
+int256, modular arithmetic, short-Weierstrass ECC, Fp2, keccak256, sha256
+and the pairing hint.
 
 Copy of openvm_tpu/vm/preflight.py:45-510 (records, memory, the RV32IM
 dispatch loop), :511-613 (the int256 handler), :614-697 (the modular
 handler, taken only when the config has moduli, as the JAX package's
 guard takes it), :698-778 (the EC_ADD_NE and EC_DOUBLE handler, taken only
 for a configured curve, its record layouts and ExecutionErrors unchanged),
+:779-843 (the Fp2 ADD/SUB/MUL/DIV handler, taken only for a configured
+Fp2 modulus, its record layouts and ExecutionErrors unchanged),
 :1199-1364 (the KECCAK256 and SHA256 handlers, their
-record layouts unchanged), :1365-1476 (phantom with the HINT_NON_QR and
-HINT_SQRT phantoms :1415-1430, terminate, finalize) and the continuation
+record layouts unchanged), :1365-1476 (phantom with the HintFinalExp
+phantom :1401-1414, whose reads of guest registers and memory are peeks
+without bus accesses, the HINT_NON_QR and HINT_SQRT phantoms
+:1415-1430, terminate, finalize) and the continuation
 half: ``PreflightResult.suspended_state`` and ``segment_full``,
 ``SegmentCtx`` (:46-70), ``PreflightMemory(initial_words=...)`` (:72-86),
 the resume and ``py_stats`` logic of ``execute`` (:133-200), its
@@ -16,10 +21,10 @@ the resume and ``py_stats`` logic of ``execute`` (:133-200), its
 (:1440-1476).  With a
 ``native.NativeVmHandle`` the C++ core (csrc/host/preflight.cpp) runs the
 RV32IM instruction runs and this loop dispatches what it yields on.  The
-opcodes of the native and Fp2 extensions and the native and pairing
-phantoms raise NotImplementedError: their chips are a later slice of the
-port.  A modular or ECC opcode in a config without its modulus or curve
-ends as in the JAX package, in an ExecutionError.
+opcodes of the native extension and the native phantoms raise
+NotImplementedError: their chips are a later slice of the port.  A
+modular, ECC or Fp2 opcode in a config without its modulus or curve ends
+as in the JAX package, in an ExecutionError.
 
 Timestamp discipline mirrors the AIRs exactly: each instruction starts at
 `ts` and performs its accesses at fixed ticks (slot k at ts+k), advancing
@@ -28,6 +33,7 @@ Timestamp discipline mirrors the AIRs exactly: each instruction starts at
 
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
@@ -36,6 +42,12 @@ import numpy as np
 from .circuit import buses as B
 from .circuit.ecc import (EC_ADD_NE, EC_DOUBLE, SW_BASE, SW_KINDS,
                           _lambda_add, _lambda_double)
+from .circuit.fp2 import ADD as F2ADD
+from .circuit.fp2 import DIV as F2DIV
+from .circuit.fp2 import FP2_BASE, FP2_KINDS
+from .circuit.fp2 import MUL as F2MUL
+from .circuit.fp2 import SUB as F2SUB
+from .circuit.fp2 import fp2_div, fp2_mul
 from .circuit.keccak import RATE_BYTES, TS_PER_BLOCK, W_WINDOW, keccak_f
 from .circuit.sha256 import BLOCK_BYTES as SB
 from .circuit.sha256 import BLOCK_WORDS as SW
@@ -47,7 +59,7 @@ from .instructions import (BaseAlu256Opcode, BaseAluOpcode,
                            BranchLessThan256Opcode, BranchLessThanOpcode,
                            DivRemOpcode, LessThan256Opcode, LessThanOpcode,
                            ModularPhantom, Mul256Opcode, MulHOpcode,
-                           MulOpcode, P, Rv32AuipcOpcode,
+                           MulOpcode, P, PairingPhantom, Rv32AuipcOpcode,
                            Rv32HintStoreOpcode, Rv32JalLuiOpcode,
                            Rv32JalrOpcode, Rv32KeccakOpcode,
                            Rv32LoadStoreOpcode, Rv32Phantom,
@@ -55,19 +67,20 @@ from .instructions import (BaseAlu256Opcode, BaseAluOpcode,
                            SystemOpcode, VmExe)
 from .interpreter import ExecutionError, Streams, _imm16, _imm24, _s32
 from .native import PF_INSN_LIMIT, PF_MEM_ERROR, PF_SEGMENT_FULL
+from ..pairing.final_exp import hint_final_exp_bytes
 
 M32 = 0xFFFFFFFF
 
 
 def _is_extension(op: int) -> bool:
-    """Native (0x100-0x1ff) and Fp2 (0x710-) opcodes (instructions.py): a
-    later slice of the port."""
-    return 0x100 <= op < 0x200 or op >= 0x710
+    """Native opcodes (0x100-0x1ff, instructions.py): a later slice of the
+    port."""
+    return 0x100 <= op < 0x200
 
 
-# NativePhantom (0x10-0x14), PairingPhantom (0x30): extension phantoms
+# NativePhantom (0x10-0x14): the native extension's phantoms
 # (instructions.py).
-_EXTENSION_PHANTOMS = frozenset(range(0x10, 0x15)) | {0x30}
+_EXTENSION_PHANTOMS = frozenset(range(0x10, 0x15))
 
 
 @dataclass
@@ -86,6 +99,8 @@ class PreflightResult:
     # persistent memory: the SparseMemoryTree after this segment's writes
     # (set by VirtualMachine's persistent tracegen)
     final_memory_tree: object = None
+    # the host seconds of each HintFinalExp phantom, in execution order
+    hint_s: list = field(default_factory=list)
 
 
 @dataclass
@@ -143,6 +158,26 @@ class PreflightMemory:
         read-modify-write window words for unaligned digest stores)."""
         return list(self._get((a_s, wa))[:4])
 
+    def read_block(self, a_s, wa, n, ts0):
+        """``read`` of the n words from wa at timestamps ts0, ts0 + 1, ...:
+        (their 4n bytes, their previous timestamps)."""
+        data, pts = [], []
+        for k in range(n):
+            d, p = self.read(a_s, wa + k, ts0 + k)
+            data.extend(d)
+            pts.append(p)
+        return data, pts
+
+    def write_block(self, a_s, wa, data, ts0):
+        """``write`` of len(data) / 4 words from wa at timestamps ts0,
+        ts0 + 1, ...: (the bytes they held, their previous timestamps)."""
+        prev, pts = [], []
+        for k in range(len(data) // 4):
+            d, p = self.write(a_s, wa + k, data[4 * k:4 * k + 4], ts0 + k)
+            prev.extend(d)
+            pts.append(p)
+        return prev, pts
+
 
 def _u32_limbs(v):
     return [(v >> (8 * i)) & 0xFF for i in range(4)]
@@ -154,11 +189,12 @@ def _from_limbs(limbs):
 
 class PreflightInterpreter:
     def __init__(self, exe: VmExe, num_pv_words: int = 8, moduli=(),
-                 curves=()):
+                 curves=(), fp2=()):
         self.exe = exe
         self.num_pv_words = num_pv_words
         self.moduli = tuple(moduli)
         self.curves = tuple(curves)
+        self.fp2 = tuple(fp2)
 
     def execute(self, inputs=None, max_insns: int | None = None,
                 state: dict | None = None, nvm=None,
@@ -203,6 +239,7 @@ class PreflightInterpreter:
             pc = exe.pc_start
         recs: dict = defaultdict(lambda: defaultdict(list))
         exec_counts: dict = defaultdict(int)
+        hint_s: list = []
         ts = B.INITIAL_TIMESTAMP
         pc_base, step = exe.program.pc_base, exe.program.step
         instret = 0
@@ -549,19 +586,11 @@ class PreflightInterpreter:
                             f"bad int256 pointer {p:#x} at pc {pc:#x}")
                     return p // 4
 
-                def read_block(wa, tick0):
-                    limbs, pts = [], []
-                    for k in range(8):
-                        data, p2_ = mem.read(2, wa + k, ts + tick0 + k)
-                        limbs.extend(data)
-                        pts.append(p2_)
-                    return limbs, pts
-
                 if is_branch:
                     rs1p, p1 = reg_read(a // 4, 0)
                     rs2p, p2 = reg_read(b // 4, 1)
-                    x, pts_x = read_block(ptr_of(rs1p), 2)
-                    y, pts_y = read_block(ptr_of(rs2p), 10)
+                    x, pts_x = mem.read_block(2, ptr_of(rs1p), 8, ts + 2)
+                    y, pts_y = mem.read_block(2, ptr_of(rs2p), 8, ts + 10)
                     xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
                     yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
                     off = c if c <= P // 2 else c - P
@@ -589,8 +618,8 @@ class PreflightInterpreter:
                     rs1p, p1 = reg_read(b // 4, 0)
                     rs2p, p2 = reg_read(c // 4, 1)
                     rdp, p3 = reg_read(a // 4, 2)
-                    x, pts_x = read_block(ptr_of(rs1p), 3)
-                    y, pts_y = read_block(ptr_of(rs2p), 11)
+                    x, pts_x = mem.read_block(2, ptr_of(rs1p), 8, ts + 3)
+                    y, pts_y = mem.read_block(2, ptr_of(rs2p), 8, ts + 11)
                     xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
                     yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
                     M = (1 << 256) - 1
@@ -624,13 +653,7 @@ class PreflightInterpreter:
                         oi = 0
                         zi = (xi * yi) & M
                     z = [(zi >> (8 * i)) & 255 for i in range(32)]
-                    wad = ptr_of(rdp)
-                    prevz, pts_z = [], []
-                    for k in range(8):
-                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
-                                             ts + 19 + k)
-                        prevz.extend(pw_)
-                        pts_z.append(pzk)
+                    prevz, pts_z = mem.write_block(2, ptr_of(rdp), z, ts + 19)
                     _append(recs[chip], pc=pc, ts=ts, op_idx=oi, a=a // 4,
                             b=b // 4, c=c // 4, rs1p=rs1p, rs2p=rs2p,
                             rdp=rdp, x=x, y=y, z=z, prevz=prevz,
@@ -656,19 +679,11 @@ class PreflightInterpreter:
                             f"bad modular pointer {p_:#x} at pc {pc:#x}")
                     return p_ // 4
 
-                def read_block(wa, tick0):
-                    limbs, pts = [], []
-                    for k in range(8):
-                        data, pk_ = mem.read(2, wa + k, ts + tick0 + k)
-                        limbs.extend(data)
-                        pts.append(pk_)
-                    return limbs, pts
-
                 if base == IS_EQ:
                     rs1p, p1 = reg_read(b // 4, 0)
                     rs2p, p2 = reg_read(c // 4, 1)
-                    x, pts_x = read_block(ptr_of(rs1p), 2)
-                    y, pts_y = read_block(ptr_of(rs2p), 10)
+                    x, pts_x = mem.read_block(2, ptr_of(rs1p), 8, ts + 2)
+                    y, pts_y = mem.read_block(2, ptr_of(rs2p), 8, ts + 10)
                     xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
                     yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
                     if xi >= Nmod or yi >= Nmod:
@@ -686,8 +701,8 @@ class PreflightInterpreter:
                     rs1p, p1 = reg_read(b // 4, 0)
                     rs2p, p2 = reg_read(c // 4, 1)
                     rdp, p3 = reg_read(a // 4, 2)
-                    x, pts_x = read_block(ptr_of(rs1p), 3)
-                    y, pts_y = read_block(ptr_of(rs2p), 11)
+                    x, pts_x = mem.read_block(2, ptr_of(rs1p), 8, ts + 3)
+                    y, pts_y = mem.read_block(2, ptr_of(rs2p), 8, ts + 11)
                     xi = sum(v_ << (8 * i) for i, v_ in enumerate(x))
                     yi = sum(v_ << (8 * i) for i, v_ in enumerate(y))
                     if base == ADD:
@@ -705,13 +720,7 @@ class PreflightInterpreter:
                             raise ExecutionError("modular division by zero")
                         zi = (xi * pow(yi, -1, Nmod)) % Nmod
                     z = [(zi >> (8 * i)) & 255 for i in range(32)]
-                    wad = ptr_of(rdp)
-                    prevz, pts_z = [], []
-                    for k in range(8):
-                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
-                                             ts + 19 + k)
-                        prevz.extend(pw_)
-                        pts_z.append(pzk)
+                    prevz, pts_z = mem.write_block(2, ptr_of(rdp), z, ts + 19)
                     _append(recs[chip], pc=pc, ts=ts, op_idx=oi, a=a // 4,
                             b=b // 4, c=c // 4, rs1p=rs1p, rs2p=rs2p,
                             rdp=rdp, x=x, y=y, z=z, prevz=prevz,
@@ -734,14 +743,6 @@ class PreflightInterpreter:
                             f"bad ec pointer {p_:#x} at pc {pc:#x}")
                     return p_ // 4
 
-                def read_point(wa, tick0):
-                    limbs, pts = [], []
-                    for k in range(16):
-                        data, pk_ = mem.read(2, wa + k, ts + tick0 + k)
-                        limbs.extend(data)
-                        pts.append(pk_)
-                    return limbs, pts
-
                 def to_int(limbs):
                     return sum(v_ << (8 * i) for i, v_ in enumerate(limbs))
 
@@ -749,8 +750,8 @@ class PreflightInterpreter:
                     rs1p, p1 = reg_read(b // 4, 0)
                     rs2p, p2 = reg_read(c // 4, 1)
                     rdp, p3 = reg_read(a // 4, 2)
-                    xb, pts_x = read_point(ptr_of(rs1p), 3)
-                    yb, pts_y = read_point(ptr_of(rs2p), 19)
+                    xb, pts_x = mem.read_block(2, ptr_of(rs1p), 16, ts + 3)
+                    yb, pts_y = mem.read_block(2, ptr_of(rs2p), 16, ts + 19)
                     x1, y1 = to_int(xb[:32]), to_int(xb[32:])
                     x2, y2 = to_int(yb[:32]), to_int(yb[32:])
                     if (x1 - x2) % pmod == 0:
@@ -760,13 +761,7 @@ class PreflightInterpreter:
                     y3 = (lam * (x1 - x3) - y1) % pmod
                     z = [(x3 >> (8 * i)) & 255 for i in range(32)] + \
                         [(y3 >> (8 * i)) & 255 for i in range(32)]
-                    wad = ptr_of(rdp)
-                    prevz, pts_z = [], []
-                    for k in range(16):
-                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
-                                             ts + 35 + k)
-                        prevz.extend(pw_)
-                        pts_z.append(pzk)
+                    prevz, pts_z = mem.write_block(2, ptr_of(rdp), z, ts + 35)
                     _append(recs[f"sw_add_ne_{curve_idx}"], pc=pc, ts=ts,
                             a=a // 4, b=b // 4, c=c // 4, rs1p=rs1p,
                             rs2p=rs2p, rdp=rdp, x=xb, y=yb, z=z,
@@ -776,7 +771,7 @@ class PreflightInterpreter:
                 elif base == EC_DOUBLE:
                     rs1p, p1 = reg_read(b // 4, 0)
                     rdp, p3 = reg_read(a // 4, 1)
-                    xb, pts_x = read_point(ptr_of(rs1p), 2)
+                    xb, pts_x = mem.read_block(2, ptr_of(rs1p), 16, ts + 2)
                     x1, y1 = to_int(xb[:32]), to_int(xb[32:])
                     if y1 % pmod == 0:
                         raise ExecutionError("EC_DOUBLE of 2-torsion point")
@@ -785,13 +780,7 @@ class PreflightInterpreter:
                     y3 = (lam * (x1 - x3) - y1) % pmod
                     z = [(x3 >> (8 * i)) & 255 for i in range(32)] + \
                         [(y3 >> (8 * i)) & 255 for i in range(32)]
-                    wad = ptr_of(rdp)
-                    prevz, pts_z = [], []
-                    for k in range(16):
-                        pw_, pzk = mem.write(2, wad + k, z[4 * k:4 * k + 4],
-                                             ts + 18 + k)
-                        prevz.extend(pw_)
-                        pts_z.append(pzk)
+                    prevz, pts_z = mem.write_block(2, ptr_of(rdp), z, ts + 18)
                     _append(recs[f"sw_double_{curve_idx}"], pc=pc, ts=ts,
                             a=a // 4, b=b // 4, rs1p=rs1p, rdp=rdp, x=xb,
                             z=z, prevz=prevz, pts_r1=p1, pts_rd=p3,
@@ -799,6 +788,54 @@ class PreflightInterpreter:
                     pc, ts = pc + 4, ts + 34
                 else:
                     raise ExecutionError(f"ec opcode base {base} is setup")
+
+            elif FP2_BASE <= op < FP2_BASE + FP2_KINDS * len(self.fp2):
+                fp2_idx = (op - FP2_BASE) // FP2_KINDS
+                base = (op - FP2_BASE) % FP2_KINDS
+                pmod = self.fp2[fp2_idx]
+
+                def ptr_of(limbs):
+                    p_ = _from_limbs(limbs)
+                    if p_ % 4 != 0 or p_ >= (1 << 29):
+                        raise ExecutionError(
+                            f"bad fp2 pointer {p_:#x} at pc {pc:#x}")
+                    return p_ // 4
+
+                def to_int(limbs):
+                    return int.from_bytes(bytes(limbs), "little")
+
+                if base not in (F2ADD, F2SUB, F2MUL, F2DIV):
+                    raise ExecutionError(f"fp2 opcode base {base} is setup")
+                rs1p, p1 = reg_read(b // 4, 0)
+                rs2p, p2 = reg_read(c // 4, 1)
+                rdp, p3 = reg_read(a // 4, 2)
+                # each operand's 16 words in one call (JAX's read_pair)
+                xb, pts_x = mem.read_block(2, ptr_of(rs1p), 16, ts + 3)
+                yb, pts_y = mem.read_block(2, ptr_of(rs2p), 16, ts + 19)
+                a0, a1 = to_int(xb[:32]) % pmod, to_int(xb[32:]) % pmod
+                b0, b1 = to_int(yb[:32]) % pmod, to_int(yb[32:]) % pmod
+                if base == F2ADD:
+                    chip, oi = f"fp2_addsub_{fp2_idx}", 0
+                    z0, z1 = (a0 + b0) % pmod, (a1 + b1) % pmod
+                elif base == F2SUB:
+                    chip, oi = f"fp2_addsub_{fp2_idx}", 1
+                    z0, z1 = (a0 - b0) % pmod, (a1 - b1) % pmod
+                elif base == F2MUL:
+                    chip, oi = f"fp2_muldiv_{fp2_idx}", 0
+                    z0, z1 = fp2_mul(pmod, a0, a1, b0, b1)
+                else:
+                    chip, oi = f"fp2_muldiv_{fp2_idx}", 1
+                    try:
+                        z0, z1 = fp2_div(pmod, a0, a1, b0, b1)
+                    except ZeroDivisionError:
+                        raise ExecutionError("fp2 division by zero")
+                z = list(z0.to_bytes(32, "little") + z1.to_bytes(32, "little"))
+                prevz, pts_z = mem.write_block(2, ptr_of(rdp), z, ts + 35)
+                _append(recs[chip], pc=pc, ts=ts, op_idx=oi, a=a // 4,
+                        b=b // 4, c=c // 4, rs1p=rs1p, rs2p=rs2p, rdp=rdp,
+                        x=xb, y=yb, z=z, prevz=prevz, pts_r1=p1, pts_r2=p2,
+                        pts_rd=p3, pts_x=pts_x, pts_y=pts_y, pts_z=pts_z)
+                pc, ts = pc + 4, ts + 51
 
 
             elif op == Rv32KeccakOpcode.KECCAK256:
@@ -973,6 +1010,21 @@ class PreflightInterpreter:
                         len(hint).to_bytes(4, "little"))
                     pad = (-len(hint)) % 4
                     streams.hint_stream.extend(hint + [0] * pad)
+                elif disc == PairingPhantom.HINT_FINAL_EXP:
+                    def _peek(ptr, ln):
+                        return bytes(mem._get((2, (ptr + k) // 4))
+                                     [(ptr + k) % 4] for k in range(ln))
+
+                    def _reg(reg_off):
+                        return int.from_bytes(
+                            bytes(mem._get((1, reg_off // 4))[:4]), "little")
+
+                    t0 = time.perf_counter()
+                    hint = hint_final_exp_bytes(c >> 16, _peek, _reg(a),
+                                                _reg(b))
+                    hint_s.append(time.perf_counter() - t0)
+                    streams.hint_stream.clear()
+                    streams.hint_stream.extend(hint)
                 elif disc == ModularPhantom.HINT_NON_QR:
                     from .modhints import non_qr_hint_bytes
                     mod = self.moduli[c >> 16]
@@ -1031,7 +1083,7 @@ class PreflightInterpreter:
             records=out, touched=touched, init_words=init_words,
             exec_counts=counts, final_pc=pc, final_ts=ts,
             exit_code=exit_code, instret=instret, public_values=pvs,
-            segment_full=segment_full)
+            segment_full=segment_full, hint_s=hint_s)
         if suspended:
             if nvm is not None:
                 # memory stays in the handle across segments; the state

@@ -1,5 +1,5 @@
 """RISC-V -> VM instruction transpiler: RV32IM, IO, int256, modular
-arithmetic, short-Weierstrass ECC, keccak256 and sha256.
+arithmetic, short-Weierstrass ECC, Fp2, keccak256, sha256 and pairing.
 
 Copy of openvm_tpu/vm/transpiler.py:1-306 (decoder, ``Rv32ITranspiler-
 Extension``, ``Rv32MTranspilerExtension``, ``Rv32IoTranspilerExtension``),
@@ -10,11 +10,14 @@ like the JAX package's, it lowers no other 256-bit branch), :383-417
 except for DIV, HintNonQr and HintSqrt to phantoms with the modulus index
 in the high half of c), :453-480 (``EccTranspilerExtension``: custom-1
 funct3 0b001, funct7 = curve index * 8 + {EC_ADD_NE 0, EC_DOUBLE 1, SETUP
-2 to ``nop``}) and :507-557 (``Transpiler``, ``transpile_elf``).
-The default extension list keeps the JAX package's order (:521-530) with
-only the extensions the port has; the Fp2 and pairing words wait for the
-slice that ports their chips, and a word only they would claim
-transpiles to ``unimp`` here.
+2 to ``nop``}), :420-450 (``Fp2TranspilerExtension``: custom-1 funct3
+0b010, funct7 = Fp2 index * 8 + {ADD 0, SUB 1, MUL 2, DIV 3, SETUP 4 to
+``nop``}, rd = 0 to ``nop``), :480-503 (``PairingTranspilerExtension``:
+custom-1 funct3 0b011, the HintFinalExp phantom with the pairing index in
+the high half of c) and :507-557 (``Transpiler``, each extension shown
+only the current word, the one it reads, and ``transpile_elf``).
+The default extension list is the JAX package's, in its order
+(:520-531).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dataclasses import dataclass
 
 from .elf import Elf, memory_image_to_init_memory
 from .instructions import (BaseAlu256Opcode, BaseAluOpcode,
+                           PairingPhantom,
                            BranchEqual256Opcode, BranchEqualOpcode,
                            BranchLessThanOpcode, DivRemOpcode, Instruction,
                            LessThan256Opcode, LessThanOpcode, Mul256Opcode,
@@ -426,6 +430,38 @@ class ModularTranspilerExtension:
 
 
 SW_FUNCT3 = 0b001
+COMPLEX_EXT_FIELD_FUNCT3 = 0b010
+
+# Fp2 base funct7 -> local opcode offset (reference
+# ComplexExtFieldBaseFunct7 {Add, Sub, Mul, Div, Setup} -> Fp2Opcode order)
+_FP2_BASE_TO_LOCAL = {0: 0, 1: 1, 2: 3, 3: 4}
+
+
+class Fp2TranspilerExtension:
+    """Complex-extension-field intrinsics on custom-1 funct3=010
+    (reference Fp2TranspilerExtension)."""
+
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_CUSTOM1:
+            return None
+        d = decode(w)
+        if d.funct3 != COMPLEX_EXT_FIELD_FUNCT3:
+            return None
+        base = d.funct7 % 8
+        fp2_idx = d.funct7 // 8
+        if base == 4:  # setup -> nop
+            return one(nop())
+        local = _FP2_BASE_TO_LOCAL.get(base)
+        if local is None:
+            return None
+        if d.rd == 0:
+            return one(nop())
+        return one(Instruction(0x710 + fp2_idx * 6 + local, a=4 * d.rd,
+                               b=4 * d.rs1, c=4 * d.rs2, d=1, e=2))
+
 
 
 class EccTranspilerExtension:
@@ -455,6 +491,31 @@ class EccTranspilerExtension:
         return None
 
 
+PAIRING_FUNCT3 = 0b011
+
+
+class PairingTranspilerExtension:
+    """Pairing phantom on custom-1 funct3=011 (reference
+    extensions/pairing/transpiler/src/lib.rs:23-55):
+    funct7 = pairing_idx * 16 + HintFinalExp(=0)."""
+
+    def process_custom(self, stream):
+        if not stream:
+            return None
+        w = stream[0]
+        if (w & 0x7F) != OP_CUSTOM1:
+            return None
+        d = decode(w)
+        if d.funct3 != PAIRING_FUNCT3:
+            return None
+        base = d.funct7 % 16
+        pairing_idx = d.funct7 // 16
+        if base != 0:  # only HintFinalExp exists
+            return None
+        return one(phantom(PairingPhantom.HINT_FINAL_EXP, a=4 * d.rs1,
+                           b=4 * d.rs2, c_upper=pairing_idx))
+
+
 @dataclass
 class TranspilerOutput:
     instructions: list
@@ -478,14 +539,19 @@ class Transpiler:
                                          Int256TranspilerExtension(),
                                          ModularTranspilerExtension(),
                                          EccTranspilerExtension(),
-                                         Keccak256TranspilerExtension()]
+                                         Fp2TranspilerExtension(),
+                                         Keccak256TranspilerExtension(),
+                                         PairingTranspilerExtension()]
 
     def transpile(self, words: list) -> list:
         out: list = []
         i = 0
         while i < len(words):
-            results = [ext.process_custom(words[i:])
-                       for ext in self.extensions]
+            # every extension here reads one word, so each is shown that
+            # word alone: the JAX package's words[i:] copies the rest of
+            # the program for every word
+            stream = words[i:i + 1]
+            results = [ext.process_custom(stream) for ext in self.extensions]
             hits = [r for r in results if r is not None]
             if len(hits) > 1:
                 raise ValueError(

@@ -79,3 +79,13 @@ def test_ctypes_signatures_match_the_cuda_sources():
         assert len(params.split(",")) == len(_build._SIGNATURES[name]), name
     assert set(p.name for p in _build.CSRC.glob("*.cu")) == set(_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH
+
+
+def test_every_port_package_is_checked():
+    """The import check above walks every module of the port: the pairing
+    host library and the Fp2 and Fp12 circuit modules among them."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for module in ("pairing/__init__.py", "pairing/tower.py", "pairing/curve.py",
+                   "pairing/miller.py", "pairing/final_exp.py", "vm/circuit/fp2.py",
+                   "vm/circuit/fp12.py"):
+        assert f"openvm_tpu_torch/{module}" in names, module

@@ -15,6 +15,7 @@ rows, a core that does not build raises, and an opcode of an extension
 the port lacks raises.
 """
 
+import dataclasses
 import hashlib
 import os
 
@@ -29,7 +30,7 @@ from openvm_tpu_torch.field import babybear as bb
 from openvm_tpu_torch.stark import FriParameters, StarkConfig, codec
 from openvm_tpu_torch.vm import machine, native
 from openvm_tpu_torch.vm.guest import FIB_EXECUTORS, build_fib_program
-from openvm_tpu_torch.vm.instructions import Instruction, Program, SystemOpcode, VmExe, unimp
+from openvm_tpu_torch.vm.instructions import Instruction, Program, SystemOpcode, VmExe
 from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
 from openvm_tpu_torch.vm.preflight import PreflightInterpreter
 from openvm_tpu_torch.vm.transpiler import Transpiler
@@ -191,22 +192,25 @@ def test_preflight_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_extension_opcode_raises_not_implemented():
-    """An opcode of a family the port does not have yet (Fp2's ADD, 0x710)
-    and the pairing phantom (HintFinalExp, 0x30) raise, and the port's
-    transpiler leaves an Fp2 word (custom-1, funct3 0b010) and a pairing
-    word (funct3 0b011) as ``unimp``, where the JAX package's gives Fp2's
-    ADD and the phantom."""
-    for insn in (Instruction(0x710, a=4, b=8, c=12, d=1, e=2),
-                 Instruction(SystemOpcode.PHANTOM, a=4, b=8, c=0x30)):
+    """An opcode of the family the port does not have yet, the native
+    extension (0x100-0x1ff: its first and last), and its phantoms (0x10
+    to 0x14) raise; the Fp2 words (custom-1, funct3 0b010) and the
+    pairing word (funct3 0b011) transpile to the JAX package's Fp2 ADD and
+    HintFinalExp phantom."""
+    for insn in (Instruction(0x100, a=4, b=8, c=12, d=4, e=4),
+                 Instruction(0x1FF, a=4, b=8, c=12, d=4, e=4),
+                 *(Instruction(SystemOpcode.PHANTOM, a=4, b=8, c=disc)
+                   for disc in range(0x10, 0x15))):
         exe = VmExe(program=Program(instructions=[insn]), pc_start=0)
         with pytest.raises(NotImplementedError):
             PreflightInterpreter(exe).execute()
     fp2 = (2 << 20) | (1 << 15) | (0b010 << 12) | (3 << 7) | 0x2B
     pairing = (2 << 20) | (1 << 15) | (0b011 << 12) | 0x2B
-    assert Transpiler().transpile([fp2, pairing]) == [unimp(), unimp()]
+    ours = Transpiler().transpile([fp2, pairing])
     theirs = jtranspiler.Transpiler().transpile([fp2, pairing])
-    assert theirs[0].opcode == 0x710
-    assert (theirs[1].opcode, theirs[1].c & 0xFFFF) == (SystemOpcode.PHANTOM, 0x30)
+    assert [dataclasses.astuple(i) for i in ours] == [dataclasses.astuple(i) for i in theirs]
+    assert ours[0].opcode == 0x710
+    assert (ours[1].opcode, ours[1].c & 0xFFFF) == (SystemOpcode.PHANTOM, 0x30)
 
 
 def test_jax_prove_reproduces_pinned_hash():
