@@ -196,8 +196,25 @@ Phases, each printing one JSON line:
             programs streamed), the streamed launch alone with its jobs and
             the shared one without it against their bounds; every kernel
             against plain on the prove's own inputs
+  native    path 10, the native (recursion) VM: VirtualMachine(
+            NativeConfig's chips) keygen -> prove -> verify of
+            build_native_query_program(84, 21, 20), the FRI query phase
+            of a leaf verifier (84 queries in a runtime loop, each a
+            VERIFY_BATCH of depth 21 over 56 opened felts, a
+            FRI_REDUCED_OPENING and 20 FRI layers, each a VERIFY_BATCH
+            and a fold in extension arithmetic; 92,224 instructions,
+            21,841 Poseidon2 rows), one cold prove; instructions and every
+            chip's rows equal to native_query_counts, a real row in every
+            native executor chip, the pinned heights (NATIVE_LOG_HEIGHTS),
+            the 8 public values against native_query_reference, the
+            proof's SHA-256 (NATIVE_PROOF_SHA256), stages and each native
+            chip's tracegen seconds, insn/s, queries/s, peak memory; K7's
+            two launches (six programs streamed), the streamed launch
+            alone with its jobs and the shared one without it against
+            their bounds; every kernel against plain on the prove's own
+            inputs
 
-then a {"kernels": [...]} line (each kernel's launches on paths 1 to 9, its
+then a {"kernels": [...]} line (each kernel's launches on paths 1 to 10, its
 __global__ entries, and K7's streamed launch on path 5's shapes) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -230,14 +247,18 @@ from openvm_tpu_torch.vm.circuit.poseidon2_chip import Poseidon2Air
 from openvm_tpu_torch.vm.guest import (BN254_P, ECRECOVER_MODULI, FIB_EXECUTORS,
                                        SECP256K1_CURVE, U256_MODULI,
                                        build_ecrecover_program, build_fib_program,
-                                       build_keccak_iter_program, build_pairing_program,
+                                       build_keccak_iter_program,
+                                       build_native_query_program, build_pairing_program,
                                        build_sha256_iter_program,
                                        build_u256_iter_program, ecrecover_counts,
                                        ecrecover_reference, ecrecover_stream, fib,
-                                       iter_insns, pairing_counts, pairing_reference,
+                                       iter_insns, native_query_counts,
+                                       native_query_reference, native_query_stream,
+                                       pairing_counts, pairing_reference,
                                        pairing_stream, u256_iter_counts,
                                        u256_iter_reference)
-from openvm_tpu_torch.vm.machine import FULL_EXECUTORS, Rv32Config, VirtualMachine
+from openvm_tpu_torch.vm.machine import (FULL_EXECUTORS, NATIVE_EXECUTORS, NativeConfig,
+                                         Rv32Config, VirtualMachine)
 from openvm_tpu_torch.vm.memory_tree import pv_proof, verify_pv_proof
 
 SEED = 0
@@ -347,7 +368,7 @@ SHA_PROOF_SHA256 = "66d9903b23013e70426123364fbcf18984eca0bdb57529d1830fb052a031
 # the whole script took 912.8 s of command time (PERF.md): 1,024 keep
 # int256_alu at 23,553 rows, 2^15.
 U256_ITER_N = 1_024
-U256_CONFIG = dict(sha256=True, bigint=True, moduli=U256_MODULI)
+U256_CONFIG = dict(executors=FIB_EXECUTORS, sha256=True, bigint=True, moduli=U256_MODULI)
 U256_LOG_HEIGHTS = {"sha256": 16, "sha256_sponge": 10, "int256_alu": 15,
                     "int256_shift": 14, "int256_lt": 13, "int256_mul": 12,
                     "int256_blt": 12, "int256_beq": 11,
@@ -410,6 +431,26 @@ PAIRING_STREAMED = ("modular_addsub_0", "modular_muldiv_0", "modular_iseq_0",
 # The SHA-256 of path 9's proof (3,357,917 bytes) as this script's first
 # run of path 9 at PAIRING_N on the H100 made it.
 PAIRING_PROOF_SHA256 = "6b64d550e5ab4bd4179053ca6f404e89f7eebb8438d6d9a7dd157ff30a78d8a4"
+# Path 10: the native (recursion) VM, NativeConfig's chips: the FRI query
+# phase of a leaf verifier at the production profile (84 queries; the
+# reference's leaf verifier, extensions/native/recursion, as
+# vm.guest.build_native_query_program): a runtime loop over the queries,
+# each one VERIFY_BATCH of depth 21 over its opened rows (32 + 16 felts at
+# level 0, 8 at level 1), one FRI_REDUCED_OPENING over the 56 felts, and 20
+# FRI layers, each a VERIFY_BATCH of depth 20 - l and a fold in extension
+# arithmetic; 92,224 instructions, 21,841 Poseidon2 permutations.
+NATIVE_ARGS = (84, 21, 20, SEED)
+NATIVE_LOG_HEIGHTS = {"verify_batch": 16, "native_loadstore4": 16, "poseidon2": 15,
+                      "native_field_arithmetic": 14, "native_branch_eq": 14,
+                      "native_field_extension": 14, "fri_reduced_opening": 13,
+                      "verify_batch_inside": 12, "phantom": 11, "native_jal_rangecheck": 10,
+                      "native_loadstore": 8, "native_poseidon2": 7}
+# The programs of K7's streamed launch on path 10.
+NATIVE_STREAMED = ("poseidon2", "native_field_extension", "native_loadstore4", "native_poseidon2",
+                   "fri_reduced_opening", "verify_batch")
+# The SHA-256 of path 10's proof (1,599,737 bytes) as this script's first
+# run of path 10 on the H100 made it.
+NATIVE_PROOF_SHA256 = "3723f05f594a19ef13eb10b23112f046f8b3a2eb65ed878cf28879d6a65b8825"
 # The plain K7 keeps every slot of a program over every row it evaluates:
 # a job whose slots over its whole quotient domain take more than this is
 # held to the kernel on blocks of QUOTIENT_BLOCK rows (keccakf's 2,890
@@ -1500,15 +1541,12 @@ def run_prove(dev, cfg: StarkConfig, airs, ctxs) -> dict:
             "s": {"keygen": t1 - t0, "prove": t2 - t1, "verify": t3 - t2}}
 
 
-def run_vm(dev, cfg: StarkConfig, exe=None, warm: bool = True, inputs=None,
-           **flags) -> dict:
-    """Path 3 (paths 6 to 8 with ``exe``, its ``inputs`` and the config's
-    ``flags``, FIB_EXECUTORS unless they name the executors): VirtualMachine
-    keygen -> prove -> verify of the guest through the port's entry points,
-    the fibonacci guest by default; then, with ``warm``, a warm prove that
-    must give the same bytes."""
-    flags.setdefault("executors", FIB_EXECUTORS)
-    vm = VirtualMachine(Rv32Config(stark=cfg, **flags), device=dev)
+def run_vm(dev, config: Rv32Config, exe=None, warm: bool = True, inputs=None) -> dict:
+    """Path 3 (paths 6 to 10 with ``exe`` and its ``inputs``): VirtualMachine
+    keygen -> prove -> verify of the guest under the VM ``config`` through
+    the port's entry points, the fibonacci guest by default; then, with
+    ``warm``, a warm prove that must give the same bytes."""
+    vm = VirtualMachine(config, device=dev)
     exe = exe or build_fib_program(VM_FIB_N)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2023,19 +2061,19 @@ def require_one_prove(launches: dict, path: str) -> None:
 
 def quotient_split(vm, qrec: list, streamed_names, path: str) -> tuple:
     """K7 over a VM prove's own jobs: the streamed launch must hold exactly
-    ``streamed_names``' programs, and rv32_base_alu's job must be the same
-    whichever launch it shares.  Returns (both launches, the streamed
-    programs alone, the shared launch without them), each timed beside its
-    bound."""
+    ``streamed_names``' programs, and the job of the shared launch's largest
+    program must be the same whichever launch it shares.  Returns
+    (both launches, the streamed programs alone, the shared launch without
+    them), each timed beside its bound."""
     names = [a.name for a in vm.airs]
     keep = [i for i, name in enumerate(names) if name not in streamed_names]
     sub = [qrec[i] for i in keep]
     streamed = [qrec[i] for i in range(len(qrec)) if i not in keep]
-    alu = vm.air_index["rv32_base_alu"]
-    with_streamed = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))[alu]
-    without = qmod.evaluate_many(*(list(col) for col in zip(*sub)))[keep.index(alu)]
+    key = max(keep, key=lambda i: int(qrec[i][0].code.shape[0]))
+    with_streamed = qmod.evaluate_many(*(list(col) for col in zip(*qrec)))[key]
+    without = qmod.evaluate_many(*(list(col) for col in zip(*sub)))[keep.index(key)]
     require(max_abs_err(with_streamed, without) == 0,
-            "K7's rv32_base_alu job depends on the launch")
+            f"K7's {names[key]} job depends on the launch")
     both = {"launch": launch_summary(names, qrec),
             "ms": cuda_ms(lambda: qmod.evaluate_many(*(list(c) for c in zip(*qrec))), 5),
             "bound_ms": bound(*quotient_cost(qrec))[0]}
@@ -2060,7 +2098,8 @@ def run_sha(dev, cfg: StarkConfig) -> dict:
     start_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    r = run_vm(dev, cfg, build_sha256_iter_program(SHA_ITER_N), warm=False, sha256=True)
+    r = run_vm(dev, Rv32Config(stark=cfg, executors=FIB_EXECUTORS, sha256=True),
+               build_sha256_iter_program(SHA_ITER_N), warm=False)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, vm, pre = r["launches"], r["vm"], r["pre"]
     require_one_prove(launches, "path 6")
@@ -2146,7 +2185,8 @@ def run_u256(dev, cfg: StarkConfig) -> dict:
     start_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    r = run_vm(dev, cfg, build_u256_iter_program(U256_ITER_N), warm=False, **U256_CONFIG)
+    r = run_vm(dev, Rv32Config(stark=cfg, **U256_CONFIG), build_u256_iter_program(U256_ITER_N),
+               warm=False)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, vm, pre = r["launches"], r["vm"], r["pre"]
     require_one_prove(launches, "path 7")
@@ -2212,8 +2252,8 @@ def run_ecrecover(dev, cfg: StarkConfig) -> dict:
     start_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    r = run_vm(dev, cfg, build_ecrecover_program(ECRECOVER_N), warm=False,
-               inputs=ecrecover_stream(ECRECOVER_N, ECRECOVER_SEED), **ECRECOVER_CONFIG)
+    r = run_vm(dev, Rv32Config(stark=cfg, **ECRECOVER_CONFIG), build_ecrecover_program(ECRECOVER_N),
+               warm=False, inputs=ecrecover_stream(ECRECOVER_N, ECRECOVER_SEED))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, vm, pre = r["launches"], r["vm"], r["pre"]
     require_one_prove(launches, "path 8")
@@ -2291,8 +2331,9 @@ def run_pairing(dev, cfg: StarkConfig) -> dict:
     start_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    r = run_vm(dev, cfg, build_pairing_program(PAIRING_N, PAIRING_PAIRS), warm=False,
-               inputs=pairing_stream(PAIRING_N, PAIRING_PAIRS, PAIRING_SEED), **PAIRING_CONFIG)
+    r = run_vm(dev, Rv32Config(stark=cfg, **PAIRING_CONFIG),
+               build_pairing_program(PAIRING_N, PAIRING_PAIRS), warm=False,
+               inputs=pairing_stream(PAIRING_N, PAIRING_PAIRS, PAIRING_SEED))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, vm, pre = r["launches"], r["vm"], r["pre"]
     hint_s = pre.hint_s
@@ -2353,6 +2394,90 @@ def phase_pairing(dev, cfg: StarkConfig, err: dict) -> dict:
           "launches": pr["launches"], "quotient": pr["quotient"],
           "plain_checks": pr["plain_checks"], "phase_s": time.perf_counter() - t0})
     return pr["launches"]
+
+
+def run_native(dev, cfg: StarkConfig) -> dict:
+    """Path 10: the FRI query phase of a leaf verifier as a native program
+    (run_vm with ``NativeConfig``'s chips), held to its counts, its heights,
+    its public values and its pinned proof; every native executor chip
+    with real rows; K7's two launches (the large programs streamed), the
+    streamed launch alone with its jobs and the shared one without it
+    beside their bounds, and every kernel against plain on the prove's own
+    inputs."""
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    exe = build_native_query_program(*NATIVE_ARGS)
+    stream = native_query_stream(*NATIVE_ARGS)
+    inputs_s = time.perf_counter() - t0
+    _build.reset_launches()
+    r = run_vm(dev, NativeConfig(stark=cfg), exe, warm=False, inputs=stream)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches, vm, pre = r["launches"], r["vm"], r["pre"]
+    require_one_prove(launches, "path 10")
+    t0 = time.perf_counter()
+    counts = native_query_counts(*NATIVE_ARGS)
+    reference = native_query_reference(*NATIVE_ARGS)
+    reference_s = time.perf_counter() - t0
+    rows = {k: len(next(iter(v.values()))) for k, v in pre.records.items()}
+    heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
+    got = {"insns": pre.instret, "poseidon2": int(r["record"]["ctxs"][
+        vm.air_index["poseidon2"]].common_main.shape[0]),
+        **{k: rows.get(k, 0) for k in counts if k not in ("insns", "poseidon2")}}
+    want = {**counts, "poseidon2": 1 << max(counts["poseidon2"] - 1, 0).bit_length()}
+    require(pre.exit_code == 0 and got == want, f"path 10's guest: exit {pre.exit_code}, "
+            f"{got} against {want}")
+    idle = [name for name in NATIVE_EXECUTORS if not rows.get(name)]
+    require(not idle, f"native chips without a real row on path 10: {idle}")
+    require(all(heights[name] == 1 << lh for name, lh in NATIVE_LOG_HEIGHTS.items()),
+            f"path 10's heights: {heights}")
+    pvs = list(r["result"]["public_values"])
+    require(pvs == reference + [0] * (len(pvs) - len(reference)),
+            f"path 10's public values {pvs} against {reference}")
+    blob = codec.encode_proof(r["proof"])
+    sha = hashlib.sha256(blob).hexdigest()
+    require(sha == NATIVE_PROOF_SHA256, f"path 10's proof sha {sha}")
+    qrec = r["record"]["quotient"]
+    both, alone, rest = quotient_split(vm, qrec, NATIVE_STREAMED, "path 10")
+    alone["jobs"] = {a.name: {"log_rows": q[2] + q[3], "instructions": int(q[0].code.shape[0])}
+                     for a, q in zip(vm.airs, qrec) if a.name in NATIVE_STREAMED}
+    alone["instruction_rows"] = sum(int(q[0].code.shape[0]) << (q[2] + q[3])
+                                    for a, q in zip(vm.airs, qrec)
+                                    if a.name in NATIVE_STREAMED)
+    quotient = {**both, "streamed_alone": alone, "without_streamed": rest}
+    tracegen_s = r["record"]["tracegen_s"]
+    r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
+             peak_gb=peak_gb, start_gb=start_gb, quotient=quotient, rows=rows, counts=counts,
+             inputs_s=inputs_s, reference_s=reference_s,
+             tracegen_s={k: tracegen_s[k] for k in (*NATIVE_EXECUTORS, "poseidon2")},
+             plain_checks=check_vm_kernels(vm, r.pop("record")))
+    return r
+
+
+def phase_native(dev, cfg: StarkConfig, err: dict) -> dict:
+    """Path 10 (``run_native``) and its line; folds its plain checks into
+    ``err``.  Returns its launches."""
+    t0 = time.perf_counter()
+    nr = run_native(dev, cfg)
+    err.update({k: max(v, err.get(k, 0)) for k, v in nr["plain_checks"]["max"].items()})
+    insns, prove_s, c = nr["pre"].instret, nr["s"]["prove"], nr["counts"]
+    n_queries, depth, n_layers, seed = NATIVE_ARGS
+    emit({"phase": "native", "guest": "build_native_query_program(%d, %d, %d, seed=%d)"
+          % NATIVE_ARGS, "config": "NativeConfig", "executors": list(NATIVE_EXECUTORS),
+          "queries": n_queries, "depth": depth, "fri_layers": n_layers, "seed": seed,
+          "insns": insns, "counts": c, "rows": nr["rows"], "heights": nr["heights"],
+          "fri_queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
+          "s": nr["s"], "inputs_s": nr["inputs_s"], "reference_s": nr["reference_s"],
+          "stage_s": nr["stages_s"], "tracegen_s": nr["tracegen_s"],
+          "insn_per_s_cold": insns / prove_s, "queries_per_s_cold": n_queries / prove_s,
+          "poseidon2_rows_per_s_cold": c["poseidon2"] / prove_s,
+          "verified": True, "public_values": nr["public_values"],
+          "proof_bytes": len(nr["blob"]), "proof_sha256": nr["sha"],
+          "peak_gb": nr["peak_gb"], "peak_above_start_gb": nr["peak_gb"] - nr["start_gb"],
+          "launches": nr["launches"], "quotient": nr["quotient"],
+          "plain_checks": nr["plain_checks"], "phase_s": time.perf_counter() - t0})
+    return nr["launches"]
 
 
 def tamper_poseidon2(vm, ctxs: list, device) -> list:
@@ -2761,7 +2886,7 @@ def run(dev: torch.device) -> int:
     v_start_gb = torch.cuda.memory_allocated(dev) / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    vmr = run_vm(dev, cfg)
+    vmr = run_vm(dev, Rv32Config(stark=cfg, executors=FIB_EXECUTORS))
     v_launches = vmr["launches"]
     v_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     require(all(v for k, v in v_launches.items() if k not in OFF_PATH + STREAMED_ONLY)
@@ -2875,6 +3000,8 @@ def run(dev: torch.device) -> int:
     e_launches = phase_ecrecover(dev, cfg, err)
     # ---- path 9: BN254 pairing checks on the Fp2 chips ----------------------
     b_launches = phase_pairing(dev, cfg, err)
+    # ---- path 10: the native VM, a leaf verifier's FRI query phase -----------
+    n_launches = phase_native(dev, cfg, err)
     # the streamed launch's transpose, launched on paths 4-6 only: its row
     # from keccakf's main LDE on path 5
     tr = k_stream["transpose"]
@@ -2895,7 +3022,7 @@ def run(dev: torch.device) -> int:
     for k in kernels:
         k["launches_path5"], k["launches_path6"] = k_launches[k["name"]], s_launches[k["name"]]
         k["launches_path7"], k["launches_path8"] = u_launches[k["name"]], e_launches[k["name"]]
-        k["launches_path9"] = b_launches[k["name"]]
+        k["launches_path9"], k["launches_path10"] = b_launches[k["name"]], n_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err.get(k["name"], 0))
     next(k for k in kernels if k["name"] == "quotient")["stream_path5"] = k_stream
     print(setup["nvidia_smi"].splitlines()[0], flush=True)

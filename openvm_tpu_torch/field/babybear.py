@@ -49,6 +49,39 @@ def inv_int(x: int) -> int:
     return pow(x, -1, P)
 
 
+def ext_mul_int(x: tuple, y: tuple) -> tuple:
+    """Quartic-extension product in canonical ints, F_p[w]/(w^4 - 11)
+    (openvm_tpu/field/babybear.py:67)."""
+    out = [0, 0, 0, 0]
+    for i in range(4):
+        for j in range(4):
+            k = i + j
+            t = x[i] * y[j]
+            if k < 4:
+                out[k] += t
+            else:
+                out[k - 4] += 11 * t
+    return tuple(v % P for v in out)
+
+
+def ext_inv_int(x: tuple) -> tuple:
+    """Quartic-extension inverse via the norm to the base field
+    (openvm_tpu/field/babybear.py:81): conj2(a) = a(w -> -w); N2 = a *
+    conj2(a) lies in F_p[w^2]; then one more norm step down to F_p."""
+    a0, a1, a2, a3 = (int(v) % P for v in x)
+    # b = a * conj(a) where conj negates odd coefficients -> even only
+    b0 = (a0 * a0 - 11 * (2 * a1 * a3 - a2 * a2)) % P
+    b2 = (2 * a0 * a2 - a1 * a1 - 11 * a3 * a3) % P
+    # c = b * conj'(b) with conj'(w^2 -> -w^2): c = b0^2 - 11*b2^2 in F_p
+    c = (b0 * b0 - 11 * b2 * b2) % P
+    cinv = pow(c, -1, P)
+    # a^{-1} = conj(a) * conj'(b) * c^{-1}
+    d0, d2 = (b0 * cinv) % P, (-b2 * cinv) % P
+    # e = conj(a) = (a0, -a1, a2, -a3); result = e * (d0 + d2 w^2)
+    e = (a0, (-a1) % P, a2, (-a3) % P)
+    return ext_mul_int(e, (d0, 0, d2, 0))
+
+
 def two_adic_generator_int(bits: int) -> int:
     """Canonical 2^bits-th root of unity: g^((p-1)/2^bits) with g=31."""
     if not 0 <= bits <= TWO_ADICITY:

@@ -873,15 +873,6 @@ def _compile(dag, roots, columns: bool, *, n_main: int, has_preprocessed: bool,
     return emit(_WordFile(tags, budget, leaves))
 
 
-def _ext_mul_int(a, b) -> tuple:
-    """Canonical extension product with x^4 = 11 (ext.py:72), Python ints."""
-    d = [0] * 7
-    for i in range(4):
-        for j in range(4):
-            d[i + j] += a[i] * b[j]
-    return tuple((d[i] + 11 * (d[i + 4] if i < 3 else 0)) % P for i in range(4))
-
-
 def alpha_powers(alpha, n: int) -> np.ndarray:
     """(n, 4) uint32 Montgomery words of alpha^0 .. alpha^(n-1); ``alpha``
     (4,) Montgomery words."""
@@ -889,7 +880,7 @@ def alpha_powers(alpha, n: int) -> np.ndarray:
     out, cur = [], (1, 0, 0, 0)
     for _ in range(n):
         out.append(cur)
-        cur = _ext_mul_int(cur, a)
+        cur = bb.ext_mul_int(cur, a)
     return bb.to_monty_np(np.asarray(out, dtype=np.uint64).reshape(n, 4))
 
 

@@ -1,5 +1,5 @@
 """The hand-assembled guests: fibonacci, keccak256, sha256, int256 and
-modular arithmetic.
+modular arithmetic, ECC, pairing, and the native VM's programs.
 
 Copy of tests/test_vm_prove.py:20-96 (``build_fib_program``, the ``asm_*``
 encoders, ``fib``, ``FIB_EXECUTORS``), tests/test_vm_keccak.py:23-56
@@ -16,7 +16,10 @@ this package's own: the reference's ``keccak256_iter`` and ``sha256_iter``
 benchmark guests (SURVEY.md:337) reduced to a loop that hashes its own
 32-byte buffer in place n times, and that loop mixed with 256-bit integer
 and modular arithmetic over secp256k1's two moduli (the reference's ruint
-and U256 guests, SURVEY.md:325).
+and U256 guests, SURVEY.md:325).  ``build_native_program`` copies
+tests/test_native_vm.py:35-74; ``build_native_query_program`` (path 10,
+the FRI query phase of a leaf verifier) is written with the port's
+native Builder.
 ``build_fib_program(n)`` runs about 5n + 20 instructions.  The original
 loads the loop count n with one addi, whose immediate is 12 bits signed:
 from n = 2048 on, the count wraps negative and the loop runs about 2^32
@@ -34,6 +37,7 @@ import heapq
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..pairing.curve import BN254, PairingCurveParams
 from ..pairing.final_exp import final_exp_hint, final_exp_product
@@ -41,8 +45,18 @@ from ..pairing.miller import (g1_fracs, miller_add_step, miller_double_step,
                               multi_miller_loop)
 from ..pairing.tower import F2_ONE, F2_ZERO, F12_ONE, Tower
 from .circuit.keccak import keccak256
+from ..field.babybear import canonical_np, ext_inv_int, ext_mul_int, to_monty_np
+from ..native_compiler.builder import Builder, Ext, FeltArray
+from ..poseidon2 import permute as permute_plain
 from .instructions import (BranchEqual256Opcode, BranchLessThan256Opcode,
-                           Instruction, Program, VmExe)
+                           FieldArithmeticOpcode as FA,
+                           FieldExtensionOpcode as FE, FriOpcode, Instruction,
+                           NativeBranchEqOpcode as NB, NativeJalOpcode,
+                           NativeLoadStore4Opcode as NL4,
+                           NativeLoadStoreOpcode as NL, NativePhantom,
+                           NativeRangeCheckOpcode, P as P_NATIVE,
+                           Poseidon2Opcode, Program, SystemOpcode,
+                           VerifyBatchOpcode, VmExe, phantom)
 from .transpiler import Transpiler
 
 
@@ -1510,3 +1524,366 @@ def pairing_counts(n, pairs=4):
             "fp2_muldiv_0": n * (ops["mul"] + ops["div"]),
             "modular_addsub_0": n * 2 * ops["conj"], "modular_muldiv_0": n * 2 * pairs,
             "modular_iseq_0": n * 12}
+
+
+# ---------------------------------------------------------------------------
+# the native (recursion) VM's guests
+# ---------------------------------------------------------------------------
+
+def build_native_program():
+    """Copy of tests/test_native_vm.py:35-74: a straight-line native
+    program through every native chip but FRI_REDUCED_OPENING and
+    VERIFY_BATCH; publishes pv[0] = 3.  Run it with ``NATIVE_INPUTS``."""
+    I = Instruction
+    prog = [
+        # felt arith: [10] = 7 + 8 (imm/imm), then mul / div
+        I(FA.ADD, a=10, b=7, c=8, d=4, e=0, f=0),
+        I(FA.MUL, a=11, b=10, c=3, d=4, e=4, f=0),
+        I(FA.DIV, a=12, b=11, c=10, d=4, e=4, f=4),   # = 3
+        # ext field: x = (1,2,3,4) at 20..23, y = (5,6,7,8) at 24..27
+        *[I(FA.ADD, a=20 + k, b=k + 1, c=0, d=4, e=0, f=0) for k in range(4)],
+        *[I(FA.ADD, a=24 + k, b=k + 5, c=0, d=4, e=0, f=0) for k in range(4)],
+        # z = x*y at 28; w = z/y at 32 (== x, so w[0] == 1)
+        I(FE.BBE4MUL, a=28, b=20, c=24, d=4, e=4),
+        I(FE.BBE4DIV, a=32, b=28, c=24, d=4, e=4),
+        # branch: if [32] == 1 skip the bad write
+        I(NB.BEQ, a=32, b=1, c=8, d=4, e=0),
+        I(FA.ADD, a=15, b=999, c=0, d=4, e=0, f=0),
+        # loadstore with pointer cell: [50] = 32; LOADW [40] = mem[[50]]
+        I(FA.ADD, a=50, b=32, c=0, d=4, e=0, f=0),
+        I(NL.LOADW, a=40, b=0, c=50, d=4, e=4, f=4),
+        I(NL.STOREW, a=40, b=0, c=41, d=4, e=4, f=0),
+        # hint: input vec [17, 23, 29]; stream = [3,17,23,29] -> 44..47
+        phantom(NativePhantom.HINT_INPUT),
+        I(NL4.HINT_STOREW4, a=0, b=0, c=44, d=4, e=4, f=0),
+        # jal: [60] = pc+4, jump +8 (skip bad write)
+        I(NativeJalOpcode.JAL, a=60, b=8, d=4),
+        I(FA.ADD, a=15, b=888, c=0, d=4, e=0, f=0),
+        # range check [44] (= 3) against 16/14 bit split
+        I(NativeRangeCheckOpcode.RANGE_CHECK, a=44, b=15, c=14, d=4),
+        # poseidon2 adapter: permute 64..79 -> 80..95, compress -> 96..103
+        I(Poseidon2Opcode.PERM_POS2, a=80, b=64, c=0, d=4, e=4),
+        I(Poseidon2Opcode.COMP_POS2, a=96, b=80, c=88, d=4, e=4),
+        # publish pv[0] = [12]
+        I(FA.ADD, a=0, b=12, c=0, d=3, e=4, f=0),
+        I(SystemOpcode.TERMINATE, c=0),
+    ]
+    return VmExe(program=Program(instructions=prog), pc_start=0)
+
+
+NATIVE_INPUTS = [[17, 23, 29]]
+
+# Path 10: the FRI query phase of a leaf verifier as a native program.  A
+# query opens the trace's rows (two rows of 32 and 16 felts at the tallest
+# height, one of 8 felts a height below), checks them against the
+# commitment with one VERIFY_BATCH, reduces them with one
+# FRI_REDUCED_OPENING, and walks the FRI layers: each layer's opened pair
+# (two extension elements) checked by its own VERIFY_BATCH, the query's
+# value found in it through a pointer and loadw4, and the pair folded.
+NQ_LEVEL0 = (32, 16)
+NQ_LEVEL1 = 8
+NQ_OPENED = sum(NQ_LEVEL0) + NQ_LEVEL1
+
+
+@functools.lru_cache(maxsize=None)
+def native_query_asm(n_queries=84, depth=21, n_layers=20):
+    """The path-10 guest's instructions and its regions: (Builder, labels).
+    ``labels`` holds the first instruction of the loop body ("loop"), the
+    loop's closing branch ("back") and, for each layer, the fold's two
+    blocks: "then" (index bit 0) and "else" (bit 1) as [start, end)."""
+    if not 1 <= n_layers < depth <= 30:
+        raise ValueError("need 1 <= n_layers < depth <= 30")
+    b = Builder()
+    l0 = sum(NQ_LEVEL0)
+    # buffers at fixed addresses, filled anew by each query's hints
+    setup = b.array(4 + 4 * n_layers)           # alpha, then each layer's beta
+    alpha = Ext(setup.addr)
+    opened = b.array(NQ_OPENED)
+    sibs = b.array(8 * depth)
+    commit = b.array(8)
+    claims = b.array(4 * NQ_OPENED)
+    layer_open = [b.array(8) for _ in range(n_layers)]
+    x = Ext(b.alloc(4))
+    cur, diff, tot = b.ext(), b.ext(), b.ext()
+    acc = b.array(16)
+    idx, i, link = b.felt(), b.felt(), b.felt()
+    # before the loop: the challenges, each call site's descriptor, the
+    # accumulator and the counter
+    b.read_vec_into(setup)
+    main_desc = b.write_batch_descriptor(
+        {0: (opened.addr, l0), 1: (opened.addr + l0, NQ_LEVEL1)}, depth)
+    layer_desc = [b.write_batch_descriptor({0: (layer_open[l].addr, 8)}, depth - 1 - l)
+                  for l in range(n_layers)]
+    for k in range(16):
+        b.mov(0, acc.felt(k))
+    b.mov(0, i)
+    loop = b.label()
+    b.place(loop)
+    labels = {"loop": len(b.insns), "then": [], "else": []}
+    # the query index, its range check and its bits
+    b.read_vec_into(FeltArray(idx.addr, 1))
+    b.range_check(idx, min(depth, 15), max(depth - 15, 0))
+    bits = b.bits_le(idx, depth)
+    # the opened rows against the commitment, and their reduced opening
+    b.emit(phantom(NativePhantom.HINT_FELT))
+    for arr in (opened, sibs, commit, claims):
+        b.read_hints_into(arr)
+    b.verify_batch(main_desc, sibs, bits.addr, commit.addr, depth,
+                   inside_rows=-(-l0 // 8) + -(-NQ_LEVEL1 // 8))
+    b.fri_reduced_opening(opened, claims, NQ_OPENED, alpha, dst=cur)
+    for l in range(n_layers):
+        d = depth - 1 - l
+        b.emit(phantom(NativePhantom.HINT_FELT))
+        for arr in (layer_open[l], sibs.slice(0, 8 * d), commit):
+            b.read_hints_into(arr)
+        b.read_hints_into(FeltArray(x.addr, 4))
+        b.verify_batch(layer_desc[l], sibs, bits.addr + l + 1, commit.addr, d,
+                       inside_rows=1)
+        with b.scope():
+            bit = bits.felt(l)
+            four_bit = b.mul(bit, 4)
+            ours = b.loadw4(b.add(four_bit, layer_open[l].addr))
+            sib = b.loadw4(b.sub(layer_open[l].addr + 4, four_bit))
+            b.assert_eq_ext(ours, cur)
+            odd, join = b.label(), b.label()
+            b.branch_eq(bit, 1, odd)
+            start = len(b.insns)
+            b.esub(ours, sib, dst=diff)
+            b.eadd(ours, sib, dst=tot)
+            b.jal(join, link)
+            labels["then"].append((start, len(b.insns)))
+            b.place(odd)
+            b.esub(sib, ours, dst=diff)
+            b.eadd(sib, ours, dst=tot)
+            labels["else"].append((len(b.insns) - 2, len(b.insns)))
+            b.place(join)
+            beta = Ext(setup.addr + 4 + 4 * l)
+            b.eadd(tot, b.emul(b.ediv(diff, x), beta), dst=cur)
+    # fold the query into the accumulator
+    b.eadd(Ext(acc.addr), cur, dst=Ext(acc.addr))
+    b.add(acc.felt(4), idx, dst=acc.felt(4))
+    b.permute(acc, dst=acc)
+    b.add(i, 1, dst=i)
+    labels["back"] = len(b.insns)
+    b.branch_ne(i, n_queries, loop)
+    out = b.compress(acc.slice(0, 8), acc.slice(8, 8))
+    for k in range(8):
+        b.public_value(out.felt(k), k)
+    b.halt(0)
+    labels["end"] = len(b.insns)
+    return b, labels
+
+
+def build_native_query_program(n_queries=84, depth=21, n_layers=20, seed=0):
+    """Path 10's guest: the FRI query phase of a leaf verifier over
+    ``n_queries`` queries, a runtime loop.  Each query hints its index
+    (range-checked, decomposed into ``depth`` constrained bits), its 56
+    opened felts, their ``depth`` sibling digests and the commitment, and
+    checks them with one VERIFY_BATCH (rows of 32 and 16 felts at level 0,
+    one of 8 at level 1); reduces them with one FRI_REDUCED_OPENING against
+    56 hinted extension values and the hinted alpha; then, for each of
+    ``n_layers`` FRI layers l, checks the layer's opened pair by a
+    VERIFY_BATCH of depth ``depth - 1 - l``, loads the query's value and
+    its sibling through pointers (loadw4), asserts the value equals the
+    running one, picks the fold's branch on the index bit (BEQ, JAL) and
+    folds: (e0 + e1) + beta_l (e0 - e1) / x, x hinted.  The final value
+    and the index go into a 16-felt accumulator, permuted once a query
+    (PERM_POS2); at the end COMP_POS2 of its halves gives the 8 public
+    values.  Every query has its own commitments, hinted.  The program is
+    the same for every ``seed``, which is not read: it stands in the
+    signature so that path 10's arguments pass alike to this function and
+    to ``native_query_stream``, which makes the inputs from it."""
+    b, _ = native_query_asm(n_queries, depth, n_layers)
+    return b.compile()
+
+
+def _ext_add(x, y):
+    return tuple((p + q) % P_NATIVE for p, q in zip(x, y))
+
+
+def _ext_sub(x, y):
+    return tuple((p - q) % P_NATIVE for p, q in zip(x, y))
+
+
+def _perm_rows(states: np.ndarray) -> np.ndarray:
+    """Poseidon2 of each canonical (16,) row, through the plain batched
+    permutation on the CPU."""
+    words = torch.from_numpy(to_monty_np(states).view(np.int32))
+    return canonical_np(permute_plain(words))
+
+
+def _sponge_rows(segs: np.ndarray) -> np.ndarray:
+    """The overwrite-rate sponge's digest of each (n,) row (VERIFY_BATCH's
+    row hash, vm/circuit/native.py VerifyBatchAir)."""
+    st = np.zeros((segs.shape[0], 16), dtype=np.uint64)
+    for c0 in range(0, segs.shape[1], 8):
+        chunk = segs[:, c0:c0 + 8]
+        st[:, :chunk.shape[1]] = chunk
+        st = _perm_rows(st)
+    return st[:, :8]
+
+
+def _compress_rows(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    return _perm_rows(np.concatenate([left, right], axis=1))[:, :8]
+
+
+def _batch_roots(levels: dict, sibs: np.ndarray, bits: np.ndarray) -> np.ndarray:
+    """VERIFY_BATCH's commitment of each query's opening: ``levels`` maps
+    a level to the (queries, n) felts hashed in there, ``sibs`` (queries,
+    depth, 8) and ``bits`` (queries, depth)."""
+    node = _sponge_rows(levels[0])
+    for s in range(sibs.shape[1]):
+        flip = bits[:, s:s + 1].astype(bool)
+        left = np.where(flip, sibs[:, s], node)
+        right = np.where(flip, node, sibs[:, s])
+        node = _compress_rows(left, right)
+        if s + 1 in levels:
+            node = _compress_rows(node, _sponge_rows(levels[s + 1]))
+    return node
+
+
+@functools.lru_cache(maxsize=None)
+def native_query_inputs(n_queries=84, depth=21, n_layers=20, seed=0):
+    """The path-10 guest's inputs from ``seed``: alpha and each layer's
+    beta, and for each query its index, opened rows, siblings, claims, each
+    layer's pair and x, every commitment (computed here) and the value each
+    layer folds to.  A dict of numpy arrays and lists of extension
+    tuples."""
+    rng = np.random.default_rng(seed)
+
+    def felts(*shape):
+        return rng.integers(0, P_NATIVE, size=shape, dtype=np.uint64)
+
+    def ext():
+        return tuple(int(v) for v in felts(4))
+
+    alpha = ext()
+    betas = [ext() for _ in range(n_layers)]
+    idx = rng.integers(0, 1 << depth, size=n_queries, dtype=np.int64)
+    bits = (idx[:, None] >> np.arange(depth)) & 1
+    l0 = sum(NQ_LEVEL0)
+    opened = felts(n_queries, NQ_OPENED)
+    sibs = felts(n_queries, depth, 8)
+    claims = felts(n_queries, NQ_OPENED, 4)
+    commit = _batch_roots({0: opened[:, :l0], 1: opened[:, l0:]}, sibs, bits)
+    # the reduced opening: sum_t alpha^t (claim_t - opened_t)
+    cur = []
+    for q in range(n_queries):
+        acc, apow = (0, 0, 0, 0), (1, 0, 0, 0)
+        for t in range(NQ_OPENED):
+            c = [int(v) for v in claims[q, t]]
+            diff = ((c[0] - int(opened[q, t])) % P_NATIVE, c[1], c[2], c[3])
+            acc = _ext_add(acc, ext_mul_int(apow, diff))
+            apow = ext_mul_int(apow, alpha)
+        cur.append(acc)
+    layers = []
+    for l in range(n_layers):
+        d = depth - 1 - l
+        pairs = np.zeros((n_queries, 8), dtype=np.uint64)
+        xs, folded = [], []
+        for q in range(n_queries):
+            sib = ext()
+            b = int(bits[q, l])
+            e0, e1 = (cur[q], sib) if b == 0 else (sib, cur[q])
+            pairs[q] = e0 + e1
+            x = ext()
+            while x == (0, 0, 0, 0):
+                x = ext()
+            xs.append(x)
+            t = ext_mul_int(ext_mul_int(_ext_sub(e0, e1), ext_inv_int(x)), betas[l])
+            folded.append(_ext_add(_ext_add(e0, e1), t))
+        lsibs = felts(n_queries, d, 8)
+        root = _batch_roots({0: pairs}, lsibs, bits[:, l + 1:])
+        layers.append({"pairs": pairs, "sibs": lsibs, "commit": root, "x": xs,
+                       "folded": folded})
+        cur = folded
+    return {"alpha": alpha, "betas": betas, "idx": idx, "bits": bits, "opened": opened,
+            "sibs": sibs, "claims": claims, "commit": commit, "layers": layers,
+            "final": cur}
+
+
+def native_query_stream(n_queries=84, depth=21, n_layers=20, seed=0):
+    """The path-10 guest's input vectors, in the order it reads them: alpha
+    and the betas, then for each query its index, its main opening (opened
+    felts, siblings, commitment, claims) and each layer's (pair, siblings,
+    commitment, x)."""
+    inp = native_query_inputs(n_queries, depth, n_layers, seed)
+    out = [list(inp["alpha"]) + [v for beta in inp["betas"] for v in beta]]
+    for q in range(n_queries):
+        out.append([int(inp["idx"][q])])
+        out.append([int(v) for v in np.concatenate([
+            inp["opened"][q], inp["sibs"][q].reshape(-1), inp["commit"][q],
+            inp["claims"][q].reshape(-1)])])
+        for layer in inp["layers"]:
+            out.append([int(v) for v in np.concatenate([
+                layer["pairs"][q], layer["sibs"][q].reshape(-1), layer["commit"][q]])]
+                + list(layer["x"][q]))
+    return out
+
+
+def native_query_reference(n_queries=84, depth=21, n_layers=20, seed=0):
+    """The guest's 8 public values from its inputs: the accumulator
+    absorbs each query's final folded value and its index and is permuted,
+    then its halves are compressed."""
+    inp = native_query_inputs(n_queries, depth, n_layers, seed)
+    acc = np.zeros((1, 16), dtype=np.uint64)
+    for q in range(n_queries):
+        acc[0, :4] = _ext_add(tuple(int(v) for v in acc[0, :4]), inp["final"][q])
+        acc[0, 4] = (int(acc[0, 4]) + int(inp["idx"][q])) % P_NATIVE
+        acc = _perm_rows(acc)
+    return [int(v) for v in _perm_rows(acc)[0, :8]]
+
+
+def _native_rows(insn) -> dict:
+    """The rows one execution of a native instruction adds to each chip."""
+    op = insn.opcode
+    if FA.ADD <= op <= FA.DIV:
+        return {"native_field_arithmetic": 1}
+    if FE.FE4ADD <= op <= FE.BBE4DIV:
+        return {"native_field_extension": 1}
+    if op in (NB.BEQ, NB.BNE):
+        return {"native_branch_eq": 1}
+    if NL.LOADW <= op <= NL.HINT_STOREW:
+        return {"native_loadstore": 1}
+    if NL4.LOADW4 <= op <= NL4.HINT_STOREW4:
+        return {"native_loadstore4": 1}
+    if op in (NativeJalOpcode.JAL, NativeRangeCheckOpcode.RANGE_CHECK):
+        return {"native_jal_rangecheck": 1}
+    if op in (Poseidon2Opcode.PERM_POS2, Poseidon2Opcode.COMP_POS2):
+        return {"native_poseidon2": 1}
+    if op == FriOpcode.FRI_REDUCED_OPENING:
+        return {"fri_reduced_opening": insn.c}
+    if op == VerifyBatchOpcode.VERIFY_BATCH:
+        return {"verify_batch": 2 * insn.e + 1, "verify_batch_inside": insn.f}
+    if op == SystemOpcode.PHANTOM:
+        return {"phantom": 1}
+    raise ValueError(f"opcode {op:#x} is not a native one")
+
+
+def native_query_counts(n_queries=84, depth=21, n_layers=20, seed=0):
+    """Instructions the path-10 guest runs and each chip's rows (and
+    Poseidon2 permutations), from its regions: the loop body runs once a
+    query, each layer's "then" block when the index bit is 0 and its "else"
+    block when it is 1; the inputs give the bits."""
+    b, lab = native_query_asm(n_queries, depth, n_layers)
+    bits = native_query_inputs(n_queries, depth, n_layers, seed)["bits"]
+    times = [1] * lab["loop"] + [n_queries] * (lab["back"] + 1 - lab["loop"]) \
+        + [1] * (lab["end"] - lab["back"] - 1)
+    for l, ((t0, t1), (e0, e1)) in enumerate(zip(lab["then"], lab["else"])):
+        zeros = int((bits[:, l] == 0).sum())
+        times[t0:t1] = [zeros] * (t1 - t0)
+        times[e0:e1] = [n_queries - zeros] * (e1 - e0)
+    counts = collections.Counter()
+    for insn, k in zip(b.insns, times):
+        if insn.opcode == SystemOpcode.TERMINATE:
+            continue
+        counts["insns"] += k
+        for chip, rows in _native_rows(insn).items():
+            counts[chip] += k * rows
+    # Poseidon2Air's rows: native_poseidon2's, and verify_batch's compresses
+    # (a sibling row each, and an injected level) and sponge rows
+    vb_top = [insn for insn in b.insns if insn.opcode == VerifyBatchOpcode.VERIFY_BATCH]
+    injected = sum(1 for insn in vb_top if insn.e == depth)  # the main batch's level 1
+    counts["poseidon2"] = counts["native_poseidon2"] + counts["verify_batch_inside"] \
+        + (counts["verify_batch"] - n_queries * len(vb_top)) // 2 + n_queries * injected
+    return dict(counts)

@@ -1,33 +1,44 @@
-"""VirtualMachine: config, keygen, prove, verify, for RV32IM on the card.
+"""VirtualMachine: config, keygen, prove, verify, for RV32IM and the
+native (recursion) VM on the card.
 
 Port of openvm_tpu/vm/machine.py for the volatile- and persistent-memory
-configurations: ``Rv32Config`` (with ``bigint``, ``moduli``, ``curves``,
-``fp2``, ``keccak``, ``sha256`` and ``persistent``) and ``VirtualMachine`` (:44-96,
+configurations and the native VM: ``Rv32Config`` (with ``bigint``,
+``moduli``, ``curves``, ``fp2``, ``keccak``, ``sha256``, ``persistent``,
+``native`` and ``num_native_pvs`` :73-78), ``NATIVE_EXECUTORS`` (:121-126),
+``NativeConfig`` (:128-132) and ``VirtualMachine`` (:44-96,
 :98-119 the int256, keccak and sha256 AIRs and executor names, :135-193 with the
 executors appended at :168-176, int256 before keccak and sha256, the
 modular AIRs after RangeTupleCheckerAir :182-185, the ECC AIRs after
 them :186-188 and the Fp2 AIRs after those :189-191, the persistent system
-AIRs :150-158), ``_interp`` with the moduli, curves and Fp2 moduli
+AIRs :150-158, the native system AIRs :138-146: the native AIRs are in
+``_EXECUTOR_AIRS`` from import on, where the JAX package adds them in
+``__init__`` :147-149), ``_interp`` with the moduli, curves and Fp2 moduli
 (:236-240), ``keygen``
 without the disk cache (:195), ``commit_exe`` (:211) on the port's ``ntt``
 and ``merkle``, ``_segment_ctx`` (:242), ``execute_metered`` (:279),
 ``_initial_tree`` (:305), ``_persistent_traces`` (:316), ``prove``
 (:369-549, with ``state``, ``initial_tree``, ``fixed_heights``, ``nvm``,
 ``seg_ctx``, ``heights_only`` and ``debug``; up to the STARK prove in
-``_contexts``), ``_assemble`` (:551-589, the memory_merkle public values
-:580-581), ``_lookup_multiplicities`` (:591-660, on kernel K8 and the quotient
+``_contexts``; the native public-values and memory-boundary traces over
+address spaces 1, 2 and 4 :419-441 and the shared Poseidon2Air fed by
+native_poseidon2 and verify_batch's top and inside rows :442-445,
+:507-520), ``_assemble`` (:551-589, the native public values :576-579, the
+memory_merkle public values :580-581), ``_lookup_multiplicities`` (:591-660, on kernel K8 and the quotient
 interpreter's columns mode), the continuations ``_segment_sweep`` (:663),
 ``segment_height_profile`` (:698), ``prove_continuations`` (:718) and
 ``verify_segments`` (:745), ``verify`` (:790-833, the persistent branch
-:819-826) and ``commit_init_memory`` (:834).  The native (recursion) VM
-is a later slice of the port.
+:819-826, the native public values' AIR :828) and ``commit_init_memory``
+(:834).
 
 Every trace goes to the device once, as Montgomery words: the histograms
 read the executor traces there, and the prover takes the same tensors.
 The preflight runs the C++ core (``native.NativeVmHandle``) unless the
 caller passes ``native=False``; a core that does not build raises, in
 every entry point (the JAX package's continuations fall back to the
-Python loop there, machine.py:226-233,676-677; the port does not).
+Python loop there, machine.py:226-233,676-677; the port does not).  The
+native VM's config chooses the Python loop, whatever ``native=`` says:
+its felt memory in address space 4 lives in Python, as in the JAX
+package (machine.py:219-225).
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from .circuit.fp2 import fp2_airs
 from .circuit.keccak import KECCAK_AIRS
 from .circuit.merkle_chip import MemoryMerkleAir
 from .circuit.modular import modular_airs
+from .circuit.native import NATIVE_AIRS, NativePublicValuesAir
 from .circuit.persistent_boundary import PersistentBoundaryAir
 from .circuit.poseidon2_chip import Poseidon2Air
 from .circuit.sha256 import SHA256_AIRS
@@ -110,6 +122,12 @@ class Rv32Config:
     # persistent memory: Merkle-committed memory state (continuations mode,
     # reference SystemConfig.continuation_enabled)
     persistent: bool = False
+    # native (recursion) VM: felt-granular AS-4 memory, native extension
+    # chips, felt public values (reference NativeConfig,
+    # extensions/native/circuit/src/extension/mod.rs:89-167)
+    native: bool = False
+    # felt public values for the native VM (reference VmVerifierPvs sizing)
+    num_native_pvs: int = 16
 
     def __post_init__(self):
         if self.stark is None:
@@ -125,7 +143,7 @@ _EXECUTOR_AIRS = {
     "blt": BranchLtAir, "jal_lui": JalLuiAir, "jalr": JalrAir,
     "auipc": AuipcAir, "loadstore": LoadStoreAir, "shift": ShiftAir,
     "mul": MulAir, "divrem": DivRemAir, "hintstore": HintStoreAir,
-    **INT256_AIRS, **KECCAK_AIRS, **SHA256_AIRS,
+    **INT256_AIRS, **KECCAK_AIRS, **SHA256_AIRS, **NATIVE_AIRS,
 }
 
 INT256_EXECUTORS = ("int256_alu", "int256_lt", "int256_mul", "int256_beq",
@@ -135,15 +153,37 @@ KECCAK_EXECUTORS = ("keccak_sponge", "keccakf")
 
 SHA256_EXECUTORS = ("sha256_sponge", "sha256")
 
+NATIVE_EXECUTORS = ("native_field_arithmetic", "native_field_extension",
+                    "native_branch_eq", "native_loadstore",
+                    "native_loadstore4", "native_jal_rangecheck",
+                    "native_poseidon2", "fri_reduced_opening",
+                    "verify_batch", "verify_batch_inside")
+
+
+def NativeConfig(stark: StarkConfig = None, num_native_pvs: int = 16):
+    """VM config for the native (recursion) VM, native chips only
+    (machine.py:128; reference NativeConfig::aggregation,
+    extension/mod.rs:557-569)."""
+    return Rv32Config(stark=stark, native=True, executors=NATIVE_EXECUTORS,
+                      num_native_pvs=num_native_pvs)
+
 
 class VirtualMachine:
-    """The RV32IM VM, with volatile or persistent memory; its tensors live
-    on ``device`` (CUDA unless the caller names another)."""
+    """The RV32IM VM, with volatile or persistent memory, or the native VM;
+    its tensors live on ``device`` (CUDA unless the caller names
+    another)."""
 
     def __init__(self, config: Rv32Config | None = None, device=None):
         self.config = config or Rv32Config()
         self.device = resolve_device(device)
-        if self.config.persistent:
+        if self.config.native:
+            system = [
+                ProgramAir(), ConnectorAir(),
+                NativePublicValuesAir(self.config.num_native_pvs),
+                VolatileBoundaryAir(), Poseidon2Air(), RangeCheckerAir(),
+                BitwiseLookupAir(), PhantomAir(),
+            ]
+        elif self.config.persistent:
             system = [
                 ProgramAir(), ConnectorAir(), PersistentBoundaryAir(),
                 MemoryMerkleAir(), Poseidon2Air(), RangeCheckerAir(),
@@ -195,8 +235,18 @@ class VirtualMachine:
         return merkle.commit([lde]).root
 
     # -- preflight plumbing ---------------------------------------------
+    def _new_handle(self, exe: VmExe, native: bool):
+        """The C++ core's handle when ``native`` asks for it, else None.
+        The native VM's config takes the Python loop for every ``native``:
+        its felt memory model lives in Python (machine.py:219-225)."""
+        if not native or self.config.native:
+            return None
+        return NativeVmHandle(exe)
+
     def _interp(self, exe: VmExe) -> PreflightInterpreter:
-        return PreflightInterpreter(exe, self.config.num_pv_words,
+        return PreflightInterpreter(exe, (self.config.num_native_pvs
+                                          if self.config.native
+                                          else self.config.num_pv_words),
                                     moduli=self.config.moduli,
                                     curves=self.config.curves,
                                     fp2=self.config.fp2)
@@ -243,8 +293,9 @@ class VirtualMachine:
         """Count-only execution returning per-chip trace heights
         (machine.py:279).  On the C++ core the chips allocate no record
         buffers (count-only rows, the reference's metered height
-        counters); ``native=False`` runs the Python loop."""
-        nvm = NativeVmHandle(exe) if native else None
+        counters); ``native=False`` runs the Python loop, as the native VM
+        always does."""
+        nvm = self._new_handle(exe, native)
         if nvm is not None:
             nvm.set_mode(True)
         pre = self._interp(exe).execute(inputs, max_insns, nvm=nvm)
@@ -326,6 +377,46 @@ class VirtualMachine:
         pre.final_memory_tree = tree
         return [int(x) for x in init_root] + [int(x) for x in final_root]
 
+    # -- volatile and native-VM system traces ---------------------------
+    def _boundary_trace(self, pre, spaces: tuple) -> np.ndarray:
+        """The volatile memory boundary: a row for each touched word of the
+        address spaces ``spaces``, sorted by key (machine.py:457-477; the
+        native VM's spaces 1, 2 and 4, :422-441)."""
+        entries = sorted((k, v) for k, v in pre.touched.items() if k[0] in spaces)
+        brows = np.zeros((max(len(entries), 1),
+                          self.airs[self.air_index["memory_boundary"]].width),
+                         dtype=np.uint64)
+        for r, ((a_s, wa), w) in enumerate(entries):
+            brows[r, 0] = 1
+            brows[r, 1] = a_s
+            brows[r, 2] = wa
+            brows[r, 3:7] = pre.init_words[(a_s, wa)]
+            brows[r, 7:11] = w[:4]
+            brows[r, 11] = w[4]
+        keys = [a_s * (1 << 27) + wa for ((a_s, wa), _) in entries]
+        for r in range(len(entries) - 1):
+            d = keys[r + 1] - keys[r] - 1
+            brows[r, 12] = d & 0x7FFF
+            brows[r, 13] = d >> 15
+            brows[r, 14] = 1  # has_next_valid
+        return _pad_pow2(brows)
+
+    def _native_poseidon2_trace(self, traces, pre) -> np.ndarray:
+        """The shared Poseidon2Air's trace: the requests of native_poseidon2
+        and of verify_batch's top and inside rows, in that order
+        (machine.py:442-445, :507-520)."""
+        reqs = []
+        p2rec = pre.records.get("native_poseidon2")
+        if p2rec and len(p2rec["pc"]):
+            reqs.append(np.asarray(p2rec["inp"], dtype=np.uint64))
+        for name in ("verify_batch", "verify_batch_inside"):
+            if name in self.air_index and pre.records.get(name):
+                air = self.airs[self.air_index[name]]
+                reqs.append(air.p2_requests(traces[name]))
+        requests = (np.concatenate(reqs, axis=0) if reqs
+                    else np.zeros((0, 16), dtype=np.uint64))
+        return self.airs[self.air_index["poseidon2"]].trace(requests)
+
     # -- proving ---------------------------------------------------------
     def prove(self, exe: VmExe, inputs=None, max_insns=None, native=True,
               stages: dict | None = None, record: dict | None = None,
@@ -335,7 +426,8 @@ class VirtualMachine:
               debug: bool = False):
         """Preflight -> tracegen -> lookup histograms -> STARK proof.
         ``native=False`` runs the preflight's Python loop instead of the C++
-        core.  ``stages`` (a dict) gets the seconds of each stage, the STARK
+        core; the native VM's config runs the Python loop for either value.
+        ``stages`` (a dict) gets the seconds of each stage, the STARK
         prover's included; ``record`` (a dict) gets the proving contexts
         (``"ctxs"``), each executor AIR's tracegen seconds
         (``"tracegen_s"``), the inputs of the histogram kernels
@@ -377,8 +469,8 @@ class VirtualMachine:
                 stages[stage] = now - marks[0]
                 marks[0] = now
 
-        if native and nvm is None and state is None:
-            nvm = NativeVmHandle(exe)
+        if nvm is None and state is None:
+            nvm = self._new_handle(exe, native)
         if nvm is not None:
             nvm.set_mode(False)
         pre = self._interp(exe).execute(
@@ -410,6 +502,10 @@ class VirtualMachine:
             merkle_pvs = self._persistent_traces(traces, pre, exe,
                                                  initial_tree=initial_tree)
             mark("persistent_traces")
+        elif self.config.native:
+            pv_air = self.airs[self.air_index["native_public_values"]]
+            traces["native_public_values"] = pv_air.trace(pre.touched)
+            traces["memory_boundary"] = self._boundary_trace(pre, (1, 2, 4))
         else:
             # public values air: data + final ts per word
             npv = self.config.num_pv_words
@@ -421,28 +517,7 @@ class VirtualMachine:
                     pvt[i, :4] = w[:4]
                     pvt[i, 4] = w[4]
             traces["public_values"] = pvt
-
-            # boundary: touched words in AS 1 and 2, sorted by key
-            entries = sorted((k, v) for k, v in pre.touched.items()
-                             if k[0] in (1, 2))
-            brows = np.zeros((max(len(entries), 1),
-                              self.airs[self.air_index["memory_boundary"]].width),
-                             dtype=np.uint64)
-            for r, ((a_s, wa), w) in enumerate(entries):
-                init = pre.init_words[(a_s, wa)]
-                brows[r, 0] = 1
-                brows[r, 1] = a_s
-                brows[r, 2] = wa
-                brows[r, 3:7] = init
-                brows[r, 7:11] = w[:4]
-                brows[r, 11] = w[4]
-            keys = [a_s * (1 << 27) + wa for ((a_s, wa), _) in entries]
-            for r in range(len(entries) - 1):
-                d = keys[r + 1] - keys[r] - 1
-                brows[r, 12] = d & 0x7FFF
-                brows[r, 13] = d >> 15
-                brows[r, 14] = 1  # has_next_valid
-            traces["memory_boundary"] = _pad_pow2(brows)
+            traces["memory_boundary"] = self._boundary_trace(pre, (1, 2))
 
         # phantom
         ph = pre.records.get("phantom")
@@ -471,6 +546,10 @@ class VirtualMachine:
             traces[air.name] = (air.trace(rec) if rec else
                                 np.zeros((1, air.width), dtype=np.uint64))
             tracegen_s[air.name] = time.perf_counter() - t0
+        if self.config.native:
+            t0 = time.perf_counter()
+            traces["poseidon2"] = self._native_poseidon2_trace(traces, pre)
+            tracegen_s["poseidon2"] = time.perf_counter() - t0
         if record is not None:
             record["tracegen_s"] = tracegen_s
 
@@ -517,6 +596,10 @@ class VirtualMachine:
                     42 if suspended else pre.exit_code, 0 if suspended else 1]
             if air.name == "public_values":
                 kwargs["public_values"] = list(pre.public_values)
+            if air.name == "native_public_values":
+                kwargs["public_values"] = [
+                    (pre.touched.get((3, i)) or [0])[0]
+                    for i in range(self.config.num_native_pvs)]
             if air.name == "memory_merkle" and merkle_pvs is not None:
                 kwargs["public_values"] = merkle_pvs
             ctxs.append(AirProvingContext(**kwargs))
@@ -600,7 +683,7 @@ class VirtualMachine:
         ``records`` (segment index -> dict) gets the named segments'
         ``record``.  Returns the final memory tree."""
         tree, words = self._initial_tree(exe)
-        nvm = NativeVmHandle(exe) if native else None
+        nvm = self._new_handle(exe, native)
         seg_ctx = None
         if nvm is not None:
             seg_ctx = self._segment_ctx(nvm, segment_limits)
@@ -762,7 +845,9 @@ class VirtualMachine:
             result["initial_root"] = mk.public_values[:8]
             result["final_root"] = mk.public_values[8:]
         else:
-            pv_air = proof.per_air[self.air_index["public_values"]]
+            pv_name = ("native_public_values" if self.config.native
+                       else "public_values")
+            pv_air = proof.per_air[self.air_index[pv_name]]
             result["public_values"] = pv_air.public_values
         return result
 

@@ -1,6 +1,6 @@
 """Preflight (E3) execution: the record-generating interpreter, RV32IM,
-int256, modular arithmetic, short-Weierstrass ECC, Fp2, keccak256, sha256
-and the pairing hint.
+int256, modular arithmetic, short-Weierstrass ECC, Fp2, the native
+(recursion) VM, keccak256, sha256 and the pairing hint.
 
 Copy of openvm_tpu/vm/preflight.py:45-510 (records, memory, the RV32IM
 dispatch loop), :511-613 (the int256 handler), :614-697 (the modular
@@ -8,9 +8,15 @@ handler, taken only when the config has moduli, as the JAX package's
 guard takes it), :698-778 (the EC_ADD_NE and EC_DOUBLE handler, taken only
 for a configured curve, its record layouts and ExecutionErrors unchanged),
 :779-843 (the Fp2 ADD/SUB/MUL/DIV handler, taken only for a configured
-Fp2 modulus, its record layouts and ExecutionErrors unchanged),
-:1199-1364 (the KECCAK256 and SHA256 handlers, their
-record layouts unchanged), :1365-1476 (phantom with the HintFinalExp
+Fp2 modulus, its record layouts and ExecutionErrors unchanged), the
+native VM's handlers over felt memory in address space 4 (felt arithmetic
+:844-878, extension arithmetic :879-911, BEQ/BNE :912-934, loadstore and
+loadstore4 with HINT_STOREW(4) :935-981, JAL and RANGE_CHECK :982-1004,
+FRI_REDUCED_OPENING :1005-1053, VERIFY_BATCH :1054-1176, PERM_POS2 and
+COMP_POS2 :1177-1198, their record layouts and ExecutionErrors
+unchanged), :1199-1364 (the KECCAK256 and SHA256 handlers, their
+record layouts unchanged), :1365-1476 (phantom with the native phantoms
+HINT_INPUT, HINT_FELT, HINT_BITS and PRINT :1377-1400, the HintFinalExp
 phantom :1401-1414, whose reads of guest registers and memory are peeks
 without bus accesses, the HINT_NON_QR and HINT_SQRT phantoms
 :1415-1430, terminate, finalize) and the continuation
@@ -20,11 +26,11 @@ the resume and ``py_stats`` logic of ``execute`` (:133-200), its
 ``max_insns`` suspend and metered boundary, and the suspended-state dicts
 (:1440-1476).  With a
 ``native.NativeVmHandle`` the C++ core (csrc/host/preflight.cpp) runs the
-RV32IM instruction runs and this loop dispatches what it yields on.  The
-opcodes of the native extension and the native phantoms raise
-NotImplementedError: their chips are a later slice of the port.  A
-modular, ECC or Fp2 opcode in a config without its modulus or curve ends
-as in the JAX package, in an ExecutionError.
+RV32IM instruction runs and this loop dispatches what it yields on; the
+native VM's felt memory lives here, so its programs run this loop alone
+(``machine.VirtualMachine`` makes no handle for them).  A modular, ECC or
+Fp2 opcode in a config without its modulus or curve, and an opcode no
+family owns, end as in the JAX package, in an ExecutionError.
 
 Timestamp discipline mirrors the AIRs exactly: each instruction starts at
 `ts` and performs its accesses at fixed ticks (slot k at ts+k), advancing
@@ -57,30 +63,26 @@ from .circuit.sha256 import W_WINDOW as SWW
 from .instructions import (BaseAlu256Opcode, BaseAluOpcode,
                            BranchEqual256Opcode, BranchEqualOpcode,
                            BranchLessThan256Opcode, BranchLessThanOpcode,
-                           DivRemOpcode, LessThan256Opcode, LessThanOpcode,
-                           ModularPhantom, Mul256Opcode, MulHOpcode,
-                           MulOpcode, P, PairingPhantom, Rv32AuipcOpcode,
+                           DivRemOpcode, FieldArithmeticOpcode,
+                           FieldExtensionOpcode, FriOpcode, LessThan256Opcode,
+                           LessThanOpcode, ModularPhantom, Mul256Opcode,
+                           MulHOpcode, MulOpcode, NativeBranchEqOpcode,
+                           NativeJalOpcode, NativeLoadStore4Opcode,
+                           NativeLoadStoreOpcode, NativePhantom,
+                           NativeRangeCheckOpcode, P, PairingPhantom,
+                           Poseidon2Opcode, Rv32AuipcOpcode,
                            Rv32HintStoreOpcode, Rv32JalLuiOpcode,
                            Rv32JalrOpcode, Rv32KeccakOpcode,
                            Rv32LoadStoreOpcode, Rv32Phantom,
                            Rv32Sha256Opcode, Shift256Opcode, ShiftOpcode,
-                           SystemOpcode, VmExe)
+                           SystemOpcode, VerifyBatchOpcode, VmExe)
 from .interpreter import ExecutionError, Streams, _imm16, _imm24, _s32
+from .memory_tree import _host
 from .native import PF_INSN_LIMIT, PF_MEM_ERROR, PF_SEGMENT_FULL
+from ..field.babybear import ext_inv_int, ext_mul_int
 from ..pairing.final_exp import hint_final_exp_bytes
 
 M32 = 0xFFFFFFFF
-
-
-def _is_extension(op: int) -> bool:
-    """Native opcodes (0x100-0x1ff, instructions.py): a later slice of the
-    port."""
-    return 0x100 <= op < 0x200
-
-
-# NativePhantom (0x10-0x14): the native extension's phantoms
-# (instructions.py).
-_EXTENSION_PHANTOMS = frozenset(range(0x10, 0x15))
 
 
 @dataclass
@@ -838,6 +840,357 @@ class PreflightInterpreter:
                 pc, ts = pc + 4, ts + 51
 
 
+            elif (FieldArithmeticOpcode.ADD <= op
+                  <= FieldArithmeticOpcode.DIV):
+                # native felt arithmetic (reference field_arithmetic/)
+                r = recs["native_field_arithmetic"]
+                oi = op - FieldArithmeticOpcode.ADD
+                b_imm, c_imm = int(e == 0), int(f == 0)
+                if b_imm:
+                    bv, p1 = b, 0
+                else:
+                    w, p1 = mem.read(4, b, ts)
+                    bv = w[0]
+                if c_imm:
+                    cv, p2 = c, 0
+                else:
+                    w, p2 = mem.read(4, c, ts + 1)
+                    cv = w[0]
+                if oi == 0:
+                    res = (bv + cv) % P
+                elif oi == 1:
+                    res = (bv - cv) % P
+                elif oi == 2:
+                    res = (bv * cv) % P
+                else:
+                    if cv % P == 0:
+                        raise ExecutionError(f"felt div by zero at {pc:#x}")
+                    res = (bv * pow(cv, -1, P)) % P
+                if d == 3 and a >= self.num_pv_words:
+                    raise ExecutionError("native pv index out of range")
+                prevw, pw = mem.write(d, a, [res, 0, 0, 0], ts + 2)
+                _append(r, pc=pc, ts=ts, op_idx=oi, a=a, b=b, c=c,
+                        dst_as=d, b_imm=b_imm, c_imm=c_imm, b_val=bv,
+                        c_val=cv, result=res, p_tsb=p1, p_tsc=p2, p_tsw=pw,
+                        prev_w=prevw[0])
+                pc, ts = pc + 4, ts + 3
+
+            elif (FieldExtensionOpcode.FE4ADD <= op
+                  <= FieldExtensionOpcode.BBE4DIV):
+                r = recs["native_field_extension"]
+                oi = op - FieldExtensionOpcode.FE4ADD
+                x, pts_x = [], []
+                for i in range(4):
+                    w, p_ = mem.read(4, b + i, ts + i)
+                    x.append(w[0]), pts_x.append(p_)
+                y, pts_y = [], []
+                for i in range(4):
+                    w, p_ = mem.read(4, c + i, ts + 4 + i)
+                    y.append(w[0]), pts_y.append(p_)
+                if oi == 0:
+                    z = [(x[i] + y[i]) % P for i in range(4)]
+                elif oi == 1:
+                    z = [(x[i] - y[i]) % P for i in range(4)]
+                elif oi == 2:
+                    z = list(ext_mul_int(tuple(x), tuple(y)))
+                else:
+                    if all(v == 0 for v in y):
+                        raise ExecutionError(f"ext div by zero at {pc:#x}")
+                    z = list(ext_mul_int(tuple(x), ext_inv_int(tuple(y))))
+                prev_z, pts_z = [], []
+                for i in range(4):
+                    pw_, pz = mem.write(4, a + i, [z[i], 0, 0, 0],
+                                        ts + 8 + i)
+                    prev_z.append(pw_[0]), pts_z.append(pz)
+                _append(r, pc=pc, ts=ts, op_idx=oi, a=a, b=b, c=c, x=x,
+                        y=y, z=z, pts_x=pts_x, pts_y=pts_y, pts_z=pts_z,
+                        prev_z=prev_z)
+                pc, ts = pc + 4, ts + 12
+
+            elif op in (NativeBranchEqOpcode.BEQ, NativeBranchEqOpcode.BNE):
+                r = recs["native_branch_eq"]
+                a_imm, b_imm = int(d == 0), int(e == 0)
+                if a_imm:
+                    xv, p1 = a, 0
+                else:
+                    w, p1 = mem.read(4, a, ts)
+                    xv = w[0]
+                if b_imm:
+                    yv, p2 = b, 0
+                else:
+                    w, p2 = mem.read(4, b, ts + 1)
+                    yv = w[0]
+                eq = (xv - yv) % P == 0
+                taken = eq if op == NativeBranchEqOpcode.BEQ else not eq
+                off = c if c <= P // 2 else c - P
+                to_pc = (pc + off) if taken else pc + 4
+                _append(r, pc=pc, ts=ts,
+                        op_idx=op - NativeBranchEqOpcode.BEQ, a=a, b=b,
+                        imm=c, a_imm=a_imm, b_imm=b_imm, x_val=xv, y_val=yv,
+                        to_pc=to_pc, p_ts1=p1, p_ts2=p2)
+                pc, ts = to_pc, ts + 2
+
+            elif (NativeLoadStoreOpcode.LOADW <= op
+                  <= NativeLoadStoreOpcode.HINT_STOREW) or (
+                      NativeLoadStore4Opcode.LOADW4 <= op
+                      <= NativeLoadStore4Opcode.HINT_STOREW4):
+                is4 = op >= NativeLoadStore4Opcode.LOADW4
+                N = 4 if is4 else 1
+                r = recs["native_loadstore4" if is4 else "native_loadstore"]
+                base = (NativeLoadStore4Opcode.LOADW4 if is4
+                        else NativeLoadStoreOpcode.LOADW)
+                oi = op - base  # 0 load, 1 store, 2 hint
+                has_ptr = int(f == 4)
+                if has_ptr:
+                    w, pp = mem.read(4, c, ts)
+                    ptr_val = w[0]
+                else:
+                    ptr_val, pp = c, 0
+                ptr = (ptr_val + b) % P
+                if ptr >= (1 << 27):
+                    raise ExecutionError(
+                        f"native pointer {ptr:#x} out of range at {pc:#x}")
+                data, pts_r = [], []
+                if oi == 0:
+                    for i in range(N):
+                        w, p_ = mem.read(4, ptr + i, ts + 1 + i)
+                        data.append(w[0]), pts_r.append(p_)
+                elif oi == 1:
+                    for i in range(N):
+                        w, p_ = mem.read(4, a + i, ts + 1 + i)
+                        data.append(w[0]), pts_r.append(p_)
+                else:
+                    hs = streams.hint_stream
+                    if len(hs) < N:
+                        raise ExecutionError("hint stream underflow")
+                    data = [int(v) % P for v in hs[:N]]
+                    del hs[:N]
+                    pts_r = [0] * N
+                w_base = a if oi == 0 else ptr
+                prev_w, pts_w = [], []
+                for i in range(N):
+                    pw_, pz = mem.write(4, w_base + i, [data[i], 0, 0, 0],
+                                        ts + 1 + N + i)
+                    prev_w.append(pw_[0]), pts_w.append(pz)
+                _append(r, pc=pc, ts=ts, op_idx=oi, a=a, b=b, c=c,
+                        has_ptr=has_ptr, ptr_val=ptr_val, data=data,
+                        p_tsp=pp, pts_r=pts_r, pts_w=pts_w, prev_w=prev_w)
+                pc, ts = pc + 4, ts + 1 + 2 * N
+
+            elif op in (NativeJalOpcode.JAL,
+                        NativeRangeCheckOpcode.RANGE_CHECK):
+                r = recs["native_jal_rangecheck"]
+                if op == NativeJalOpcode.JAL:
+                    prevw, pw = mem.write(4, a, [(pc + 4) % P, 0, 0, 0], ts)
+                    off = b if b <= P // 2 else b - P
+                    to_pc = pc + off
+                    _append(r, pc=pc, ts=ts, op_idx=0, a=a, b=b, c=0, y=0,
+                            prev_w=prevw[0], p_tsw=pw)
+                else:
+                    cur = mem._get((4, a))[:4]
+                    x = cur[0]
+                    prevw, pw = mem.write(4, a, list(cur), ts)
+                    x_lo, x_hi = x & 0x7FFF, x >> 15
+                    if x_lo >= (1 << b) or x_hi >= (1 << c):
+                        raise ExecutionError(
+                            f"RANGE_CHECK failed: {x:#x} !< 2^16*{c}+{b} "
+                            f"bits at pc {pc:#x}")
+                    to_pc = pc + 4
+                    _append(r, pc=pc, ts=ts, op_idx=1, a=a, b=b, c=c,
+                            y=x_hi, prev_w=prevw[0], p_tsw=pw)
+                pc, ts = to_pc, ts + 1
+
+            elif op == FriOpcode.FRI_REDUCED_OPENING:
+                # result = sum_t alpha^t (b[t] - a[t]); len rows in
+                # descending t (vm/circuit/native.py FriReducedOpeningAir)
+                r = recs["fri_reduced_opening"]
+                a_ptr, b_ptr, length = a, b, c
+                alpha_ptr, result_ptr = d, e
+                if length < 1:
+                    raise ExecutionError(
+                        f"FRI_REDUCED_OPENING length 0 at pc {pc:#x}")
+                alpha, pts_alpha = [], []
+                for k in range(4):
+                    w, p_ = mem.read(4, alpha_ptr + k, ts + 5 * length + k)
+                    alpha.append(w[0]), pts_alpha.append(p_)
+                acc = (0, 0, 0, 0)
+                for row, t_ in enumerate(range(length - 1, -1, -1)):
+                    ts_row = ts + 5 * row
+                    w, pa = mem.read(4, a_ptr + t_, ts_row)
+                    av = w[0]
+                    bv, pts_b = [], []
+                    for k in range(4):
+                        w, p_ = mem.read(4, b_ptr + 4 * t_ + k,
+                                         ts_row + 1 + k)
+                        bv.append(w[0]), pts_b.append(p_)
+                    diff = ((bv[0] - av) % P, bv[1], bv[2], bv[3])
+                    if row == 0:
+                        acc = diff
+                    else:
+                        prod = ext_mul_int(acc, tuple(alpha))
+                        acc = tuple((prod[k] + diff[k]) % P
+                                    for k in range(4))
+                    is_end = int(t_ == 0)
+                    prev_res, pts_res = [0] * 4, [0] * 4
+                    if is_end:
+                        for k in range(4):
+                            pw_, pz = mem.write(
+                                4, result_ptr + k, [acc[k], 0, 0, 0],
+                                ts + 5 * length + 4 + k)
+                            prev_res[k], pts_res[k] = pw_[0], pz
+                    _append(r, pc=pc, ts=ts, is_start=int(row == 0),
+                            is_end=is_end, a_ptr=a_ptr, b_ptr=b_ptr,
+                            length=length, alpha_ptr=alpha_ptr,
+                            result_ptr=result_ptr, t=t_, alpha=list(alpha),
+                            a_val=av, b_val=list(bv), acc=list(acc),
+                            pts_a=pa, pts_b=pts_b,
+                            pts_alpha=pts_alpha if is_end else [0] * 4,
+                            pts_res=pts_res, prev_res=prev_res)
+                pc, ts = pc + 4, ts + 5 * length + 8
+
+            elif op == VerifyBatchOpcode.VERIFY_BATCH:
+                # whole Merkle batch opening as one instruction
+                # (vm/circuit/native.py VerifyBatchAir docstring spec)
+                r_top = recs["verify_batch"]
+                r_ins = recs["verify_batch_inside"]
+                desc_ptr, sib_ptr, bits_ptr, commit_ptr, depth = a, b, c, d, e
+                perm = lambda st16: [int(x) for x in _host().permute(
+                    np.asarray(st16, dtype=np.uint64))]
+                ts0 = ts
+                bit_base = ts0 + 3 * (depth + 1)
+                sib_base = bit_base + depth
+                comm_base = bit_base + 9 * depth
+                ts_acc = comm_base + 8
+                node = [0] * 8
+                zero8 = [0] * 8
+
+                def fr(addr, tick):
+                    w, p_ = mem.read(4, addr, tick)
+                    return w[0], p_
+
+                for s_ in range(depth + 1):
+                    has_seg, pd0 = fr(desc_ptr + 3 * s_, ts0 + 3 * s_)
+                    segp, pd1 = fr(desc_ptr + 3 * s_ + 1, ts0 + 3 * s_ + 1)
+                    segl, pd2 = fr(desc_ptr + 3 * s_ + 2, ts0 + 3 * s_ + 2)
+                    if s_ == 0 and not has_seg:
+                        raise ExecutionError(
+                            f"VERIFY_BATCH level 0 empty at pc {pc:#x}")
+                    digest, n_rows, ts_add = zero8, 0, 0
+                    if has_seg:
+                        if segl < 1:
+                            raise ExecutionError(
+                                f"VERIFY_BATCH empty segment at pc {pc:#x}")
+                        state = [0] * 16
+                        n_rows = (segl + 7) // 8
+                        rem = segl
+                        for j in range(n_rows):
+                            cnt = min(8, rem)
+                            act = [int(i < cnt) for i in range(8)]
+                            absorbed, pts_m = [], []
+                            state_in = list(state)
+                            for i in range(8):
+                                if act[i]:
+                                    v_, p_ = fr(segp + 8 * j + i,
+                                                ts_acc + 8 * j + i)
+                                    absorbed.append(v_), pts_m.append(p_)
+                                else:
+                                    absorbed.append(state_in[i])
+                                    pts_m.append(0)
+                            state = perm(absorbed + state_in[8:])
+                            _append(r_ins, ts_seg=ts_acc, seg_ptr=segp,
+                                    seg_len=segl, j=j, rem=rem,
+                                    is_first=int(j == 0),
+                                    is_last=int(j == n_rows - 1),
+                                    act=act, absorbed=absorbed,
+                                    state_in=state_in, state_out=state,
+                                    pts_m=pts_m)
+                            rem -= cnt
+                        digest = state[:8]
+                        ts_add = 8 * n_rows
+                    node_in = list(node)
+                    out_hi = zero8
+                    if s_ == 0:
+                        node = list(digest)
+                    elif has_seg:
+                        out = perm(node_in + list(digest))
+                        node, out_hi = out[:8], out[8:]
+                    is_end = int(s_ == depth)
+                    comm, pts_comm = zero8, [0] * 8
+                    if is_end:
+                        comm, pts_comm = [], []
+                        for k in range(8):
+                            v_, p_ = fr(commit_ptr + k, comm_base + k)
+                            comm.append(v_), pts_comm.append(p_)
+                        if comm != node:
+                            raise ExecutionError(
+                                f"VERIFY_BATCH commitment mismatch at pc "
+                                f"{pc:#x}")
+                    _append(r_top, pc=pc, ts=ts0, depth=depth, f_op=f,
+                            desc_ptr=desc_ptr, sib_ptr=sib_ptr,
+                            bits_ptr=bits_ptr, commit_ptr=commit_ptr,
+                            s=s_, is_lvl=1, is_sib=0,
+                            is_start=int(s_ == 0), is_end=is_end,
+                            ts_acc=ts_acc, ts_add=ts_add, has_seg=has_seg,
+                            seg_ptr=segp, seg_len=segl, n_rows=n_rows,
+                            bit=0, node_in=node_in, node=list(node),
+                            digest=list(digest), out_hi=list(out_hi),
+                            sib=zero8, in_l=zero8, in_r=zero8, comm=comm,
+                            pts_d=[pd0, pd1, pd2], pts_bit=0,
+                            pts_sib=[0] * 8, pts_comm=pts_comm)
+                    ts_acc += ts_add
+                    if s_ == depth:
+                        break
+                    # sibling compress row
+                    bitv, pbit = fr(bits_ptr + s_, bit_base + s_)
+                    if bitv not in (0, 1):
+                        raise ExecutionError(
+                            f"VERIFY_BATCH non-boolean index bit at pc "
+                            f"{pc:#x}")
+                    sib, pts_sib = [], []
+                    for k in range(8):
+                        v_, p_ = fr(sib_ptr + 8 * s_ + k,
+                                    sib_base + 8 * s_ + k)
+                        sib.append(v_), pts_sib.append(p_)
+                    node_in = list(node)
+                    in_l = sib if bitv else node_in
+                    in_r = node_in if bitv else sib
+                    out = perm(list(in_l) + list(in_r))
+                    node, out_hi = out[:8], out[8:]
+                    _append(r_top, pc=pc, ts=ts0, depth=depth, f_op=f,
+                            desc_ptr=desc_ptr, sib_ptr=sib_ptr,
+                            bits_ptr=bits_ptr, commit_ptr=commit_ptr,
+                            s=s_, is_lvl=0, is_sib=1, is_start=0,
+                            is_end=0, ts_acc=ts_acc, ts_add=0, has_seg=0,
+                            seg_ptr=0, seg_len=0, n_rows=0, bit=bitv,
+                            node_in=node_in, node=list(node),
+                            digest=zero8, out_hi=list(out_hi),
+                            sib=list(sib), in_l=list(in_l),
+                            in_r=list(in_r), comm=zero8,
+                            pts_d=[0, 0, 0], pts_bit=pbit,
+                            pts_sib=pts_sib, pts_comm=[0] * 8)
+                pc, ts = pc + 4, ts_acc
+
+            elif op in (Poseidon2Opcode.PERM_POS2, Poseidon2Opcode.COMP_POS2):
+                r = recs["native_poseidon2"]
+                is_comp = int(op == Poseidon2Opcode.COMP_POS2)
+                inp, pts_r = [], []
+                for i in range(16):
+                    addr = (b + i) if (i < 8 or not is_comp) else (c + i - 8)
+                    w, p_ = mem.read(4, addr, ts + i)
+                    inp.append(w[0]), pts_r.append(p_)
+                out = [int(v) for v in _host().permute(
+                    np.asarray(inp, dtype=np.uint64))]
+                n_w = 8 if is_comp else 16
+                prev_w, pts_w = [0] * 16, [0] * 16
+                for i in range(n_w):
+                    pw_, pz = mem.write(4, a + i, [out[i], 0, 0, 0],
+                                        ts + 16 + i)
+                    prev_w[i], pts_w[i] = pw_[0], pz
+                _append(r, pc=pc, ts=ts, op_idx=is_comp, a=a, b=b, c=c,
+                        inp=inp, out=out, pts_r=pts_r, pts_w=pts_w,
+                        prev_w=prev_w)
+                pc, ts = pc + 4, ts + 32
+
             elif op == Rv32KeccakOpcode.KECCAK256:
                 r = recs["keccak_sponge"]
                 rf = recs["keccakf"]
@@ -1041,17 +1394,32 @@ class PreflightInterpreter:
                               for k in range(nl)), "little")
                     streams.hint_stream.clear()
                     streams.hint_stream.extend(sqrt_hint_bytes(xv, mod))
-                elif disc in _EXTENSION_PHANTOMS:
-                    raise NotImplementedError(
-                        f"phantom {disc:#x} belongs to an extension the port "
-                        "does not have yet")
+                elif disc == NativePhantom.HINT_INPUT:
+                    # native hints are felts: [len] + felts (reference
+                    # NativeHintInputSubEx, extension/mod.rs:358-388)
+                    if not streams.input_stream:
+                        raise ExecutionError("EndOfInputStream")
+                    hint = list(streams.input_stream.pop(0))
+                    streams.hint_stream.clear()
+                    streams.hint_stream.append(len(hint))
+                    streams.hint_stream.extend(int(v) % P for v in hint)
+                elif disc == NativePhantom.HINT_FELT:
+                    if not streams.input_stream:
+                        raise ExecutionError("EndOfInputStream")
+                    hint = list(streams.input_stream.pop(0))
+                    streams.hint_stream.clear()
+                    streams.hint_stream.extend(int(v) % P for v in hint)
+                elif disc == NativePhantom.HINT_BITS:
+                    val = mem._get((4, a))[0]  # peek: no bus access
+                    streams.hint_stream.clear()
+                    for _i in range(b):
+                        streams.hint_stream.append(val & 1)
+                        val >>= 1
+                elif disc == NativePhantom.PRINT:
+                    w = mem._get(((c >> 16) or 4, a))
+                    print(f"[native print] {w[0]}")
                 _append(r, pc=pc, ts=ts, a=a, b=b, c=c)
                 pc, ts = pc + 4, ts + 1
-
-            elif _is_extension(op):
-                raise NotImplementedError(
-                    f"opcode {op:#x} at pc {pc:#x} belongs to an extension "
-                    "the port does not have yet")
 
             else:
                 raise ExecutionError(

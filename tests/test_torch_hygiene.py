@@ -83,9 +83,44 @@ def test_ctypes_signatures_match_the_cuda_sources():
 
 def test_every_port_package_is_checked():
     """The import check above walks every module of the port: the pairing
-    host library and the Fp2 and Fp12 circuit modules among them."""
+    host library, the Fp2, Fp12 and native circuit modules and the native
+    Builder among them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for module in ("pairing/__init__.py", "pairing/tower.py", "pairing/curve.py",
                    "pairing/miller.py", "pairing/final_exp.py", "vm/circuit/fp2.py",
-                   "vm/circuit/fp12.py"):
+                   "vm/circuit/fp12.py", "vm/circuit/native.py",
+                   "native_compiler/__init__.py", "native_compiler/builder.py"):
         assert f"openvm_tpu_torch/{module}" in names, module
+
+
+def test_native_config_takes_the_python_loop(tmp_path, monkeypatch):
+    """A prove under NativeConfig makes no NativeVmHandle, whatever
+    ``native=`` says: the config chooses the Python loop.  Under the RV32
+    config a core that does not build still raises, as in
+    tests/test_torch_vm.py::test_preflight_build_failure_raises."""
+    from openvm_tpu_torch.stark import FriParameters, StarkConfig
+    from openvm_tpu_torch.vm import machine, native
+    from openvm_tpu_torch.vm.guest import (NATIVE_INPUTS, build_fib_program,
+                                           build_native_program)
+
+    def no_handle(exe):
+        raise AssertionError("NativeVmHandle made for a native-VM program")
+
+    cfg = StarkConfig(fri=FriParameters(log_blowup=1, num_queries=2, proof_of_work_bits=1))
+    vm = machine.VirtualMachine(machine.NativeConfig(stark=cfg), device="cpu")
+    vm.keygen()
+    with monkeypatch.context() as mp:
+        mp.setattr(machine, "NativeVmHandle", no_handle)
+        for flag in (True, False):
+            heights, pre = vm.prove(build_native_program(), inputs=NATIVE_INPUTS,
+                                    native=flag, heights_only=True)
+            assert pre.exit_code == 0 and pre.touched[(3, 0)][0] == 3
+            assert heights["native_poseidon2"] == 2 and heights["poseidon2"] == 2
+    bad = tmp_path / "preflight.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "PF_CPP", bad)
+    monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(native, "_pf_lib", None)
+    rv32 = machine.VirtualMachine(machine.Rv32Config(stark=cfg), device="cpu")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        rv32.execute_metered(build_fib_program(1))

@@ -11,8 +11,8 @@ and holds the port's proof of the guest to the JAX package's
 (``FIB10_PROOF_SHA256``) and to its verifier; the JAX keygen and the
 port's prove stay there, in a file of few tests, so that this one takes a
 few seconds.  The preflight's Python loop and C++ core record the same
-rows, a core that does not build raises, and an opcode of an extension
-the port lacks raises.
+rows, a core that does not build raises, an opcode no family owns ends
+as in the JAX package and the native phantoms behave as its.
 """
 
 import dataclasses
@@ -192,18 +192,60 @@ def test_preflight_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_extension_opcode_raises_not_implemented():
-    """An opcode of the family the port does not have yet, the native
-    extension (0x100-0x1ff: its first and last), and its phantoms (0x10
-    to 0x14) raise; the Fp2 words (custom-1, funct3 0b010) and the
-    pairing word (funct3 0b011) transpile to the JAX package's Fp2 ADD and
-    HintFinalExp phantom."""
-    for insn in (Instruction(0x100, a=4, b=8, c=12, d=4, e=4),
-                 Instruction(0x1FF, a=4, b=8, c=12, d=4, e=4),
-                 *(Instruction(SystemOpcode.PHANTOM, a=4, b=8, c=disc)
-                   for disc in range(0x10, 0x15))):
-        exe = VmExe(program=Program(instructions=[insn]), pc_start=0)
-        with pytest.raises(NotImplementedError):
-            PreflightInterpreter(exe).execute()
+    """Now that the native opcodes exist: an opcode in 0x100-0x1ff that no
+    native family owns (0x1FF) ends in the JAX package's ExecutionError,
+    word for word, through the Python loop and the C++ core; the native
+    phantoms (HINT_INPUT, HINT_FELT, HINT_BITS, PRINT and the unhandled
+    HINT_LOAD, 0x10 to 0x14) give the JAX package's records and touched
+    words; the Fp2 words (custom-1, funct3 0b010) and the pairing word
+    (funct3 0b011) transpile to the JAX package's Fp2 ADD and HintFinalExp
+    phantom."""
+    from openvm_tpu.vm.instructions import Instruction as JaxInstruction
+    from openvm_tpu.vm.instructions import Program as JaxProgram
+    from openvm_tpu.vm.instructions import VmExe as JaxVmExe
+    from openvm_tpu.vm.interpreter import ExecutionError as JaxExecutionError
+    from openvm_tpu.vm.preflight import PreflightInterpreter as JaxPreflight
+    from openvm_tpu_torch.vm.instructions import (FieldArithmeticOpcode, NativePhantom,
+                                                  NativeLoadStore4Opcode, phantom)
+    from openvm_tpu_torch.vm.interpreter import ExecutionError
+
+    def both(insns):
+        exe = VmExe(program=Program(instructions=insns), pc_start=0)
+        return exe, JaxVmExe(program=JaxProgram(
+            instructions=[JaxInstruction(*dataclasses.astuple(i)) for i in insns],
+            pc_base=0), pc_start=0)
+
+    exe, jexe = both([Instruction(0x1FF, a=4, b=8, c=12, d=4, e=4)])
+    with pytest.raises(JaxExecutionError) as theirs:
+        JaxPreflight(jexe).execute()
+    with pytest.raises(ExecutionError) as ours:
+        PreflightInterpreter(exe).execute()
+    with pytest.raises(ExecutionError) as core:
+        PreflightInterpreter(exe).execute(nvm=native.NativeVmHandle(exe))
+    assert str(ours.value) == str(core.value) == str(theirs.value) == \
+        "opcode 0x1ff has no circuit support yet"
+    hint4 = NativeLoadStore4Opcode.HINT_STOREW4
+    exe, jexe = both([
+        Instruction(FieldArithmeticOpcode.ADD, a=7, b=13, c=0, d=4, e=0, f=0),
+        phantom(NativePhantom.HINT_INPUT),
+        Instruction(hint4, a=0, b=0, c=40, d=4, e=4, f=0),
+        phantom(NativePhantom.HINT_FELT),
+        Instruction(hint4, a=0, b=0, c=44, d=4, e=4, f=0),
+        phantom(NativePhantom.HINT_BITS, a=7, b=4),
+        Instruction(hint4, a=0, b=0, c=48, d=4, e=4, f=0),
+        phantom(NativePhantom.PRINT, a=7, c_upper=4),
+        phantom(NativePhantom.HINT_LOAD),
+        Instruction(SystemOpcode.TERMINATE, c=0)])
+    inputs = [[5, 9, 11], [21, 22, 23, 24]]
+    ours, theirs = PreflightInterpreter(exe).execute(inputs), JaxPreflight(jexe).execute(inputs)
+    assert sorted(ours.records) == sorted(theirs.records) == [
+        "native_field_arithmetic", "native_loadstore4", "phantom"]
+    for chip, cols in theirs.records.items():
+        for col, v in cols.items():
+            assert np.array_equal(ours.records[chip][col], v), (chip, col)
+    assert ours.touched == theirs.touched and ours.exit_code == theirs.exit_code == 0
+    assert [ours.touched[(4, a)][0] for a in range(40, 52)] == \
+        [3, 5, 9, 11, 21, 22, 23, 24, 1, 0, 1, 1]
     fp2 = (2 << 20) | (1 << 15) | (0b010 << 12) | (3 << 7) | 0x2B
     pairing = (2 << 20) | (1 << 15) | (0b011 << 12) | 0x2B
     ours = Transpiler().transpile([fp2, pairing])
