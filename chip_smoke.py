@@ -144,8 +144,8 @@ Phases, each printing one JSON line:
             last block's next rows wrapping to the first); K7's streamed
             launch timed on segment 0's keccakf and keccak_sponge jobs
             beside its bound and the global-memory mode's figure, keccakf and
-            keccak_sponge at budgets of 256 to 384 words and 32 to 128
-            threads a block
+            keccak_sponge compiled at budgets of 48 to 384 words, each
+            against plain on its first 2^14 rows
   sha256    path 6, the sha256 extension: VirtualMachine(sha256=True)
             keygen -> prove -> verify of build_sha256_iter_program(4,000),
             12,009 instructions (Sha256Air 2^18 rows), one cold prove; the
@@ -213,8 +213,29 @@ Phases, each printing one JSON line:
             alone with its jobs and the shared one without it against
             their bounds; every kernel against plain on the prove's own
             inputs
+  leaf      path 11, the leaf verifier: build_leaf_program over path 4's
+            first segment proof (its VM's verifying key and log degrees;
+            no app prove again) and serialize_proof_felts, then
+            VirtualMachine(NativeConfig(num_native_pvs=44)) keygen ->
+            commit_exe -> prove -> verify of that program at natural heights
+            and the production profile, one cold prove: the leaf program
+            verifies the segment's STARK proof inside the native VM (about
+            280,000 instructions, 40,000 host Poseidon2 permutations in
+            the preflight); the 44 public values against the reference's
+            leaf layout read from the segment's own proof (its program
+            commitment, the connector's and the memory tree's public
+            values, zeros), the proof's SHA-256 (LEAF_PROOF_SHA256), every
+            height within static_height_profile, the segment's proof with
+            one quotient-commitment felt changed refused by the leaf
+            program's preflight; stages (build, serialize, preflight and
+            its host permutations, tracegen, prove, keygen and commit_exe,
+            verify, plain checks), insn/s, app proofs/s, each chip's rows
+            and heights, peak memory; K7's two launches (six programs
+            streamed), the streamed launch alone with its jobs and the
+            shared one without it against their bounds; every kernel
+            against plain on the prove's own inputs
 
-then a {"kernels": [...]} line (each kernel's launches on paths 1 to 10, its
+then a {"kernels": [...]} line (each kernel's launches on paths 1 to 11, its
 __global__ entries, and K7's streamed launch on path 5's shapes) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero before the last line.  The kernels
@@ -223,6 +244,7 @@ compute over integers, so every comparison is exact equality.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import os
@@ -239,6 +261,8 @@ from openvm_tpu_torch import _build, fri, merkle, ntt, poseidon2 as p2, stark
 from openvm_tpu_torch.challenger import DuplexChallenger
 from openvm_tpu_torch.field import babybear as bb
 from openvm_tpu_torch.field import ext as ef
+from openvm_tpu_torch.native_compiler import (build_leaf_program, serialize_proof_felts,
+                                              static_height_profile)
 from openvm_tpu_torch.stark import codec, logup, lookup, prover as pv, quotient as qmod
 from openvm_tpu_torch.stark.config import FriParameters, StarkConfig
 from openvm_tpu_torch.stark.debug import check_constraints
@@ -259,7 +283,9 @@ from openvm_tpu_torch.vm.guest import (BN254_P, ECRECOVER_MODULI, FIB_EXECUTORS,
                                        u256_iter_reference)
 from openvm_tpu_torch.vm.machine import (FULL_EXECUTORS, NATIVE_EXECUTORS, NativeConfig,
                                          Rv32Config, VirtualMachine)
+from openvm_tpu_torch.vm.interpreter import ExecutionError
 from openvm_tpu_torch.vm.memory_tree import pv_proof, verify_pv_proof
+from openvm_tpu_torch.vm.preflight import PreflightInterpreter
 
 SEED = 0
 P = bb.P
@@ -451,6 +477,21 @@ NATIVE_STREAMED = ("poseidon2", "native_field_extension", "native_loadstore4", "
 # The SHA-256 of path 10's proof (1,599,737 bytes) as this script's first
 # run of path 10 on the H100 made it.
 NATIVE_PROOF_SHA256 = "3723f05f594a19ef13eb10b23112f046f8b3a2eb65ed878cf28879d6a65b8825"
+# Path 11: the leaf verifier, build_leaf_program over path 4's first
+# segment proof, proved on the native VM in the reference's leaf layout
+# (openvm_tpu/sdk.py:190: NativeConfig with 44 native public values; pv[0..8]
+# the app program's commitment, pv[8..12] the connector's public values,
+# pv[12..28] the memory-merkle public values, pv[28..44] zero), at natural
+# heights.  The verified proof is the one path 4 made; no app prove runs
+# again.
+LEAF_PVS = 44
+# The programs of K7's streamed launch on path 11 (path 10's six).
+LEAF_STREAMED = NATIVE_STREAMED
+# The SHA-256 of path 11's proof (1,811,513 bytes) as this script's first
+# run of path 11 on the H100 made it.  The JAX package cannot prove the
+# leaf program (its Builder's PERM_POS2 has e = 0, ROADMAP F5), so the
+# bytes have no JAX counterpart.
+LEAF_PROOF_SHA256 = "84c31ea17389b84696d1fb4b240a3ff3704cf203dadb2459bd69113af9aaac6c"
 # The plain K7 keeps every slot of a program over every row it evaluates:
 # a job whose slots over its whole quotient domain take more than this is
 # held to the kernel on blocks of QUOTIENT_BLOCK rows (keccakf's 2,890
@@ -1967,9 +2008,10 @@ def rebudget(vm, qrec: list, name: str, budget: int):
 def stream_timing(vm, qrec: list) -> dict:
     """K7's streamed launch on a segment's own keccakf and keccak_sponge
     jobs: each alone and the two together (one launch), beside their bound
-    and the global-memory mode's figure; each at every budget of
-    STREAM_BUDGETS and 32, 64 and 128 threads a block, each budget's words
-    held against plain on the first QUOTIENT_BLOCK rows; the segment's
+    and the global-memory mode's figure; each compiled at every budget of
+    STREAM_BUDGETS, each budget's words held against plain on the first
+    QUOTIENT_BLOCK rows (the budgets' times at 32, 64 and 128 threads a
+    block are PR 12's, PERF.md, and are not taken again); the segment's
     whole quotient call (both launches) and its shared launch alone;
     a job of fewer rows than QUOTIENT_BLOCK is compared on all its rows;
     keccak_sponge's plain version, and keccakf's on one block of
@@ -2004,17 +2046,9 @@ def stream_timing(vm, qrec: list) -> dict:
             err = max_abs_err(got[:block], qmod.evaluate_plain(*brec, 0, block))
             require(err == 0, f"{name} at budget {budget} differs from plain")
             del got
-            row = {"instructions": int(brec[0].code.shape[0]), "reloads": brec[0].reloads,
-                   "spills": brec[0].spills, "lane_words": brec[0].lane_words}
-            for threads in qmod.THREADS[::-1]:
-                qmod.STREAM_THREADS = threads
-                try:
-                    row[f"ms_{threads}"] = cuda_ms(lambda: qmod.evaluate(*brec), 3)
-                    row[f"warps_per_sm_{threads}"] = launch_summary(
-                        [name], [brec])[0]["warps_per_sm"]
-                finally:
-                    qmod.STREAM_THREADS = None
-            sweep[str(budget)] = row
+            sweep[str(budget)] = {"instructions": int(brec[0].code.shape[0]),
+                                  "reloads": brec[0].reloads, "spills": brec[0].spills,
+                                  "lane_words": brec[0].lane_words}
         out[name]["sweep"] = sweep
     sp = qrec[idx["keccak_sponge"]]
     out["keccak_sponge"]["plain_ms"] = cuda_ms(lambda: qmod.evaluate_plain(*sp), 1)
@@ -2478,6 +2512,130 @@ def phase_native(dev, cfg: StarkConfig, err: dict) -> dict:
           "launches": nr["launches"], "quotient": nr["quotient"],
           "plain_checks": nr["plain_checks"], "phase_s": time.perf_counter() - t0})
     return nr["launches"]
+
+
+def leaf_public_values(app: dict) -> list:
+    """The leaf program's 44 public values in the reference's layout, read
+    from the app segment's own proof: its program commitment (cached main
+    commit 0), the connector's and the memory-merkle AIR's public values,
+    and 16 zeros."""
+    proof, idx = app["proof"], app["air_index"]
+    by_air = {pa.air_id: pa for pa in proof.per_air}
+    return ([int(v) for v in np.asarray(proof.commitments.main_trace[0]).reshape(-1)]
+            + [int(v) for v in by_air[idx["connector"]].public_values]
+            + [int(v) for v in by_air[idx["memory_merkle"]].public_values]
+            + [0] * (LEAF_PVS - 28))
+
+
+def leaf_rejects(exe, app: dict) -> dict:
+    """The leaf program's preflight of the app proof with one felt of its
+    quotient commitment changed: a non-zero exit or an ExecutionError."""
+    bad = copy.deepcopy(app["proof"])
+    q = [int(v) for v in np.asarray(bad.commitments.quotient).reshape(-1)]
+    q[0] = (q[0] + 1) % P
+    bad.commitments.quotient = np.asarray(q, dtype=np.uint64)
+    t0 = time.perf_counter()
+    try:
+        pre = PreflightInterpreter(exe, LEAF_PVS).execute(
+            inputs=serialize_proof_felts(app["vk"], bad))
+        out = {"exit_code": pre.exit_code, "insns": pre.instret}
+    except ExecutionError as e:
+        out = {"execution_error": str(e)[:200]}
+    out["s"] = time.perf_counter() - t0
+    require(out.get("exit_code") != 0, f"path 11 accepted a tampered app proof: {out}")
+    return out
+
+
+def run_leaf(dev, cfg: StarkConfig, app: dict) -> dict:
+    """Path 11: the leaf verifier program over path 4's first segment proof
+    (``app``: its VM's verifying key, the proof and the AIRs' indices),
+    proved on the native VM (run_vm with ``NativeConfig``'s chips and 44
+    public values); its public values against the segment's own, its
+    pinned proof, a tampered app proof refused by the preflight, K7's two
+    launches beside their bounds, and every kernel against plain on the
+    prove's own inputs."""
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    vk, proof = app["vk"], app["proof"]
+    require([pa.air_id for pa in proof.per_air] == list(range(len(vk.per_air)))
+            and app["air_index"]["connector"] == 1 and app["air_index"]["memory_merkle"] == 3,
+            "path 11 reads the connector at air 1 and the memory tree at air 3")
+    log_degrees = [pa.log_degree for pa in proof.per_air]
+    t0 = time.perf_counter()
+    exe, meta = build_leaf_program(vk, log_degrees, expose_memory_pvs=True)
+    t1 = time.perf_counter()
+    hints = serialize_proof_felts(vk, proof)
+    t2 = time.perf_counter()
+    profile = static_height_profile(exe)
+    rejected = leaf_rejects(exe, app)
+    _build.reset_launches()
+    r = run_vm(dev, NativeConfig(stark=cfg, num_native_pvs=LEAF_PVS), exe, warm=False,
+               inputs=hints)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches, vm, pre = r["launches"], r["vm"], r["pre"]
+    require_one_prove(launches, "path 11")
+    require(pre.exit_code == 0 and pre.instret > 0, f"path 11's leaf program exited "
+            f"{pre.exit_code} after {pre.instret} instructions")
+    pvs = [int(v) for v in r["result"]["public_values"]]
+    want = leaf_public_values(app)
+    require(pvs == want, f"path 11's public values {pvs} against {want}")
+    rows = {k: len(next(iter(v.values()))) for k, v in pre.records.items()}
+    heights = {vm.airs[pa.air_id].name: 1 << pa.log_degree for pa in r["proof"].per_air}
+    require(all(heights.get(k, 1) <= h for k, h in profile.items()),
+            f"path 11's heights {heights} past the static profile {profile}")
+    blob = codec.encode_proof(r["proof"])
+    sha = hashlib.sha256(blob).hexdigest()
+    require(sha == LEAF_PROOF_SHA256, f"path 11's proof sha {sha}")
+    qrec = r["record"]["quotient"]
+    both, alone, rest = quotient_split(vm, qrec, LEAF_STREAMED, "path 11")
+    alone["jobs"] = {a.name: {"log_rows": q[2] + q[3], "instructions": int(q[0].code.shape[0])}
+                     for a, q in zip(vm.airs, qrec) if a.name in LEAF_STREAMED}
+    quotient = {**both, "streamed_alone": alone, "without_streamed": rest}
+    tracegen_s = r["record"]["tracegen_s"]
+    r.update(launches=launches, heights=heights, public_values=pvs, blob=blob, sha=sha,
+             peak_gb=peak_gb, start_gb=start_gb, quotient=quotient, rows=rows,
+             profile=profile, insns_static=meta["num_insns"], rejected=rejected,
+             build_s=t1 - t0, serialize_s=t2 - t1, hint_vectors=len(hints),
+             hint_felts=sum(len(h) for h in hints),
+             host_permutations={"n": r["pre"].host_perms, "s": r["pre"].host_perm_s},
+             tracegen_s={k: tracegen_s[k] for k in (*NATIVE_EXECUTORS, "poseidon2")},
+             plain_checks=check_vm_kernels(vm, r.pop("record")))
+    return r
+
+
+def phase_leaf(dev, cfg: StarkConfig, app: dict, err: dict) -> dict:
+    """Path 11 (``run_leaf``) and its line; folds its plain checks into
+    ``err``.  Returns its launches."""
+    t0 = time.perf_counter()
+    lr = run_leaf(dev, cfg, app)
+    err.update({k: max(v, err.get(k, 0)) for k, v in lr["plain_checks"]["max"].items()})
+    insns, prove_s, s = lr["pre"].instret, lr["s"]["prove"], lr["s"]
+    stages = lr["stages_s"]
+    emit({"phase": "leaf", "program": "build_leaf_program(path 4's segment 0, "
+          "expose_memory_pvs=True)", "config": f"NativeConfig(num_native_pvs={LEAF_PVS})",
+          "app_log_degrees": [pa.log_degree for pa in app["proof"].per_air],
+          "insns": insns, "insns_static": lr["insns_static"],
+          "static_profile": lr["profile"], "rows": lr["rows"], "heights": lr["heights"],
+          "hint_vectors": lr["hint_vectors"], "hint_felts": lr["hint_felts"],
+          "fri_queries": cfg.fri.num_queries, "pow_bits": cfg.fri.proof_of_work_bits,
+          "stage_s": {"build": lr["build_s"], "serialize": lr["serialize_s"],
+                      "preflight": stages["preflight"],
+                      "host_permutations": lr["host_permutations"]["s"],
+                      "tracegen": stages["tracegen"], "prove": prove_s,
+                      "keygen_and_commit_exe": s["keygen_and_commit_exe"],
+                      "verify": s["verify"], "plain_checks": lr["plain_checks"]["s"],
+                      "tamper_preflight": lr["rejected"]["s"]},
+          "prove_stage_s": stages, "tracegen_s": lr["tracegen_s"],
+          "host_permutations": lr["host_permutations"],
+          "insn_per_s_cold": insns / prove_s, "app_proofs_per_s_cold": 1 / prove_s,
+          "verified": True, "public_values": lr["public_values"],
+          "tampered_app_proof": lr["rejected"],
+          "proof_bytes": len(lr["blob"]), "proof_sha256": lr["sha"],
+          "peak_gb": lr["peak_gb"], "peak_above_start_gb": lr["peak_gb"] - lr["start_gb"],
+          "launches": lr["launches"], "quotient": lr["quotient"],
+          "plain_checks": lr["plain_checks"], "phase_s": time.perf_counter() - t0})
+    return lr["launches"]
 
 
 def tamper_poseidon2(vm, ctxs: list, device) -> list:
@@ -2985,6 +3143,9 @@ def run(dev: torch.device) -> int:
           "plain_checks": c_checks,
           "quotient_one_launch": quotient_path4_timing(dev, rng, cvm, seg_heights[0])})
     emit({"phase": "debug", **run_debug_check(dev, cvm)})
+    # path 11 verifies segment 0's proof: keep it, its VM's verifying key
+    # and the AIRs' indices, and nothing of path 4 on the card
+    app = {"vk": cvm.pk.vk, "proof": cont["proofs"][0], "air_index": dict(cvm.air_index)}
     del cont, cvm
 
     kernels = timing(dev, setup, rng, main, err, traces, launches, proved,
@@ -3002,6 +3163,8 @@ def run(dev: torch.device) -> int:
     b_launches = phase_pairing(dev, cfg, err)
     # ---- path 10: the native VM, a leaf verifier's FRI query phase -----------
     n_launches = phase_native(dev, cfg, err)
+    # ---- path 11: the leaf verifier over path 4's first segment proof ------
+    l_launches = phase_leaf(dev, cfg, app, err)
     # the streamed launch's transpose, launched on paths 4-6 only: its row
     # from keccakf's main LDE on path 5
     tr = k_stream["transpose"]
@@ -3023,6 +3186,7 @@ def run(dev: torch.device) -> int:
         k["launches_path5"], k["launches_path6"] = k_launches[k["name"]], s_launches[k["name"]]
         k["launches_path7"], k["launches_path8"] = u_launches[k["name"]], e_launches[k["name"]]
         k["launches_path9"], k["launches_path10"] = b_launches[k["name"]], n_launches[k["name"]]
+        k["launches_path11"] = l_launches[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], err.get(k["name"], 0))
     next(k for k in kernels if k["name"] == "quotient")["stream_path5"] = k_stream
     print(setup["nvidia_smi"].splitlines()[0], flush=True)

@@ -70,16 +70,14 @@ P = bb.P
 # (reloading loaded cells, constants and selectors rather than holding
 # them, spilling computed values) and runs in the streamed launch, its code
 # streamed from global memory through a ring of CODE_RING instructions
-# beside its slots, in blocks of STREAM_THREADS threads (None:
-# ``block_threads``'s choice).  BUDGET is the fastest of 48-384 words on
-# path 5's keccakf job (chip_smoke.py ``stream_timing``, PERF.md): at 48
+# beside its slots, in blocks of ``block_threads``'s choice.  BUDGET is
+# the fastest of 48-384 words on path 5's keccakf job (chip_smoke.py ``stream_timing``, PERF.md): at 48
 # words and 128 threads, 8 blocks of the kernel's 63 registers a thread
 # fill an SM, and the interpreter's time falls with the warps it holds.
 SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 THREADS = (128, 64, 32)
 BUDGET = 48
-STREAM_THREADS = None
 CODE_RING = 128
 
 
@@ -1167,8 +1165,7 @@ def launch_plan(progs: list) -> list:
     blocks stage their job's code (up to the largest program's) beside
     their rows' slots; the budgeted ones share the streamed launch, whose
     blocks stream their code through a ring of CODE_RING instructions
-    beside their slots, in blocks of STREAM_THREADS threads (``block_threads``'s choice when
-    None).  A block runs one job, so each job puts its extension file
+    beside their slots, in blocks of ``block_threads``'s choice.  A block runs one job, so each job puts its extension file
     after its own base file (or, budgeted, in the same file)."""
     plan = []
     for streamed in (False, True):
@@ -1178,11 +1175,6 @@ def launch_plan(progs: list) -> list:
         lane_words = max(max(progs[k].lane_words for k in idx), 1)
         code_cap = CODE_RING if streamed else max(int(progs[k].code.shape[0]) for k in idx)
         threads = block_threads(lane_words, code_cap)
-        if streamed and STREAM_THREADS:
-            threads = STREAM_THREADS
-            if lane_words * 4 * threads + 16 * code_cap > SMEM_BYTES:
-                raise ValueError(f"{lane_words} slot words a row do not fit "
-                                 f"{threads} threads' shared memory")
         plan.append((idx, streamed, lane_words, code_cap, threads))
     return plan
 

@@ -103,6 +103,10 @@ class PreflightResult:
     final_memory_tree: object = None
     # the host seconds of each HintFinalExp phantom, in execution order
     hint_s: list = field(default_factory=list)
+    # the native handlers' host Poseidon2 permutations (PERM_POS2,
+    # COMP_POS2, VERIFY_BATCH): how many, and their host seconds
+    host_perms: int = 0
+    host_perm_s: float = 0.0
 
 
 @dataclass
@@ -242,6 +246,7 @@ class PreflightInterpreter:
         recs: dict = defaultdict(lambda: defaultdict(list))
         exec_counts: dict = defaultdict(int)
         hint_s: list = []
+        perm_stats = [0, 0.0]  # host permutations: count, seconds
         ts = B.INITIAL_TIMESTAMP
         pc_base, step = exe.program.pc_base, exe.program.step
         instret = 0
@@ -250,6 +255,14 @@ class PreflightInterpreter:
         def reg_read(idx, tick):
             data, pts = mem.read(1, idx, ts + tick)
             return data, pts
+
+        def host_permute(st16):
+            t_ = time.perf_counter()
+            out_ = [int(x) for x in _host().permute(
+                np.asarray(st16, dtype=np.uint64))]
+            perm_stats[0] += 1
+            perm_stats[1] += time.perf_counter() - t_
+            return out_
 
         def py_stats():
             if seg_ctx is None:
@@ -1054,8 +1067,6 @@ class PreflightInterpreter:
                 r_top = recs["verify_batch"]
                 r_ins = recs["verify_batch_inside"]
                 desc_ptr, sib_ptr, bits_ptr, commit_ptr, depth = a, b, c, d, e
-                perm = lambda st16: [int(x) for x in _host().permute(
-                    np.asarray(st16, dtype=np.uint64))]
                 ts0 = ts
                 bit_base = ts0 + 3 * (depth + 1)
                 sib_base = bit_base + depth
@@ -1096,7 +1107,7 @@ class PreflightInterpreter:
                                 else:
                                     absorbed.append(state_in[i])
                                     pts_m.append(0)
-                            state = perm(absorbed + state_in[8:])
+                            state = host_permute(absorbed + state_in[8:])
                             _append(r_ins, ts_seg=ts_acc, seg_ptr=segp,
                                     seg_len=segl, j=j, rem=rem,
                                     is_first=int(j == 0),
@@ -1112,7 +1123,7 @@ class PreflightInterpreter:
                     if s_ == 0:
                         node = list(digest)
                     elif has_seg:
-                        out = perm(node_in + list(digest))
+                        out = host_permute(node_in + list(digest))
                         node, out_hi = out[:8], out[8:]
                     is_end = int(s_ == depth)
                     comm, pts_comm = zero8, [0] * 8
@@ -1154,7 +1165,7 @@ class PreflightInterpreter:
                     node_in = list(node)
                     in_l = sib if bitv else node_in
                     in_r = node_in if bitv else sib
-                    out = perm(list(in_l) + list(in_r))
+                    out = host_permute(list(in_l) + list(in_r))
                     node, out_hi = out[:8], out[8:]
                     _append(r_top, pc=pc, ts=ts0, depth=depth, f_op=f,
                             desc_ptr=desc_ptr, sib_ptr=sib_ptr,
@@ -1178,8 +1189,7 @@ class PreflightInterpreter:
                     addr = (b + i) if (i < 8 or not is_comp) else (c + i - 8)
                     w, p_ = mem.read(4, addr, ts + i)
                     inp.append(w[0]), pts_r.append(p_)
-                out = [int(v) for v in _host().permute(
-                    np.asarray(inp, dtype=np.uint64))]
+                out = host_permute(inp)
                 n_w = 8 if is_comp else 16
                 prev_w, pts_w = [0] * 16, [0] * 16
                 for i in range(n_w):
@@ -1451,7 +1461,8 @@ class PreflightInterpreter:
             records=out, touched=touched, init_words=init_words,
             exec_counts=counts, final_pc=pc, final_ts=ts,
             exit_code=exit_code, instret=instret, public_values=pvs,
-            segment_full=segment_full, hint_s=hint_s)
+            segment_full=segment_full, hint_s=hint_s,
+            host_perms=perm_stats[0], host_perm_s=perm_stats[1])
         if suspended:
             if nvm is not None:
                 # memory stays in the handle across segments; the state

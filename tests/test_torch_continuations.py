@@ -7,13 +7,16 @@ proves every fib(20) segment on the CPU with its plain versions: its
 segment contexts equal the JAX package's, its segment proofs' SHA-256 equal
 the pinned hashes of the JAX package's (recomputed live under
 OPENVM_SLOW), the JAX package's ``verify_segments`` accepts them, and a
-broken memory-root chain fails the port's ``verify_segments``.  fib(400) at a height cap of
-256 rows gives the JAX package's metered counts, segments, public values
-and height profile (contexts only, no prove), and the Python preflight loop
-gives the C++ core's segments.  tests/test_torch_persistent.py holds the
-single-segment persistent proof and the checker; like it, this file keeps
-to a few test functions, so that ``--dist loadfile`` queues it after
-tests/test_aggregation.py (see its docstring).
+broken memory-root chain fails the port's ``verify_segments``.  Segment 0's
+proof drives both packages' leaf verifier programs through their
+preflights (no prove).  fib(400) at a height cap of 256 rows gives the JAX
+package's metered counts, segments, public values and height profile
+(contexts only, no prove), and the Python preflight loop gives the C++
+core's segments.  tests/test_torch_persistent.py holds the single-segment
+persistent proof and the checker.  This file keeps to a few test
+functions: at seven, ``--dist loadfile`` queues it just ahead of
+tests/test_aggregation.py's six (see tests/test_torch_persistent.py's
+docstring).
 """
 
 import copy
@@ -24,17 +27,22 @@ import numpy as np
 import pytest
 import torch
 
+from openvm_tpu.native_compiler import verifier_program as jvp
 from openvm_tpu.stark import codec as jcodec
 from openvm_tpu.vm import machine as jmachine
+from openvm_tpu.vm.preflight import PreflightInterpreter as JaxPreflight
 from openvm_tpu_torch.field import babybear as bb
+from openvm_tpu_torch.native_compiler import build_leaf_program, serialize_proof_felts
 from openvm_tpu_torch.stark import FriParameters, StarkConfig, codec
 from openvm_tpu_torch.stark.verifier import VerificationError
 from openvm_tpu_torch.vm import machine, memory_tree
 from openvm_tpu_torch.vm.guest import FIB_EXECUTORS, build_fib_program, fib
 from openvm_tpu_torch.vm.machine import Rv32Config, VirtualMachine
+from openvm_tpu_torch.vm.preflight import PreflightInterpreter
 
 from test_vm_prove import TEST_STARK as JAX_TEST_STARK
 from test_vm_prove import build_fib_program as jax_build_fib_program
+from test_torch_recursion import assert_programs_equal, rejects
 
 torch.set_num_threads(1)
 
@@ -163,6 +171,42 @@ def test_broken_root_chain_fails(fib20, monkeypatch):
     monkeypatch.setattr(machine, "stark_verify", lambda vk, proof: None)
     with pytest.raises(VerificationError, match="memory root chain broken"):
         vm.verify_segments(proofs, fib20["exe"])
+
+
+def test_leaf_program_verifies_segment_0(fib20):
+    """build_leaf_program over segment 0's proof equals the JAX package's
+    with PERM_POS2's e masked; one blob, decoded by each package's codec,
+    serialises to one hint stream; each package's preflight of its own
+    program exits 0 with the reference's leaf public values (openvm_tpu/
+    sdk.py:190, 44 of them), read from the segment's own proof: its
+    program commitment, the connector's and the memory tree's public
+    values, zeros.  The segment's proof with one quotient-commitment felt
+    changed is refused."""
+    vm, jvm, proof = fib20["vm"], fib20["jax_vm"], fib20["proofs"][0]
+    log_degrees = [pa.log_degree for pa in proof.per_air]
+    exe, meta = build_leaf_program(vm.pk.vk, log_degrees, expose_memory_pvs=True)
+    jexe, jmeta = jvp.build_leaf_program(jvm.pk.vk, log_degrees, expose_memory_pvs=True)
+    assert meta == jmeta
+    assert_programs_equal(exe, jexe)
+    blob = codec.encode_proof(proof)
+    hints = serialize_proof_felts(vm.pk.vk, codec.decode_proof(blob))
+    assert hints == jvp.serialize_proof_felts(jvm.pk.vk, jcodec.decode_proof(blob))
+    want = ([int(v) for v in proof.commitments.main_trace[0]]
+            + _proof_pvs(vm, proof, "connector") + _proof_pvs(vm, proof, "memory_merkle")
+            + [0] * 16)
+    for pre in (PreflightInterpreter(exe, 44).execute(inputs=hints),
+                JaxPreflight(jexe, 44).execute(inputs=hints)):
+        assert pre.exit_code == 0
+        assert [pre.touched.get((3, k), [0])[0] for k in range(44)] == want
+    bad = copy.deepcopy(proof)
+    q = [int(v) for v in bad.commitments.quotient]
+    q[0] = (q[0] + 1) % P
+    bad.commitments.quotient = np.asarray(q, dtype=np.uint64)
+    assert rejects(exe, serialize_proof_felts(vm.pk.vk, bad), 44)
+
+
+def _proof_pvs(vm, proof, name):
+    return [int(v) for v in proof.per_air[vm.air_index[name]].public_values]
 
 
 def _pvs(vm, ctxs, name):

@@ -83,13 +83,16 @@ def test_ctypes_signatures_match_the_cuda_sources():
 
 def test_every_port_package_is_checked():
     """The import check above walks every module of the port: the pairing
-    host library, the Fp2, Fp12 and native circuit modules and the native
-    Builder among them."""
+    host library, the Fp2, Fp12 and native circuit modules, the native
+    Builder, the in-program challenger and the verifier program among
+    them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for module in ("pairing/__init__.py", "pairing/tower.py", "pairing/curve.py",
                    "pairing/miller.py", "pairing/final_exp.py", "vm/circuit/fp2.py",
                    "vm/circuit/fp12.py", "vm/circuit/native.py",
-                   "native_compiler/__init__.py", "native_compiler/builder.py"):
+                   "native_compiler/__init__.py", "native_compiler/builder.py",
+                   "native_compiler/challenger.py",
+                   "native_compiler/verifier_program.py"):
         assert f"openvm_tpu_torch/{module}" in names, module
 
 
